@@ -5,19 +5,23 @@
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
 holds each kernel against its plain PyTorch twin on the card, then drives the
-port's main path — ``KronOp(ps, qs)(x, factors)`` on CUDA tensors — at full
-size and checks that every call went through the kernels.  Phases, one line
-each:
+port's main path — ``KronOp(ps, qs)(x, factors)`` on CUDA tensors and
+``torch.autograd.grad`` through it — at full size and checks that every call
+went through the kernels.  Phases, one line each:
 
   1. build / device: nvcc time and libraries; the card's name and power limit.
-  2. check: each kernel against its plain twin at stated tolerances (relative
-     to max|ref|: 1e-5 f32, 1e-2 bf16, 1e-12 f64), and one small f32 KronOp
-     against ``x @ kron_matrix(factors)``.
+  2. check: each of the five kernels against its plain twin at stated
+     tolerances (relative to max|ref|: 1e-5 f32, 1e-2 bf16, 1e-12 f64; the
+     stage backward's dF against its twin run in f64 at 1e-4 f32, 2e-2
+     bf16), and one small f32 KronOp, value and gradients, against
+     ``x @ kron_matrix(factors)``.
   3. main: five full-size KronOp calls (fig9, gp16, ffn, compress,
-     fig9-unfused): launches per call (asserted), error against the plain
-     twins, and CUDA-event times of the op, of its plain twins, of the
-     shuffle algorithm and of one ``torch.einsum`` call, beside the card's
-     bound for the same function.
+     fig9-unfused) and five full-size backward passes (fig9-grad, fig9-dx,
+     gp16-grad, ffn-grad, fig9-unfused-grad): launches per call (asserted),
+     error against the plain twins, the backward run twice and asserted
+     bitwise equal, and CUDA-event times of the call, of its plain twins and
+     of one PyTorch yardstick (``torch.einsum``, or ``torch.autograd.grad``
+     through it), beside the card's bound for the same function.
   4. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit.
   5. last line: ``{"ok": true, "device": {...}}``.
 
@@ -43,12 +47,21 @@ PEAKS = {
     "H200": {"bw": 4.8e12, torch.float32: 67e12, torch.bfloat16: 989e12},
 }
 TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float64: 1e-12}
+# Gradients, relative to max|ref|: dx against the same-dtype twins, dF
+# against the twins run in f64 (an f32 dF sums up to 3.4e7 terms at fig9).
+GRAD_TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float64: 1e-12}
 WARMUP, ITERS = 2, 10
 
-CHAIN_SOURCE = "src/repro_torch/kernels/csrc/chain_fwd.cu"
-SLICED_SOURCE = "src/repro_torch/kernels/csrc/sliced.cu"
-CHAIN_REPLACES = "src/repro/kernels/emit.py:575"
-SLICED_REPLACES = "src/repro/kernels/kron_sliced.py:83"
+CSRC = "src/repro_torch/kernels/csrc/"
+# name -> (source, the TPU kernel it replaces, the main-path case it is timed in)
+KERNELS = {
+    "chain_fwd": (CSRC + "chain_fwd.cu", "src/repro/kernels/emit.py:575", "fig9"),
+    "chain_bwd": (CSRC + "chain_bwd.cu", "src/repro/kernels/emit.py:603", "fig9-dx"),
+    "grad": (CSRC + "grad.cu", "src/repro/kernels/emit.py:759", "fig9-grad"),
+    "sliced": (CSRC + "sliced.cu", "src/repro/kernels/kron_sliced.py:83", "fig9-unfused"),
+    "sliced_t": (CSRC + "sliced_t.cu", "src/repro/kernels/kron_sliced_t.py:78",
+                 "fig9-unfused-grad"),
+}
 
 
 def nvidia_smi_line() -> str:
@@ -98,17 +111,24 @@ def compare(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     return err, err / scale if scale else err
 
 
-def stage_tiles(m: int, k: int, ps, t_qs, budget: int) -> tuple[int, int]:
-    """(t_m, t_k) for a direct chain_cuda call: the widest t_k, then the
-    most rows, inside the planner's per-block budget."""
-    from repro_torch.kernels.emit import fused_growth
+def stage_tiles(m: int, k: int, ps, qs, t_qs, budget: int, kind: str = "fwd"):
+    """(t_m, t_k) for a direct chain_cuda / chain_bwd_cuda / grad_cuda call:
+    the widest t_k, then the most rows, whose per-row live set (the
+    kernel's growth model times t_k) fits the planner's per-block budget."""
+    from repro_torch.kernels import emit
 
     pprod = math.prod(ps)
-    growth = fused_growth(ps, t_qs, t_qs)
+
+    def per_row(t_k):
+        if kind == "grad":
+            return emit.grad_live_elems(t_k, ps, qs)
+        growth = emit.fused_growth if kind == "fwd" else emit.transposed_growth
+        return t_k * growth(ps, qs, t_qs)
+
     per = k // pprod
-    d = max(d for d in range(1, per + 1) if per % d == 0 and pprod * d * growth <= budget)
+    d = max(d for d in range(1, per + 1) if per % d == 0 and per_row(pprod * d) <= budget)
     t_k = pprod * d
-    t_m = max(t for t in range(1, m + 1) if m % t == 0 and t * t_k * growth <= budget)
+    t_m = max(t for t in range(1, m + 1) if m % t == 0 and t * per_row(t_k) <= budget)
     return t_m, t_k
 
 
@@ -141,10 +161,11 @@ SLICED_CASES = [
 
 def check_kernels(gen) -> dict:
     from repro_torch.core import KronOp, kron_matrix
-    from repro_torch.kernels import emit, kron_sliced
+    from repro_torch.kernels import emit, kron_sliced, kron_sliced_t
 
-    passed = {"chain_fwd": 0, "sliced": 0}
+    passed = {name: 0 for name in KERNELS}
     failures = []
+    budget = emit.SMEM_BUDGET_ELEMS
 
     def record(kernel, name, got, ref, tol):
         err, rel = compare(got, ref)
@@ -162,27 +183,61 @@ def check_kernels(gen) -> dict:
         k = math.prod(ps) * s
         x = randn(gen, (b, m, k), dtype)
         fs = [randn(gen, (b, p, q), dtype) for p, q in zip(ps, qs)]
-        t_m, t_k = stage_tiles(m, k, ps, t_qs or qs, emit.SMEM_BUDGET_ELEMS)
+        t_m, t_k = stage_tiles(m, k, ps, qs, t_qs or qs, budget)
         got = emit.chain_cuda(x, *fs, t_b=1, t_m=t_m, t_k=t_k, t_qs=t_qs)
         ref = emit.chain_reference(x, *fs)
         torch.cuda.synchronize()
         record("chain_fwd", f"{name} tiles=({t_m},{t_k})", got, ref, TOLERANCE[dtype])
 
+        dy = randn(gen, (b, m, math.prod(qs) * s), dtype)
+        t_m, t_k = stage_tiles(m, k, ps, qs, t_qs or qs, budget, kind="bwd")
+        got = emit.chain_bwd_cuda(dy, *fs, t_b=1, t_m=t_m, t_k=t_k, t_qs=t_qs)
+        ref = emit.chain_bwd_reference(dy, *fs)
+        torch.cuda.synchronize()
+        record("chain_bwd", f"{name} tiles=({t_m},{t_k})", got, ref, TOLERANCE[dtype])
+
+        # The stage backward takes Q whole.
+        t_m, t_k = stage_tiles(m, k, ps, qs, qs, budget, kind="grad")
+        dx, dfs = emit.grad_cuda(x, dy, *fs, t_b=1, t_m=t_m, t_k=t_k)
+        rdx, _ = emit.grad_reference(x, dy, *fs)
+        _, rdfs = emit.grad_reference(x.double(), dy.double(), *(f.double() for f in fs))
+        torch.cuda.synchronize()
+        record("grad", f"{name} dx tiles=({t_m},{t_k})", dx, rdx, TOLERANCE[dtype])
+        for i, (d, r) in enumerate(zip(dfs, rdfs)):
+            record("grad", f"{name} dF{i} (vs f64)", d, r, GRAD_TOLERANCE[dtype])
+
     for name, m, p, q, s, dtype in SLICED_CASES:
         x = randn(gen, (m, s * p), dtype)
         f = randn(gen, (p, q), dtype)
+        acc_bytes = emit.acc_dtype_for(dtype).itemsize
         got = kron_sliced.sliced_multiply_cuda(x, f)
         ref = kron_sliced.sliced_multiply_reference(x, f)
         torch.cuda.synchronize()
-        tiles = kron_sliced.sliced_tiles(m, s, p, q, emit.acc_dtype_for(dtype).itemsize)
+        tiles = kron_sliced.sliced_tiles(m, s, p, q, acc_bytes)
         record("sliced", f"{name} tiles={tiles}", got, ref, TOLERANCE[dtype])
+        dy = randn(gen, (m, q * s), dtype)
+        got = kron_sliced_t.sliced_multiply_t_cuda(dy, f)
+        ref = kron_sliced_t.sliced_multiply_t_reference(dy, f)
+        torch.cuda.synchronize()
+        tiles = kron_sliced.sliced_tiles(m, s, p, q, acc_bytes, kind="bwd")
+        record("sliced_t", f"{name} tiles={tiles}", got, ref, TOLERANCE[dtype])
 
-    # One small KronOp against the dense oracle x @ (F^1 (x) ... (x) F^N).
+    # One small KronOp against the dense oracle x @ (F^1 (x) ... (x) F^N):
+    # its value, and its x and factor gradients against torch.autograd.
     ps, qs = (4, 8, 4), (8, 4, 8)
-    x = randn(gen, (16, math.prod(ps)), torch.float32)
-    fs = [randn(gen, (p, q), torch.float32) for p, q in zip(ps, qs)]
-    record("chain_fwd", "KronOp vs x @ kron_matrix", KronOp(ps, qs)(x, fs),
-           x @ kron_matrix(fs), TOLERANCE[torch.float32])
+    x = randn(gen, (16, math.prod(ps)), torch.float32).requires_grad_()
+    fs = [randn(gen, (p, q), torch.float32).requires_grad_() for p, q in zip(ps, qs)]
+    op = KronOp(ps, qs)
+    y = op(x, fs)
+    want = x @ kron_matrix(fs)
+    record("chain_fwd", "KronOp vs x @ kron_matrix", y.detach(), want.detach(),
+           TOLERANCE[torch.float32])
+    ct = randn(gen, tuple(y.shape), torch.float32)
+    got = torch.autograd.grad(y, [x, *fs], ct)
+    ref = torch.autograd.grad(want, [x, *fs], ct)
+    for i, (a, r) in enumerate(zip(got, ref)):
+        record("grad", "KronOp " + ("dx" if i == 0 else f"dF{i - 1}") + " vs autograd",
+               a, r, GRAD_TOLERANCE[torch.float32])
 
     if failures:
         raise AssertionError(f"kernels disagree with their plain twins: {failures}")
@@ -192,6 +247,36 @@ def check_kernels(gen) -> dict:
 # ---------------------------------------------------------------------------
 # Phase 3: the main path at full size
 # ---------------------------------------------------------------------------
+
+def _counter_sites():
+    """(counter name, module, attribute) of every launch counter."""
+    from repro_torch.core import engine
+    from repro_torch.kernels import emit, kron_sliced, kron_sliced_t
+
+    return (
+        ("chain_fwd", emit, "chain_launches"),
+        ("chain_bwd", emit, "chain_bwd_launches"),
+        ("grad", emit, "grad_launches"),
+        ("grad_reduce", emit, "grad_reduce_launches"),
+        ("sliced", kron_sliced, "sliced_launches"),
+        ("sliced_t", kron_sliced_t, "sliced_t_launches"),
+        ("bwd_per_factor_fallbacks", engine, "bwd_per_factor_fallbacks"),
+    )
+
+
+def reset_counters() -> None:
+    for _, mod, attr in _counter_sites():
+        setattr(mod, attr, 0)
+
+
+def read_counters() -> dict:
+    return {name: getattr(mod, attr) for name, mod, attr in _counter_sites()}
+
+
+def expect(**counts) -> dict:
+    """The full counter dict: the given counts, every other counter 0."""
+    return {name: counts.get(name, 0) for name, _, _ in _counter_sites()}
+
 
 # (name, M, ps, qs, dtype, plan) -- plan "auto" or None (unfused baseline)
 MAIN_CASES = [
@@ -242,7 +327,6 @@ def einsum_call(x, fs):
 def run_main(gen, peaks) -> list[dict]:
     from repro_torch.core import KronOp, KronProblem, kron_matmul_shuffle
     from repro_torch.core.engine import _lowered
-    from repro_torch.kernels import emit, kron_sliced
 
     rows = []
     for name, m, ps, qs, dtype, plan in MAIN_CASES:
@@ -251,18 +335,17 @@ def run_main(gen, peaks) -> list[dict]:
         fs = [randn(gen, (p, q), dtype) for p, q in zip(ps, qs)]
         op = KronOp(ps, qs, plan=plan)
         # The main path's run: counts set to 0 just before, read just after.
-        emit.chain_launches = 0
-        kron_sliced.sliced_launches = 0
+        reset_counters()
         y = op(x, fs)
         torch.cuda.synchronize()
-        launches = {"chain_fwd": emit.chain_launches, "sliced": kron_sliced.sliced_launches}
+        launches = read_counters()
         plan_used = op.plan
         if plan_used is None:
-            want = {"chain_fwd": 0, "sliced": len(ps)}
             n_stages = len(ps)
+            want = expect(sliced=n_stages)
         else:
             n_stages = len(_lowered(plan_used, op.ps, op.qs).instrs)
-            want = {"chain_fwd": n_stages, "sliced": 0}
+            want = expect(chain_fwd=n_stages)
         if launches != want:
             raise AssertionError(f"{name}: launches {launches}, expected {want}")
         if tuple(y.shape) != op.out_shape(x.shape):
@@ -299,6 +382,166 @@ def run_main(gen, peaks) -> list[dict]:
     return rows
 
 
+# (name, M, ps, qs, dtype, plan, factor grads) -- every backward runs with a
+# runtime cotangent: a .sum() loss would make the x-gradient constant.
+BWD_CASES = [
+    ("fig9-grad", 1024, (32,) * 4, (32,) * 4, torch.float32, "auto", True),
+    ("fig9-dx", 1024, (32,) * 4, (32,) * 4, torch.float32, "auto", False),
+    ("gp16-grad", 16, (16,) * 6, (16,) * 6, torch.float32, "auto", True),
+    # The qwen3-4b kron_ffn up projection, as in the forward's ffn case.
+    ("ffn-grad", 4096, (64, 40), (128, 76), torch.bfloat16, "auto", True),
+    ("fig9-unfused-grad", 1024, (32,) * 4, (32,) * 4, torch.float32, None, True),
+]
+
+
+def plain_bwd(op, x, fs, g, factors: bool):
+    """The op's backward through the kernels' plain twins on the card, in
+    the tensors' dtype: (dx, [dF^1 .. dF^N] in the accumulator dtype, or
+    None).  The same program as ``engine._program_bwd`` / ``_per_factor_bwd``."""
+    from repro_torch.core.engine import _lowered
+    from repro_torch.kernels import emit, kron_sliced, kron_sliced_t
+
+    rev = tuple(reversed(fs))
+    n = len(fs)
+    if op.plan is None:
+        inputs = [x]
+        if factors:
+            for f in rev[:-1]:
+                inputs.append(kron_sliced.sliced_multiply_reference(inputs[-1], f))
+        dfs = []
+        for i in reversed(range(n)):
+            if factors:
+                dfs.append(emit.sliced_vjp_factor(inputs[i], g, *rev[i].shape))
+            g = kron_sliced_t.sliced_multiply_t_reference(g, rev[i])
+        return g, (dfs if factors else None)
+    prog = _lowered(op.plan, op.ps, op.qs)
+    if any(ins.kind == emit.PREKRON for ins in prog.instrs):
+        raise AssertionError("the smoke's cases plan no prekron stage")
+    sfs = [tuple(rev[i][None] for i in ins.factor_ids) for ins in prog.instrs]
+    inputs = [x]
+    if factors:
+        for ins, sf in zip(prog.instrs[:-1], sfs):
+            inputs.append(emit.chain_reference(inputs[-1][None], *sf, acc_dtype=ins.acc_dtype)[0])
+    by_id = {}
+    for idx in reversed(range(len(prog.instrs))):
+        ins, sf = prog.instrs[idx], sfs[idx]
+        if factors:
+            g3, dfs = emit.grad_reference(inputs[idx][None], g[None], *sf, acc_dtype=ins.acc_dtype)
+            by_id.update({fid: d[0] for fid, d in zip(ins.factor_ids, dfs)})
+        else:
+            g3 = emit.chain_bwd_reference(g[None], *sf, acc_dtype=ins.acc_dtype)
+        g = g3[0]
+    return g, ([by_id[n - 1 - j] for j in range(n)] if factors else None)
+
+
+def plain_dfs_f64(op, x, fs, g) -> list:
+    """The factor gradients through the plain twins in f64, summed over row
+    chunks of at most 2^26 elements of x (every row's chain is independent;
+    dF is a sum over rows)."""
+    m, k = x.shape
+    rows = max(d for d in range(1, m + 1) if m % d == 0 and d * k <= max(k, 2 ** 26))
+    fs64 = [f.double() for f in fs]
+    total = None
+    for r0 in range(0, m, rows):
+        _, dfs = plain_bwd(op, x[r0:r0 + rows].double(), fs64, g[r0:r0 + rows].double(), True)
+        total = dfs if total is None else [a + b for a, b in zip(total, dfs)]
+    return total
+
+
+def run_backward(gen, peaks) -> list[dict]:
+    from repro_torch.core import KronOp, KronProblem
+    from repro_torch.core.engine import _lowered
+
+    rows = []
+    for name, m, ps, qs, dtype, plan, factors in BWD_CASES:
+        torch.cuda.reset_peak_memory_stats()
+        k = math.prod(ps)
+        x = randn(gen, (m, k), dtype).requires_grad_()
+        fs = [randn(gen, (p, q), dtype).requires_grad_(factors) for p, q in zip(ps, qs)]
+        ct = randn(gen, (m, math.prod(qs)), dtype)
+        op = KronOp(ps, qs, plan=plan)
+        y = op(x, fs)
+        wrt = [x, *fs] if factors else [x]
+
+        def backward():
+            return torch.autograd.grad(y, wrt, ct, retain_graph=True)
+
+        # The main path's run: counts set to 0 just before, read just after.
+        reset_counters()
+        grads = backward()
+        torch.cuda.synchronize()
+        launches = read_counters()
+        n = len(ps)
+        if op.plan is None:
+            n_stages = n
+            want = expect(sliced=n - 1, sliced_t=n) if factors else expect(sliced_t=n)
+        else:
+            n_stages = len(_lowered(op.plan, op.ps, op.qs).instrs)
+            want = (expect(chain_fwd=n_stages - 1, grad=n_stages, grad_reduce=n_stages)
+                    if factors else expect(chain_bwd=n_stages))
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches}, expected {want}")
+        again = backward()
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in zip(grads, again))
+        del again
+        if not bitwise:
+            raise AssertionError(f"{name}: two backward runs differ")
+
+        xd, fd = x.detach(), [f.detach() for f in fs]
+        with torch.no_grad():
+            rdx, _ = plain_bwd(op, xd, fd, ct, False)
+            dx_err, dx_rel = compare(grads[0], rdx)
+            del rdx
+            errs, rels = [dx_err], [dx_rel]
+            if factors:
+                for d, r in zip(grads[1:], plain_dfs_f64(op, xd, fd, ct)):
+                    err, rel = compare(d, r)
+                    errs.append(err)
+                    rels.append(rel)
+        del grads
+        torch.cuda.empty_cache()
+        tol = GRAD_TOLERANCE[dtype]
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        ms = time_ms(backward)
+        with torch.no_grad():
+            plain_ms = time_ms(lambda: plain_bwd(op, xd, fd, ct, factors))
+        y_lib = einsum_call(x, fs)
+        library_ms = time_ms(
+            lambda: torch.autograd.grad(y_lib, wrt, ct, retain_graph=True))
+        del y_lib
+        torch.cuda.empty_cache()
+
+        # Each operand the function needs moved once: dY, dX, the factors,
+        # and with factor grads x and the dFs; FLOPs 1x the forward's for dX,
+        # 2x with the factor grads.
+        size = x.element_size()
+        fsize = sum(p * q for p, q in zip(ps, qs))
+        nbytes = (m * op.k_out + m * k + fsize + (m * k + fsize if factors else 0)) * size
+        flops = (2 if factors else 1) * KronProblem(m, ps, qs).flops
+        t_bytes = nbytes / peaks["bw"] * 1e3
+        t_ops = flops / peaks[dtype] * 1e3
+        row = {
+            "case": name, "describe": op.describe(), "dtype": str(dtype).replace("torch.", ""),
+            "m": m, "ps": list(ps), "qs": list(qs), "stages": n_stages,
+            "grads": "x and factors" if factors else "x", "launches": launches,
+            "max_abs_err": max(errs), "dx_rel_err": rels[0], "df_rel_err": max(rels[1:], default=0.0),
+            "tol": tol, "bitwise_repeat": bitwise, "peak_mem_gib": peak_gib,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "flops": flops, "bytes": nbytes,
+        }
+        print("main " + json.dumps(row), flush=True)
+        if max(rels) > tol:
+            raise AssertionError(f"{name}: rel err {max(rels):.3e} > {tol:g}")
+        rows.append(row)
+        del x, fs, ct, y, op, xd, fd
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -325,23 +568,24 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     passed = check_kernels(gen)
-    rows = {r["case"]: r for r in run_main(gen, peaks)}
+    rows = {r["case"]: r for r in run_main(gen, peaks) + run_backward(gen, peaks)}
 
-    def kernel_row(name, route, source, replaces, case):
+    def kernel_row(name):
+        source, replaces, case = KERNELS[name]
         r = rows[case]
-        return {
-            "name": name, "route": route, "source": source, "replaces": replaces,
+        row = {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(row["launches"][name] for row in rows.values()),
             "cases_passed": passed[name], "main_case": case,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         }
+        if name == "grad":
+            row["reduce_launches"] = sum(row["launches"]["grad_reduce"] for row in rows.values())
+        return row
 
-    kernels = [
-        kernel_row("chain_fwd", "cuda", CHAIN_SOURCE, CHAIN_REPLACES, "fig9"),
-        kernel_row("sliced", "cuda", SLICED_SOURCE, SLICED_REPLACES, "fig9-unfused"),
-    ]
+    kernels = [kernel_row(name) for name in KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,8 @@ Plan construction decides, per the paper + the beyond-paper extensions:
   * factor pre-kronization (``enable_prekron``): explicitly form
     F^i (x) F^{i+1} when P is small;
   * a BACKWARD plan (``KronPlan.bwd_stages``): the mirrored stages, with
-    tiles tuned for the transposed shapes.
+    tiles tuned for the transposed shapes and M-tiles clamped so both
+    backward kernels fit one block at the forward stage's ``t_k``.
 
 ``lower`` turns a plan into the executor's ``StageProgram``.  Measured tuning
 (``tune="measure"``) and the on-disk plan cache come with a later slice.
@@ -162,23 +163,49 @@ class KronPlan:
 
 
 def mirror_bwd_stages(
-    prob: KronProblem, stages: Sequence[Stage], *, dtype_bytes: int = 4
+    prob: KronProblem,
+    stages: Sequence[Stage],
+    *,
+    dtype_bytes: int = 4,
+    vmem_budget_elems: int = SMEM_BUDGET_ELEMS,
 ) -> tuple[Stage, ...]:
     """Backward stages for a forward plan: same grouping, reversed execution
-    order, tiles tuned for the transposed contraction (P and Q swap roles)."""
+    order, tiles tuned for the transposed contraction (P and Q swap roles).
+
+    The backward runs the forward stage's ``t_k`` with the tuned M-tile, so
+    ``t_m`` is clamped to the largest divisor of the tuned one at which both
+    backward forms fit the per-block budget there: the transposed chain
+    (``t_m * t_k * transposed_growth``) and the stage backward's live set
+    (``t_m * emit.grad_live_elems``); 1 when none does (the stage then
+    takes the per-factor fallback)."""
     ps = list(reversed(prob.ps))
     qs = list(reversed(prob.qs))
     k = prob.k
     outs = []
     for st in stages:
-        pprod = math.prod(ps[i] for i in st.factor_ids)
-        qprod = math.prod(qs[i] for i in st.factor_ids)
+        sps = [ps[i] for i in st.factor_ids]
+        sqs = [qs[i] for i in st.factor_ids]
+        if st.prekron:
+            sps, sqs = [math.prod(sps)], [math.prod(sqs)]
+        pprod, qprod = math.prod(sps), math.prod(sqs)
         k = k // pprod * qprod
-        outs.append((st, pprod, qprod, k))
+        outs.append((st, sps, sqs, k))
     bwd = []
-    for st, pprod, qprod, k_out in reversed(outs):
-        s = k_out // qprod
-        tiles = tune_sliced(prob.m, s, qprod, pprod, dtype_bytes=dtype_bytes)
+    for st, sps, sqs, k_out in reversed(outs):
+        pprod, qprod = math.prod(sps), math.prod(sqs)
+        tiles = tune_sliced(prob.m, k_out // qprod, qprod, pprod, dtype_bytes=dtype_bytes)
+        t_k = st.tiles.t_s * pprod
+        t_qs = st.t_qs if st.t_qs is not None and len(st.t_qs) == len(sps) else None
+        per_row = max(
+            t_k * emit_mod.transposed_growth(sps, sqs, t_qs),
+            emit_mod.grad_live_elems(t_k, sps, sqs),
+        )
+        t_m = max(
+            (d for d in _divisors(tiles.t_m) if d * per_row <= vmem_budget_elems),
+            default=1,
+        )
+        if t_m != tiles.t_m:
+            tiles = TileConfig(t_m, tiles.t_s, tiles.t_q)
         bwd.append(Stage(st.factor_ids, st.prekron, tiles, st.t_qs, st.acc_dtype))
     return tuple(bwd)
 
@@ -352,7 +379,12 @@ def make_plan(
         k = s * qprod
         i = group[-1] + 1
     fwd = tuple(stages)
-    return KronPlan(fwd, mirror_bwd_stages(prob, fwd, dtype_bytes=dtype_bytes))
+    return KronPlan(
+        fwd,
+        mirror_bwd_stages(
+            prob, fwd, dtype_bytes=dtype_bytes, vmem_budget_elems=vmem_budget_elems
+        ),
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """KronOp: the handle-based Kron-Matmul execution engine.
 
-The port of ``repro.core.engine`` for the local forward pass.  ``KronOp`` is
+The port of ``repro.core.engine`` for the local path.  ``KronOp`` is
 constructed once from the problem signature; it resolves its ``KronPlan``
 (memoized per row count), lowers it into a ``StageProgram`` and runs each
 stage as one launch of the chain kernel:
@@ -14,13 +14,17 @@ multiply per factor, last factor first (Algorithm 1).
 
 An op runs where its tensors are: CUDA tensors launch the kernels, CPU
 tensors run their plain twins.  ``__call__`` goes through a
-``torch.autograd.Function`` whose backward raises ``NotImplementedError``
-until the backward slice lands (ROADMAP.md queue 2, items 2, 3 and 5), on
-either device, so no gradient is ever silently dropped.
+``torch.autograd.Function`` whose backward is ``_program_bwd``, the port of
+the JAX custom VJP: the transposed program (``emit.transpose``), one
+transposed-chain launch per stage for the x-gradient alone, or one
+stage-backward launch per stage (``emit.run_stage_grad``) when factor
+gradients are wanted, with the per-factor fallback for stages whose live
+set cannot fit one block.  ``plan=None`` runs the unfused backward: one
+transposed sliced multiply per factor.
 
 Left for later slices (ROADMAP.md queue 1): per-sample factors
-(``shared_factors=False``), the mesh rounds, the degradation ladder,
-telemetry and ``profile()``.
+(``shared_factors=False``), the mesh rounds, the degradation ladder (and
+its ``guard.record_event``), telemetry and ``profile()``.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ from typing import Sequence
 import torch
 
 from ..kernels import emit, ops
+from ..runtime.guard import LoweringError, VmemOverflowError
 from . import autotune
 from .autotune import KronPlan
 from .kron import KronProblem
@@ -82,20 +87,173 @@ def _kron_forward(
     return emit.run_program(x, factors, _lowered(plan, ps, qs), backend=backend)
 
 
+# Stages whose backward took the per-factor fallback: +1 per stage, nowhere
+# else.
+bwd_per_factor_fallbacks = 0
+
+# The geometry checks raise these before any launch; a failed build or
+# launch raises RuntimeError, which no fallback catches.
+_FALLBACK_ERRORS = (VmemOverflowError, LoweringError)
+
+
+def _prekron_vjp(dk: torch.Tensor, stage_factors: Sequence[torch.Tensor]) -> tuple:
+    """Split the cotangent of kron(rev[i+1], ..., rev[i]) back into
+    per-factor cotangents, in ``stage_factors`` (application) order."""
+    stage_factors = tuple(stage_factors)
+    if len(stage_factors) == 1:
+        return (dk,)
+    a = stage_factors[0]
+    b = emit.prekron_product(stage_factors[1:])
+    pa, qa = int(a.shape[0]), int(a.shape[1])
+    pb, qb = int(b.shape[0]), int(b.shape[1])
+    acc = emit.acc_dtype_for(dk.dtype)
+    dk4 = dk.reshape(pb, pa, qb, qa).to(acc)
+    da = torch.einsum("bpcq,bc->pq", dk4, b.to(acc))
+    db = torch.einsum("bpcq,pq->bc", dk4, a.to(acc))
+    return (da,) + _prekron_vjp(db, stage_factors[1:])
+
+
+def _per_factor_bwd(u, g, stage_factors, backend, factors: bool):
+    """Backward of a chain of sliced multiplies (``stage_factors`` in
+    application order), one kernel per factor: (dx, dfs in application
+    order or None).  It is the unfused loop's backward (``plan=None``) and
+    the fallback of a stage whose one-launch backward cannot fit one block
+    (e.g. Q-tiled stages: the forward tiles Q, but the backward needs every
+    factor-gradient pair).  With factor grads the chain's inputs are
+    rematerialized, one sliced multiply each."""
+    inputs = [u]
+    if factors:
+        for f in stage_factors[:-1]:
+            inputs.append(ops.sliced_multiply(inputs[-1], f, backend=backend))
+    dfs = [None] * len(stage_factors)
+    for idx in reversed(range(len(stage_factors))):  # last applied first
+        f = stage_factors[idx]
+        if factors:
+            dfs[idx] = emit.sliced_vjp_factor(inputs[idx], g, int(f.shape[-2]), int(f.shape[-1]))
+        g = ops.sliced_multiply_t(g, f, backend=backend)
+    return g, (tuple(dfs) if factors else None)
+
+
+def _fallback_bwd(u, g, stage_factors, backend, factors: bool):
+    """``_per_factor_bwd`` for a planned stage, counted as a fallback."""
+    global bwd_per_factor_fallbacks
+    bwd_per_factor_fallbacks += 1
+    return _per_factor_bwd(u, g, stage_factors, backend, factors)
+
+
+def _program_bwd(plan: KronPlan, backend: str, x, factors, g, f_pert: bool):
+    """Execute the backward of a lowered plan: (dx, dfs_by_rev_id or None).
+
+    The dx chain is ``emit.transpose`` of the forward program.  When factor
+    grads are needed, the stage inputs are rematerialized with the FORWARD
+    program and each transposed instruction is replaced by the one-launch
+    stage backward (``emit.run_stage_grad``), falling back to per-factor
+    kernels when the stage's tiles fail the geometry checks.  Without factor
+    grads the stage inputs are never used, so they are not rematerialized.
+    """
+    ps = tuple(int(f.shape[0]) for f in factors)
+    qs = tuple(int(f.shape[1]) for f in factors)
+    prog = _lowered(plan, ps, qs)
+    rev = tuple(reversed(factors))
+    stage_factors = [tuple(rev[i] for i in ins.factor_ids) for ins in prog.instrs]
+    stage_inputs = [x]
+    if f_pert:
+        for ins, sf in zip(prog.instrs[:-1], stage_factors):
+            stage_inputs.append(emit.run_stage(stage_inputs[-1], sf, ins, backend=backend))
+    bwd_prog = emit.transpose(prog)
+    n_st = len(prog.instrs)
+    dfs_by_id: dict[int, torch.Tensor] = {}
+    for pos, t_ins in enumerate(bwd_prog.instrs):
+        fwd_idx = n_st - 1 - pos
+        f_ins = prog.instrs[fwd_idx]
+        sf = stage_factors[fwd_idx]
+        if f_ins.kind == emit.PREKRON:
+            fk = emit.prekron_product(sf)
+            pk_ins = dataclasses.replace(
+                f_ins, kind=emit.MULTIPLY, ps=(int(fk.shape[-2]),),
+                qs=(int(fk.shape[-1]),),
+                t_qs=f_ins.t_qs if f_ins.t_qs and len(f_ins.t_qs) == 1 else None,
+            )
+            if f_pert:
+                try:
+                    g, (dk,) = emit.run_stage_grad(
+                        stage_inputs[fwd_idx], g, (fk,),
+                        dataclasses.replace(pk_ins, t_m=t_ins.t_m), backend=backend,
+                    )
+                except _FALLBACK_ERRORS:
+                    g, (dk,) = _fallback_bwd(stage_inputs[fwd_idx], g, (fk,), backend, True)
+                for fid, d in zip(f_ins.factor_ids, _prekron_vjp(dk, sf)):
+                    dfs_by_id[fid] = d
+            else:
+                try:
+                    g = emit.run_stage(g, (fk,), pk_ins.transpose(), backend=backend)
+                except _FALLBACK_ERRORS:
+                    g, _ = _fallback_bwd(None, g, (fk,), backend, False)
+        elif f_pert:
+            try:
+                # The forward stage shape with the transposed instruction's
+                # tuned M-tile (plan.bwd_stages via transpose()).
+                g, dfs = emit.run_stage_grad(
+                    stage_inputs[fwd_idx], g, sf,
+                    dataclasses.replace(f_ins, t_m=t_ins.t_m), backend=backend,
+                )
+            except _FALLBACK_ERRORS:
+                g, dfs = _fallback_bwd(stage_inputs[fwd_idx], g, sf, backend, True)
+            for fid, d in zip(f_ins.factor_ids, dfs):
+                dfs_by_id[fid] = d
+        else:
+            try:
+                g = emit.run_stage(g, sf, t_ins, backend=backend)
+            except _FALLBACK_ERRORS:
+                # The planner validated tiles against FORWARD block sizes;
+                # the transposed shapes can overflow.
+                g, _ = _fallback_bwd(None, g, sf, backend, False)
+    return g, (dfs_by_id if f_pert else None)
+
+
 class _KronFunction(torch.autograd.Function):
-    """Forward through the planned kernels; the backward is the next slice.
+    """Forward through the planned kernels; backward through the transposed
+    program's kernels (``_program_bwd``), or one kernel per factor for
+    ``plan=None`` (``_per_factor_bwd``).
 
     Autograd runs ``forward`` with gradient recording off, so neither the
-    kernels nor their plain twins are ever traced: the output's ``grad_fn``
-    is this node on both devices, and its backward raises."""
+    kernels nor their plain twins are ever traced.  The residuals are x and
+    the factors; the stage inputs are rematerialized in ``backward``.
+    Factor gradients are computed only when autograd asks for them."""
 
     @staticmethod
     def forward(ctx, x, plan, backend, *factors):
+        ctx.save_for_backward(x, *factors)
+        ctx.plan = plan
+        ctx.backend = backend
         return _kron_forward(x, factors, plan, backend)
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, grad_out):
-        raise NotImplementedError(f"KronOp gradients: {emit.BACKWARD_SLICE}")
+        x, *factors = ctx.saved_tensors
+        factors = tuple(factors)
+        f_pert = any(ctx.needs_input_grad[3:])
+        g = grad_out.contiguous()
+        if ctx.plan is None:
+            # The unfused loop applied the last factor first.
+            dx, dfs = _per_factor_bwd(x, g, factors[::-1], ctx.backend, f_pert)
+            dfactors = dfs[::-1] if f_pert else None
+        else:
+            dx, dfs_by_id = _program_bwd(ctx.plan, ctx.backend, x, factors, g, f_pert)
+            nf = len(factors)
+            dfactors = (
+                tuple(dfs_by_id[nf - 1 - j] for j in range(nf)) if f_pert else None
+            )
+        dx = dx.to(x.dtype) if ctx.needs_input_grad[0] else None
+        if dfactors is None:
+            dfactors = (None,) * len(factors)
+        else:
+            dfactors = tuple(
+                d.to(f.dtype) if need else None
+                for d, f, need in zip(dfactors, factors, ctx.needs_input_grad[3:])
+            )
+        return (dx, None, None, *dfactors)
 
 
 @dataclasses.dataclass(frozen=True)

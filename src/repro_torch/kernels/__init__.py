@@ -1,11 +1,16 @@
 """Kernels of the port: hand-written CUDA for Hopper, with plain twins.
 
-emit.py         — StageProgram IR + the executor; ``chain_cuda`` launches
-                  the forward chain kernel (csrc/chain_fwd.cu), its plain twin
-                  is ``chain_reference``.
+emit.py         — StageProgram IR + the executor: ``chain_cuda`` (forward
+                  chain, csrc/chain_fwd.cu), ``chain_bwd_cuda`` (transposed
+                  chain, csrc/chain_bwd.cu) and ``grad_cuda`` (stage
+                  backward, csrc/grad.cu), with plain twins
+                  ``chain_reference``, ``chain_bwd_reference``,
+                  ``grad_reference``.
 kron_sliced.py  — one sliced multiply: ``sliced_multiply_cuda``
                   (csrc/sliced.cu) and ``sliced_multiply_reference``.
-ops.py          — sliced-multiply backend dispatch.
+kron_sliced_t.py — its transpose: ``sliced_multiply_t_cuda``
+                  (csrc/sliced_t.cu) and ``sliced_multiply_t_reference``.
+ops.py          — sliced-multiply (and transpose) backend dispatch.
 ref.py          — plain PyTorch oracles for the tests.
 _build.py       — builds csrc/*.cu with nvcc at the first launch; ctypes.
 """

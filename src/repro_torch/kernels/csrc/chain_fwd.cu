@@ -45,7 +45,7 @@ int kron_chain_fwd(int dtype, const void* x, void* y, const void* const* fs, con
   kron::TileArgs a;
   const int err = kron::make_args(&a, fs, ps, qs, tqs, n, B, M, K, t_m, t_k);
   if (err != cudaSuccess) return err;
-  KRON_DISPATCH(dtype, chain_fwd_kernel, a, x, y, stream)
+  KRON_DISPATCH(dtype, chain_fwd_kernel, a, stream, x, y)
 }
 
 const char* kron_error_string(int code) {

@@ -1,16 +1,20 @@
-// One block tile of a FastKron chain: the device code shared by chain_fwd.cu
-// and sliced.cu, and the host code that fills a launch's arguments.
+// Block tiles of a FastKron chain: the device code shared by chain_fwd.cu,
+// sliced.cu, chain_bwd.cu, sliced_t.cu and grad.cu, and the host code that
+// fills a launch's arguments.
 //
-// A block owns one batch sample, t_m rows, one Q-tile digit per factor and a
-// t_k column slab of x (t_k a multiple of prod(P)).  It loads the slab into
-// shared memory once, applies every factor of the chain there, and writes
-// each output element straight to its final FastKron index:
+// A block owns one batch sample, t_m rows and a t_k column slab of x (t_k a
+// multiple of prod(P)), and keeps every chain state of that tile in shared
+// memory.  State i of the forward chain has c_i columns (c_0 = t_k,
+// c_{i+1} = tq_i * s_i with s_i = c_i / p_i).
 //
-//   state i (i = 0 .. n-1) lives in shared memory as (m, p, s): element
-//   A[m, s*p_i + pp] sits at m*p_i*sstr_i + pp*sstr_i + s.  Keeping the
-//   contraction index pp major makes a warp's reads of A contiguous along s,
-//   and the odd slice stride sstr_i = s_i | 1 spreads the transposing stores
-//   over all 32 banks.
+// Forward (chain_block): the block also owns one Q-tile digit per factor.
+// It loads the slab once, applies every factor, and writes each output
+// element straight to its final FastKron index:
+//
+//   state i lives in shared memory as (m, p, s): element A[m, s*p_i + pp]
+//   sits at m*p_i*sstr_i + pp*sstr_i + s.  Keeping the contraction index pp
+//   major makes a warp's reads of A contiguous along s, and the odd slice
+//   stride sstr_i = s_i | 1 spreads the transposing stores over all 32 banks.
 //
 //   step i:  B[m, q*s_i + s] = sum_pp A[m, s*p_i + pp] * F_i[pp, q]
 //   Each thread computes a kRS x kRQ register tile: kRS slices strided by
@@ -19,10 +23,31 @@
 //   is padded with zeros to a multiple of 4 columns and read as one 16-byte
 //   vector per row.
 //
+// Transposed (chain_bwd_block): the block owns one dX tile and loops over
+// the Q-tile digits itself, summing the partial dX of each in shared memory
+// in a fixed order (no atomics).  It gathers the dY block of the digit from
+// the (B, M, Q_{n-1}..Q_0, S) view, the inverse of the forward's final-index
+// store, and applies the transposes, last-applied factor first:
+//
+//   G[m, q*s_i + s] flat, row-major (q major): a warp's reads run along s.
+//   step i:  G'[m, s*p_i + pp] = sum_q G[m, q*s_i + s] * F_i[pp, q]
+//   The factor panel is stored transposed, (tq_i, p_i) zero-padded to a
+//   multiple of 4 columns, so a thread's kRQ = 4 consecutive pp are one
+//   16-byte vector; neighbouring threads take neighbouring pp groups.
+//
+// Stage backward (grad_block): rematerializes every forward state of the
+// tile (u_0 .. u_{n-1}, forward layout), gathers the tile's dY and walks
+// the transposed chain; before each transposed step it forms the tile's
+// dF_i[pp, q] = sum_{m,s} u_i[m, s*p_i + pp] G[m, q*s_i + s].  A block
+// walks many tiles (grid-stride) and keeps its dF sums in shared memory;
+// it writes one partial per block, which a second launch reduces in a
+// fixed order (grad.cu).  Every dF sum has one owner thread and a fixed
+// order, so the result is the same bit for bit on every run.
+//
 // Global loads keep kLoadUnroll loads in flight per thread.  Index math
 // divides through float reciprocals (div_fast).  Intermediates stay in the
-// accumulator type Acc inside the block; only the last step rounds to T, as
-// it stores.  Every global offset is 64-bit.
+// accumulator type Acc inside the block; only stores to device memory round
+// to T.  Every global offset is 64-bit.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -37,7 +62,10 @@ constexpr int kThreads = 512;
 constexpr int kRS = 4;          // slices per thread
 constexpr int kRQ = 4;          // factor-panel columns per thread (one vector)
 constexpr int kLoadUnroll = 8;  // global loads in flight per thread
+constexpr int kDfThreads = 256; // grad: threads that split one factor's dF sums
 constexpr size_t kMaxSmemBytes = 232448;  // 227 KB: one Hopper block's limit
+
+enum Kind { kFwd = 0, kBwd = 1, kGrad = 2 };
 
 struct TileArgs {
   const void* f[kMaxFactors];  // factor i: (B, p_i, q_i), application order
@@ -46,7 +74,8 @@ struct TileArgs {
   int tq[kMaxFactors];         // Q-tile of factor i (divides q_i)
   int nq[kMaxFactors];         // q_i / tq_i
   int s[kMaxFactors];          // slices of chain state i inside the tile
-  int sstr[kMaxFactors];       // padded slice stride of state i in smem
+  int sstr[kMaxFactors];       // padded slice stride of state i (forward layout)
+  int c[kMaxFactors + 1];      // columns of chain state i inside the tile
   float rp[kMaxFactors];       // 1 / p_i
   float rtq[kMaxFactors];      // 1 / tq_i
   long long ostride[kMaxFactors];  // prod_{l<i} q_l * s_out: output radix
@@ -57,7 +86,19 @@ struct TileArgs {
   int t_m, t_k, ts_out;        // block tile; ts_out = t_k / prod(P)
   float rts_out;               // 1 / ts_out
   long long m_tiles, q_tiles, k_tiles;
-  int buf0, buf1, panel;       // smem elements: even states, odd states, panel
+  long long grid;              // blocks of the launch
+  // Shared memory, in elements of Acc, each region rounded to 4 elements
+  // (16-byte aligned panels and vectors).
+  int buf0, buf1, panel;       // chain-state ping-pong buffers and the panel
+  int acc;                     // bwd: the Q-tile sum of dX (0 when Q is whole)
+  int ustates;                 // grad: all forward states u_0 .. u_{n-1}
+  int u[kMaxFactors];          // grad: offset of u_i inside ustates
+  int scratch;                 // grad: per-group dF partials of one factor
+  int df_groups[kMaxFactors];  // grad: thread groups splitting factor i's dF
+  int df_off[kMaxFactors];     // grad: offset of dF_i in the packed dF vector
+  int df_total;                // grad: sum_i p_i * q_i
+  int nblk;                    // grad: blocks per batch sample
+  long long smem;              // total elements
 };
 
 __device__ __forceinline__ float to_acc(float v) { return v; }
@@ -82,6 +123,19 @@ __device__ __forceinline__ void load4(const double* p, double (&v)[4]) {
   v[2] = b.x;
   v[3] = b.y;
 }
+// Four consecutive elements in one (float, double: two) vector store; the
+// address is 16-byte aligned for float and double, 8-byte for bfloat16.
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(double* p, const double (&v)[4]) {
+  reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
+  reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
+  reinterpret_cast<__nv_bfloat162*>(p)[0] = __floats2bfloat162_rn(v[0], v[1]);
+  reinterpret_cast<__nv_bfloat162*>(p)[1] = __floats2bfloat162_rn(v[2], v[3]);
+}
 
 // n / d for 0 <= n < 2^22 and d >= 1, given rd = 1.0f / d.  The float
 // estimate is off by at most one and is corrected; a few instructions
@@ -97,9 +151,278 @@ __device__ __forceinline__ int div_fast(int n, int d, float rd) {
   return q;
 }
 
+// Q-tile digit of every factor from a composite Q-tile index: mixed radix,
+// factor 0 minor.
+__device__ __forceinline__ void q_digits(const TileArgs& a, long long jq, int (&qd)[kMaxFactors]) {
+  for (int i = 0; i < a.n; ++i) {
+    qd[i] = static_cast<int>(jq % a.nq[i]);
+    jq /= a.nq[i];
+  }
+}
+
+// The (t_m, t_k) slab of x at xs (row stride K), transposed to the forward
+// (m, p, s) layout of state 0: coalesced, kLoadUnroll loads per thread in
+// flight.
 template <typename T, typename Acc>
-__device__ void chain_block(const TileArgs& a, const T* __restrict__ x,
-                            T* __restrict__ y, Acc* smem) {
+__device__ void load_slab(const TileArgs& a, const T* __restrict__ xs, Acc* dst) {
+  const int p0 = a.p[0], st0 = a.sstr[0], ms0 = p0 * st0;
+  const float rtk = 1.0f / a.t_k;
+  const int total = a.t_m * a.t_k;
+  for (int base = threadIdx.x; base < total; base += kLoadUnroll * blockDim.x) {
+    T v[kLoadUnroll];
+#pragma unroll
+    for (int u = 0; u < kLoadUnroll; ++u) {
+      const int idx = base + u * blockDim.x;
+      if (idx < total) {
+        const int m = div_fast(idx, a.t_k, rtk);
+        v[u] = xs[m * a.K + (idx - m * a.t_k)];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kLoadUnroll; ++u) {
+      const int idx = base + u * blockDim.x;
+      if (idx < total) {
+        const int m = div_fast(idx, a.t_k, rtk);
+        const int c = idx - m * a.t_k;
+        const int sp = div_fast(c, p0, a.rp[0]);
+        dst[m * ms0 + (c - sp * p0) * st0 + sp] = to_acc(v[u]);
+      }
+    }
+  }
+}
+
+// The dY block of Q-tile digits qd for output tile column slab kt, gathered
+// from the (B, M, Q_{n-1}..Q_0, S) view into the flat tile state c_n: tile
+// column (ql_{n-1}, ..., ql_0, s_local), row-major.  dyr points at the
+// tile's first row.
+template <typename T, typename Acc>
+__device__ void gather_dy(const TileArgs& a, const T* __restrict__ dyr, long long kt,
+                          const int (&qd)[kMaxFactors], Acc* dst) {
+  const int cn = a.c[a.n];
+  const float rcn = 1.0f / cn;
+  const int total = a.t_m * cn;
+  const long long base_col = kt * a.ts_out;
+  for (int base = threadIdx.x; base < total; base += kLoadUnroll * blockDim.x) {
+    T v[kLoadUnroll];
+#pragma unroll
+    for (int u = 0; u < kLoadUnroll; ++u) {
+      const int idx = base + u * blockDim.x;
+      if (idx < total) {
+        const int m = div_fast(idx, cn, rcn);
+        const int col = idx - m * cn;
+        int rem = div_fast(col, a.ts_out, a.rts_out);
+        long long off = base_col + (col - rem * a.ts_out);
+        for (int l = 0; l < a.n; ++l) {
+          const int nr = div_fast(rem, a.tq[l], a.rtq[l]);
+          off += static_cast<long long>(qd[l] * a.tq[l] + rem - nr * a.tq[l]) * a.ostride[l];
+          rem = nr;
+        }
+        v[u] = dyr[m * a.out_cols + off];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kLoadUnroll; ++u) {
+      const int idx = base + u * blockDim.x;
+      if (idx < total) dst[idx] = to_acc(v[u]);
+    }
+  }
+}
+
+// The (p_i, tq_i) panel of factor i of sample b for Q-tile digit qd,
+// zero-padded to a multiple of 4 columns: panel[pp * tq4 + q].
+template <typename T, typename Acc>
+__device__ void load_panel(const TileArgs& a, int i, long long b, int qd, Acc* panel) {
+  const int p = a.p[i], tq = a.tq[i];
+  const int tq4 = (tq + kRQ - 1) / kRQ * kRQ;
+  const T* f = static_cast<const T*>(a.f[i]) + b * p * static_cast<long long>(a.q[i]) +
+               static_cast<long long>(qd) * tq;
+  const float rtq4 = 1.0f / tq4;
+  const int total = p * tq4;
+  for (int base = threadIdx.x; base < total; base += kLoadUnroll * blockDim.x) {
+    Acc v[kLoadUnroll];
+#pragma unroll
+    for (int u = 0; u < kLoadUnroll; ++u) {
+      const int idx = base + u * blockDim.x;
+      const int r = div_fast(idx, tq4, rtq4);
+      const int c = idx - r * tq4;
+      v[u] = idx < total && c < tq ? to_acc(f[static_cast<long long>(r) * a.q[i] + c]) : Acc(0);
+    }
+#pragma unroll
+    for (int u = 0; u < kLoadUnroll; ++u) {
+      const int idx = base + u * blockDim.x;
+      if (idx < total) panel[idx] = v[u];
+    }
+  }
+}
+
+// The same panel stored transposed, (tq_i, p_i) with p padded to a
+// multiple of 4: panel[q * p4 + pp].  Reads run along the factor's rows.
+template <typename T, typename Acc>
+__device__ void load_panel_t(const TileArgs& a, int i, long long b, int qd, Acc* panel) {
+  const int p = a.p[i], tq = a.tq[i];
+  const int p4 = (p + kRQ - 1) / kRQ * kRQ;
+  const T* f = static_cast<const T*>(a.f[i]) + b * p * static_cast<long long>(a.q[i]) +
+               static_cast<long long>(qd) * tq;
+  const int total = p4 * tq;
+  for (int base = threadIdx.x; base < total; base += kLoadUnroll * blockDim.x) {
+    Acc v[kLoadUnroll];
+#pragma unroll
+    for (int u = 0; u < kLoadUnroll; ++u) {
+      const int idx = base + u * blockDim.x;
+      const int pp = div_fast(idx, tq, a.rtq[i]);
+      const int q = idx - pp * tq;
+      v[u] = idx < total && pp < p ? to_acc(f[static_cast<long long>(pp) * a.q[i] + q]) : Acc(0);
+    }
+#pragma unroll
+    for (int u = 0; u < kLoadUnroll; ++u) {
+      const int idx = base + u * blockDim.x;
+      if (idx < total) {
+        const int pp = div_fast(idx, tq, a.rtq[i]);
+        panel[(idx - pp * tq) * p4 + pp] = v[u];
+      }
+    }
+  }
+}
+
+// Forward step i over state `cur` (forward layout) and the panel: calls
+// sink(m, sp, qb, v) with v[c] = B[m, (qb*kRQ + c)*s_i + sp] for every
+// valid slice sp (columns past tq_i are the panel's zero padding).
+template <typename Acc, typename Sink>
+__device__ __forceinline__ void fwd_step(const TileArgs& a, int i, const Acc* cur,
+                                         const Acc* panel, Sink sink) {
+  const int p = a.p[i], tq = a.tq[i], s = a.s[i], st = a.sstr[i];
+  const int tq4 = (tq + kRQ - 1) / kRQ * kRQ;
+  const int ms = p * st;
+  const int nsb = (s + kRS - 1) / kRS;
+  const int nqb = tq4 / kRQ;
+  const float rnsb = 1.0f / nsb, rnqb = 1.0f / nqb;
+  const int work = a.t_m * nqb * nsb;
+  for (int w = threadIdx.x; w < work; w += blockDim.x) {
+    const int t = div_fast(w, nsb, rnsb);
+    const int sb = w - t * nsb;
+    const int m = div_fast(t, nqb, rnqb);
+    const int qb = t - m * nqb;
+    // Out-of-range slices read slice 0 and are never stored.
+    int soff[kRS];
+#pragma unroll
+    for (int r = 0; r < kRS; ++r) {
+      const int sp = sb + r * nsb;
+      soff[r] = sp < s ? sp : 0;
+    }
+    Acc acc[kRS][kRQ];
+#pragma unroll
+    for (int r = 0; r < kRS; ++r)
+#pragma unroll
+      for (int c = 0; c < kRQ; ++c) acc[r][c] = Acc(0);
+    const Acc* arow = cur + m * ms;
+    const Acc* prow = panel + qb * kRQ;
+    for (int pp = 0; pp < p; ++pp) {
+      Acc av[kRS], fv[kRQ];
+#pragma unroll
+      for (int r = 0; r < kRS; ++r) av[r] = arow[pp * st + soff[r]];
+      load4(prow + pp * tq4, fv);
+#pragma unroll
+      for (int r = 0; r < kRS; ++r)
+#pragma unroll
+        for (int c = 0; c < kRQ; ++c) acc[r][c] += av[r] * fv[c];
+    }
+#pragma unroll
+    for (int r = 0; r < kRS; ++r) {
+      const int sp = sb + r * nsb;
+      if (sp < s) sink(m, sp, qb, acc[r]);
+    }
+  }
+}
+
+// Forward step i from state i into state i+1 (both in the forward layout).
+template <typename Acc>
+__device__ __forceinline__ void fwd_step_to_state(const TileArgs& a, int i, const Acc* cur,
+                                                  Acc* nxt, const Acc* panel) {
+  const int tq = a.tq[i], s = a.s[i];
+  const int pn = a.p[i + 1], stn = a.sstr[i + 1], msn = pn * stn;
+  const float rpn = a.rp[i + 1];
+  fwd_step(a, i, cur, panel, [&](int m, int sp, int qb, const Acc(&v)[kRQ]) {
+    // Next state's layout: column col -> (col % p', col / p').
+#pragma unroll
+    for (int c = 0; c < kRQ; ++c) {
+      const int ql = qb * kRQ + c;
+      if (ql >= tq) continue;
+      const int col = ql * s + sp;
+      const int j = div_fast(col, pn, rpn);
+      nxt[m * msn + (col - j * pn) * stn + j] = v[c];
+    }
+  });
+}
+
+// Transposed step i over the flat state g = G[m, q*s_i + s] (t_m rows of
+// tq_i * s_i) and the transposed panel: calls sink(m, sp, pb, v) with
+// v[c] = G'[m, sp*p_i + pb*kRQ + c] for every valid slice sp (entries past
+// p_i are the panel's zero padding).
+template <typename Acc, typename Sink>
+__device__ __forceinline__ void t_step(const TileArgs& a, int i, const Acc* g, const Acc* panel,
+                                       Sink sink) {
+  const int p = a.p[i], tq = a.tq[i], s = a.s[i];
+  const int p4 = (p + kRQ - 1) / kRQ * kRQ;
+  const int npb = p4 / kRQ;
+  const int nsb = (s + kRS - 1) / kRS;
+  const int cin = tq * s;
+  const float rnpb = 1.0f / npb, rnsb = 1.0f / nsb;
+  const int work = a.t_m * nsb * npb;
+  for (int w = threadIdx.x; w < work; w += blockDim.x) {
+    const int t = div_fast(w, npb, rnpb);
+    const int pb = w - t * npb;
+    const int m = div_fast(t, nsb, rnsb);
+    const int sb = t - m * nsb;
+    int soff[kRS];
+#pragma unroll
+    for (int r = 0; r < kRS; ++r) {
+      const int sp = sb + r * nsb;
+      soff[r] = sp < s ? sp : 0;
+    }
+    Acc acc[kRS][kRQ];
+#pragma unroll
+    for (int r = 0; r < kRS; ++r)
+#pragma unroll
+      for (int c = 0; c < kRQ; ++c) acc[r][c] = Acc(0);
+    const Acc* grow = g + m * cin;
+    const Acc* prow = panel + pb * kRQ;
+    for (int q = 0; q < tq; ++q) {
+      Acc av[kRS], fv[kRQ];
+#pragma unroll
+      for (int r = 0; r < kRS; ++r) av[r] = grow[q * s + soff[r]];
+      load4(prow + q * p4, fv);
+#pragma unroll
+      for (int r = 0; r < kRS; ++r)
+#pragma unroll
+        for (int c = 0; c < kRQ; ++c) acc[r][c] += av[r] * fv[c];
+    }
+#pragma unroll
+    for (int r = 0; r < kRS; ++r) {
+      const int sp = sb + r * nsb;
+      if (sp < s) sink(m, sp, pb, acc[r]);
+    }
+  }
+}
+
+// Sink of a transposed step: G'[m, sp*p + pb*kRQ + c] into a row-major
+// buffer with row stride ld (shared memory in Acc, or dX in device memory
+// in T).  p % kRQ == 0 stores one vector; else element by element.
+template <typename D, typename Acc>
+__device__ __forceinline__ void put_row(D* dst, long long ld, int p, int m, int sp, int pb,
+                                        const Acc (&v)[kRQ]) {
+  D* o = dst + m * ld + sp * p + pb * kRQ;
+  if (p % kRQ == 0) {
+    store4(o, v);
+  } else {
+#pragma unroll
+    for (int c = 0; c < kRQ; ++c)
+      if (pb * kRQ + c < p) store(o + c, v[c]);
+  }
+}
+
+template <typename T, typename Acc>
+__device__ void chain_block(const TileArgs& a, const T* __restrict__ x, T* __restrict__ y,
+                            Acc* smem) {
   long long blk = blockIdx.x;
   const long long kt = blk % a.k_tiles;
   blk /= a.k_tiles;
@@ -109,155 +432,40 @@ __device__ void chain_block(const TileArgs& a, const T* __restrict__ x,
   const long long b = blk / a.m_tiles;
   const long long row0 = b * a.M + mt * a.t_m;  // batch folded into rows
 
-  // Q-tile digit of every factor: mixed radix, factor 0 minor.
   int qd[kMaxFactors];
-  {
-    long long r = jq;
-    for (int i = 0; i < a.n; ++i) {
-      qd[i] = static_cast<int>(r % a.nq[i]);
-      r /= a.nq[i];
-    }
-  }
+  q_digits(a, jq, qd);
 
   Acc* cur = smem;
   Acc* nxt = smem + a.buf0;
   Acc* panel = nxt + a.buf1;
 
-  // Load the x slab, transposed to the (m, p, s) state layout: coalesced,
-  // kLoadUnroll independent loads per thread in flight.
-  {
-    const int p0 = a.p[0], st0 = a.sstr[0], ms0 = p0 * st0;
-    const float rtk = 1.0f / a.t_k;
-    const int total = a.t_m * a.t_k;
-    const T* xs = x + row0 * a.K + kt * a.t_k;
-    for (int base = threadIdx.x; base < total; base += kLoadUnroll * blockDim.x) {
-      T v[kLoadUnroll];
-#pragma unroll
-      for (int u = 0; u < kLoadUnroll; ++u) {
-        const int idx = base + u * blockDim.x;
-        if (idx < total) {
-          const int m = div_fast(idx, a.t_k, rtk);
-          v[u] = xs[m * a.K + (idx - m * a.t_k)];
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kLoadUnroll; ++u) {
-        const int idx = base + u * blockDim.x;
-        if (idx < total) {
-          const int m = div_fast(idx, a.t_k, rtk);
-          const int c = idx - m * a.t_k;
-          const int sp = div_fast(c, p0, a.rp[0]);
-          cur[m * ms0 + (c - sp * p0) * st0 + sp] = to_acc(v[u]);
-        }
-      }
-    }
-  }
+  load_slab(a, x + row0 * a.K + kt * a.t_k, cur);
 
   for (int i = 0; i < a.n; ++i) {
-    const int p = a.p[i], tq = a.tq[i], s = a.s[i], st = a.sstr[i];
-    const int tq4 = (tq + kRQ - 1) / kRQ * kRQ;
-    {
-      // The (p, tq) panel of factor i for this Q-tile, zero-padded to tq4.
-      const T* f = static_cast<const T*>(a.f[i]) + b * p * static_cast<long long>(a.q[i]) +
-                   static_cast<long long>(qd[i]) * tq;
-      const float rtq4 = 1.0f / tq4;
-      const int total = p * tq4;
-      for (int base = threadIdx.x; base < total; base += kLoadUnroll * blockDim.x) {
-        Acc v[kLoadUnroll];
-#pragma unroll
-        for (int u = 0; u < kLoadUnroll; ++u) {
-          const int idx = base + u * blockDim.x;
-          const int r = div_fast(idx, tq4, rtq4);
-          const int c = idx - r * tq4;
-          v[u] = idx < total && c < tq ? to_acc(f[static_cast<long long>(r) * a.q[i] + c])
-                                       : Acc(0);
-        }
-#pragma unroll
-        for (int u = 0; u < kLoadUnroll; ++u) {
-          const int idx = base + u * blockDim.x;
-          if (idx < total) panel[idx] = v[u];
-        }
-      }
-    }
+    load_panel<T>(a, i, b, qd[i], panel);
     __syncthreads();  // slab/state i and the panel are in place
-
-    const bool last = i + 1 == a.n;
-    const int ms = p * st;
-    const int pn = last ? 1 : a.p[i + 1];
-    const float rpn = last ? 1.0f : a.rp[i + 1];
-    const int stn = last ? 1 : a.sstr[i + 1];
-    const int msn = pn * stn;
-    const int nsb = (s + kRS - 1) / kRS;
-    const int nqb = tq4 / kRQ;
-    const float rnsb = 1.0f / nsb, rnqb = 1.0f / nqb;
-    const int work = a.t_m * nqb * nsb;
-    for (int w = threadIdx.x; w < work; w += blockDim.x) {
-      const int t = div_fast(w, nsb, rnsb);
-      const int sb = w - t * nsb;
-      const int m = div_fast(t, nqb, rnqb);
-      const int qb = t - m * nqb;
-      // Out-of-range slices read slice 0 and are never stored.
-      int soff[kRS];
-#pragma unroll
-      for (int r = 0; r < kRS; ++r) {
-        const int sp = sb + r * nsb;
-        soff[r] = sp < s ? sp : 0;
-      }
-      Acc acc[kRS][kRQ];
-#pragma unroll
-      for (int r = 0; r < kRS; ++r)
-#pragma unroll
-        for (int c = 0; c < kRQ; ++c) acc[r][c] = Acc(0);
-      const Acc* arow = cur + m * ms;
-      const Acc* prow = panel + qb * kRQ;
-      for (int pp = 0; pp < p; ++pp) {
-        Acc av[kRS], fv[kRQ];
-#pragma unroll
-        for (int r = 0; r < kRS; ++r) av[r] = arow[pp * st + soff[r]];
-        load4(prow + pp * tq4, fv);
-#pragma unroll
-        for (int r = 0; r < kRS; ++r)
-#pragma unroll
-          for (int c = 0; c < kRQ; ++c) acc[r][c] += av[r] * fv[c];
-      }
-      if (!last) {
-        // Next state's layout: column col -> (col % p', col / p').
-#pragma unroll
-        for (int r = 0; r < kRS; ++r) {
-          const int sp = sb + r * nsb;
-          if (sp >= s) continue;
-#pragma unroll
-          for (int c = 0; c < kRQ; ++c) {
-            const int ql = qb * kRQ + c;
-            if (ql >= tq) continue;
-            const int col = ql * s + sp;
-            const int j = div_fast(col, pn, rpn);
-            nxt[m * msn + (col - j * pn) * stn + j] = acc[r][c];
-          }
+    if (i + 1 < a.n) {
+      fwd_step_to_state(a, i, cur, nxt, panel);
+    } else {
+      // Tile column (ql, q_{n-2}, ..., q_0, s_local) -> global index.
+      T* yrow = y + row0 * a.out_cols + kt * a.ts_out;
+      const int tq = a.tq[i];
+      fwd_step(a, i, cur, panel, [&](int m, int sp, int qb, const Acc(&v)[kRQ]) {
+        int rem = div_fast(sp, a.ts_out, a.rts_out);
+        long long off = sp - rem * a.ts_out;
+        for (int l = 0; l < i; ++l) {
+          const int nr = div_fast(rem, a.tq[l], a.rtq[l]);
+          off += static_cast<long long>(qd[l] * a.tq[l] + rem - nr * a.tq[l]) * a.ostride[l];
+          rem = nr;
         }
-      } else {
-        // Tile column (ql, q_{n-2}, ..., q_0, s_local) -> global index.
-        T* yrow = y + (row0 + m) * a.out_cols + kt * a.ts_out;
 #pragma unroll
-        for (int r = 0; r < kRS; ++r) {
-          const int sp = sb + r * nsb;
-          if (sp >= s) continue;
-          int rem = div_fast(sp, a.ts_out, a.rts_out);
-          long long off = sp - rem * a.ts_out;
-          for (int l = 0; l < i; ++l) {
-            const int nr = div_fast(rem, a.tq[l], a.rtq[l]);
-            off += static_cast<long long>(qd[l] * a.tq[l] + rem - nr * a.tq[l]) * a.ostride[l];
-            rem = nr;
-          }
-#pragma unroll
-          for (int c = 0; c < kRQ; ++c) {
-            const int ql = qb * kRQ + c;
-            if (ql >= tq) continue;
-            store(yrow + off + static_cast<long long>(qd[i] * tq + ql) * a.ostride[i],
-                  acc[r][c]);
-          }
+        for (int c = 0; c < kRQ; ++c) {
+          const int ql = qb * kRQ + c;
+          if (ql >= tq) continue;
+          store(yrow + m * a.out_cols + off + static_cast<long long>(qd[i] * tq + ql) * a.ostride[i],
+                v[c]);
         }
-      }
+      });
     }
     __syncthreads();  // state i+1 complete; state i and the panel are free
     Acc* tmp = cur;
@@ -266,17 +474,213 @@ __device__ void chain_block(const TileArgs& a, const T* __restrict__ x,
   }
 }
 
-// Host side: fill the arguments of one launch.  Returns cudaSuccess or
-// cudaErrorInvalidValue for a tile the kernel cannot take.  The buffer and
-// panel sizes must match repro_torch.kernels.emit.block_smem_bytes.
+template <typename T, typename Acc>
+__device__ void chain_bwd_block(const TileArgs& a, const T* __restrict__ dy, T* __restrict__ dx,
+                                Acc* smem) {
+  long long blk = blockIdx.x;
+  const long long kt = blk % a.k_tiles;
+  blk /= a.k_tiles;
+  const long long mt = blk % a.m_tiles;
+  const long long b = blk / a.m_tiles;
+  const long long row0 = b * a.M + mt * a.t_m;
+
+  Acc* buf[2] = {smem, smem + a.buf0};
+  Acc* panel = buf[1] + a.buf1;
+  Acc* accb = panel + a.panel;  // a.acc elements: the Q-tile sum of dX
+  const bool tiled = a.q_tiles > 1;
+  const T* dyr = dy + row0 * a.out_cols;
+  T* dxt = dx + row0 * a.K + kt * a.t_k;
+
+  for (long long jq = 0; jq < a.q_tiles; ++jq) {
+    int qd[kMaxFactors];
+    q_digits(a, jq, qd);
+    gather_dy(a, dyr, kt, qd, buf[0]);
+    for (int j = 0; j < a.n; ++j) {
+      const int i = a.n - 1 - j;
+      load_panel_t<T>(a, i, b, qd[i], panel);
+      __syncthreads();  // state and panel in place
+      const Acc* g = buf[j & 1];
+      const int p = a.p[i];
+      if (i > 0) {
+        Acc* o = buf[(j + 1) & 1];
+        const int ld = a.c[i];
+        t_step(a, i, g, panel, [&](int m, int sp, int pb, const Acc(&v)[kRQ]) {
+          put_row(o, ld, p, m, sp, pb, v);
+        });
+      } else if (!tiled) {
+        t_step(a, i, g, panel, [&](int m, int sp, int pb, const Acc(&v)[kRQ]) {
+          put_row(dxt, a.K, p, m, sp, pb, v);
+        });
+      } else {
+        const bool first = jq == 0;
+        t_step(a, i, g, panel, [&](int m, int sp, int pb, const Acc(&v)[kRQ]) {
+          Acc* o = accb + m * a.t_k + sp * p + pb * kRQ;
+#pragma unroll
+          for (int c = 0; c < kRQ; ++c)
+            if (pb * kRQ + c < p) o[c] = first ? v[c] : o[c] + v[c];
+        });
+      }
+      __syncthreads();  // the next state is complete; this one is free
+    }
+  }
+  if (tiled) {
+    const float rtk = 1.0f / a.t_k;
+    for (int idx = threadIdx.x; idx < a.t_m * a.t_k; idx += blockDim.x) {
+      const int m = div_fast(idx, a.t_k, rtk);
+      store(dxt + m * a.K + (idx - m * a.t_k), accb[idx]);
+    }
+  }
+}
+
+// dF partial of factor i over one tile: every (group, 4x4 micro-tile) work
+// item sums u_i[m, s*p + pp] * G[m, q*s_i + s] over its share of the
+// (m, s) pairs and writes scratch[group][pp][q].
+template <typename Acc>
+__device__ __forceinline__ void df_partial(const TileArgs& a, int i, const Acc* u, const Acc* g,
+                                           Acc* scratch) {
+  const int p = a.p[i], q = a.q[i], s = a.s[i], st = a.sstr[i];
+  const int npb = (p + kRQ - 1) / kRQ, nqb = (q + kRQ - 1) / kRQ;
+  const int tiles = npb * nqb, groups = a.df_groups[i];
+  const float rnpb = 1.0f / npb, rtiles = 1.0f / tiles;
+  const int ms = p * st, cin = q * s, pq = p * q;
+  for (int w = threadIdx.x; w < tiles * groups; w += blockDim.x) {
+    const int grp = div_fast(w, tiles, rtiles);
+    const int t = w - grp * tiles;
+    const int qb = div_fast(t, npb, rnpb);
+    const int pb = t - qb * npb;
+    // A thread's pp are strided by npb (neighbouring threads read
+    // neighbouring rows of u_i); its q are consecutive.
+    int poff[kRQ], qoff[kRQ];
+#pragma unroll
+    for (int c = 0; c < kRQ; ++c) {
+      const int pp = pb + c * npb;
+      const int qq = qb * kRQ + c;
+      poff[c] = (pp < p ? pp : 0) * st;
+      qoff[c] = (qq < q ? qq : 0) * s;
+    }
+    Acc acc[kRQ][kRQ];
+#pragma unroll
+    for (int c = 0; c < kRQ; ++c)
+#pragma unroll
+      for (int d = 0; d < kRQ; ++d) acc[c][d] = Acc(0);
+    int m = 0, sp = grp;
+    while (sp >= s) {
+      sp -= s;
+      ++m;
+    }
+    for (; m < a.t_m;) {
+      const Acc* ur = u + m * ms + sp;
+      const Acc* gr = g + m * cin + sp;
+      Acc uv[kRQ], gv[kRQ];
+#pragma unroll
+      for (int c = 0; c < kRQ; ++c) {
+        uv[c] = ur[poff[c]];
+        gv[c] = gr[qoff[c]];
+      }
+#pragma unroll
+      for (int c = 0; c < kRQ; ++c)
+#pragma unroll
+        for (int d = 0; d < kRQ; ++d) acc[c][d] += uv[c] * gv[d];
+      sp += groups;
+      while (sp >= s) {
+        sp -= s;
+        ++m;
+      }
+    }
+    Acc* o = scratch + grp * pq;
+#pragma unroll
+    for (int c = 0; c < kRQ; ++c) {
+      const int pp = pb + c * npb;
+      if (pp >= p) continue;
+#pragma unroll
+      for (int d = 0; d < kRQ; ++d) {
+        const int qq = qb * kRQ + d;
+        if (qq < q) o[pp * q + qq] = acc[c][d];
+      }
+    }
+  }
+}
+
+template <typename T, typename Acc>
+__device__ void grad_block(const TileArgs& a, const T* __restrict__ x, const T* __restrict__ dy,
+                           T* __restrict__ dx, Acc* __restrict__ part, Acc* smem) {
+  const long long b = blockIdx.x / a.nblk;
+  const long long j0 = blockIdx.x % a.nblk;
+  Acc* us = smem;
+  Acc* buf[2] = {us + a.ustates, us + a.ustates + a.buf0};
+  Acc* panel = buf[1] + a.buf1;
+  Acc* scratch = panel + a.panel;
+  Acc* dfacc = scratch + a.scratch;
+  for (int e = threadIdx.x; e < a.df_total; e += blockDim.x) dfacc[e] = Acc(0);
+  int qd[kMaxFactors];
+  q_digits(a, 0, qd);  // Q is never tiled here: every digit is 0
+
+  const long long tiles = a.m_tiles * a.k_tiles;
+  for (long long tile = j0; tile < tiles; tile += a.nblk) {
+    const long long kt = tile % a.k_tiles;
+    const long long row0 = b * a.M + (tile / a.k_tiles) * a.t_m;
+    load_slab(a, x + row0 * a.K + kt * a.t_k, us + a.u[0]);
+    gather_dy(a, dy + row0 * a.out_cols, kt, qd, buf[0]);
+    // Rematerialize u_1 .. u_{n-1}.
+    for (int i = 0; i + 1 < a.n; ++i) {
+      load_panel<T>(a, i, b, 0, panel);
+      __syncthreads();
+      fwd_step_to_state(a, i, us + a.u[i], us + a.u[i + 1], panel);
+      __syncthreads();
+    }
+    T* dxt = dx + row0 * a.K + kt * a.t_k;
+    for (int j = 0; j < a.n; ++j) {
+      const int i = a.n - 1 - j;
+      load_panel_t<T>(a, i, b, 0, panel);
+      __syncthreads();  // G_{i+1}, u_i and the panel are in place
+      const Acc* g = buf[j & 1];
+      df_partial(a, i, us + a.u[i], g, scratch);
+      const int p = a.p[i];
+      if (i > 0) {
+        Acc* o = buf[(j + 1) & 1];
+        const int ld = a.c[i];
+        t_step(a, i, g, panel, [&](int m, int sp, int pb, const Acc(&v)[kRQ]) {
+          put_row(o, ld, p, m, sp, pb, v);
+        });
+      } else {
+        t_step(a, i, g, panel, [&](int m, int sp, int pb, const Acc(&v)[kRQ]) {
+          put_row(dxt, a.K, p, m, sp, pb, v);
+        });
+      }
+      __syncthreads();  // scratch and G_i are complete
+      // Sum the groups' partials in a fixed order; one owner per element.
+      const int pq = p * a.q[i], groups = a.df_groups[i];
+      Acc* d = dfacc + a.df_off[i];
+      for (int e = threadIdx.x; e < pq; e += blockDim.x) {
+        Acc v = d[e];
+        for (int grp = 0; grp < groups; ++grp) v += scratch[grp * pq + e];
+        d[e] = v;
+      }
+    }
+  }
+  __syncthreads();
+  Acc* out = part + static_cast<long long>(blockIdx.x) * a.df_total;
+  for (int e = threadIdx.x; e < a.df_total; e += blockDim.x) out[e] = dfacc[e];
+}
+
+inline long long round4(long long e) { return (e + 3) / 4 * 4; }
+
+// Host side: fill the arguments of one launch of the given kind.  Returns
+// cudaSuccess or cudaErrorInvalidValue for a tile the kernel cannot take.
+// The shared-memory regions must match
+// repro_torch.kernels.emit.block_smem_bytes for the same kind.
+//   fwd:  x (B, M, K) -> y (B, M, prod(Q) * K/prod(P)); tqs tile Q.
+//   bwd:  dY (B, M, prod(Q) * K/prod(P)) -> dX (B, M, K); tqs tile Q.
+//   grad: x, dY -> dX and dF; tqs must equal qs; nblk blocks per sample.
 inline int make_args(TileArgs* a, const void* const* fs, const int* ps, const int* qs,
-                     const int* tqs, int n, long long B, long long M, long long K,
-                     int t_m, int t_k) {
-  if (n < 1 || n > kMaxFactors || t_m < 1 || t_k < 1) return cudaErrorInvalidValue;
+                     const int* tqs, int n, long long B, long long M, long long K, int t_m,
+                     int t_k, int kind = kFwd, int nblk = 1) {
+  if (n < 1 || n > kMaxFactors || t_m < 1 || t_k < 1 || nblk < 1) return cudaErrorInvalidValue;
   if (M % t_m || K % t_k) return cudaErrorInvalidValue;
   long long pprod = 1, qprod = 1;
   for (int i = 0; i < n; ++i) {
     if (ps[i] < 1 || qs[i] < 1 || tqs[i] < 1 || qs[i] % tqs[i]) return cudaErrorInvalidValue;
+    if (kind == kGrad && tqs[i] != qs[i]) return cudaErrorInvalidValue;
     pprod *= ps[i];
     qprod *= qs[i];
   }
@@ -295,7 +699,8 @@ inline int make_args(TileArgs* a, const void* const* fs, const int* ps, const in
   a->k_tiles = K / t_k;
   a->q_tiles = 1;
   long long cols = t_k, qstride = 1;
-  long long buf[2] = {0, 0}, panel = 0;
+  long long buf[2] = {0, 0}, panel = 0, ustates = 0, scratch = 0, df_total = 0;
+  a->c[0] = t_k;
   for (int i = 0; i < n; ++i) {
     a->f[i] = fs[i];
     a->p[i] = ps[i];
@@ -310,51 +715,88 @@ inline int make_args(TileArgs* a, const void* const* fs, const int* ps, const in
     const long long s = cols / ps[i];
     a->s[i] = static_cast<int>(s);
     a->sstr[i] = static_cast<int>(s | 1);
-    // Buffers are rounded to 4 elements so the panel stays 16-byte aligned.
-    const long long elems = (static_cast<long long>(t_m) * ps[i] * (s | 1) + 3) / 4 * 4;
-    if (elems > buf[i % 2]) buf[i % 2] = elems;
-    const long long pe = static_cast<long long>(ps[i]) * ((tqs[i] + kRQ - 1) / kRQ * kRQ);
-    if (pe > panel) panel = pe;
+    const long long state = round4(static_cast<long long>(t_m) * ps[i] * (s | 1));
+    const long long fwd_panel = static_cast<long long>(ps[i]) * round4(tqs[i]);
+    const long long t_panel = static_cast<long long>(tqs[i]) * round4(ps[i]);
+    if (kind == kFwd) {
+      if (state > buf[i % 2]) buf[i % 2] = state;
+      if (fwd_panel > panel) panel = fwd_panel;
+    } else {
+      if (t_panel > panel) panel = t_panel;
+    }
+    if (kind == kGrad) {
+      a->u[i] = static_cast<int>(ustates);
+      ustates += state;
+      if (fwd_panel > panel) panel = fwd_panel;
+      const int work = static_cast<int>(((ps[i] + kRQ - 1) / kRQ) * ((qs[i] + kRQ - 1) / kRQ));
+      a->df_groups[i] = work >= kDfThreads ? 1 : kDfThreads / work;
+      const long long sc = round4(static_cast<long long>(a->df_groups[i]) * ps[i] * qs[i]);
+      if (sc > scratch) scratch = sc;
+      a->df_off[i] = static_cast<int>(df_total);
+      df_total += static_cast<long long>(ps[i]) * qs[i];
+    }
     cols = s * tqs[i];
+    a->c[i + 1] = static_cast<int>(cols);
   }
-  if (buf[0] + buf[1] + panel > (1 << 22)) return cudaErrorInvalidValue;
+  if (kind != kFwd) {
+    // Transposed chain states c_n, c_{n-1}, ..., c_1 alternate between the
+    // two buffers; c_0 (dX) goes to device memory or the Q-tile sum.
+    for (int k = 0; k < n; ++k) {
+      const long long st = round4(static_cast<long long>(t_m) * a->c[n - k]);
+      if (st > buf[k % 2]) buf[k % 2] = st;
+    }
+  }
+  a->acc = kind == kBwd && a->q_tiles > 1 ? static_cast<int>(round4(static_cast<long long>(t_m) * t_k)) : 0;
+  a->ustates = static_cast<int>(ustates);
+  a->scratch = static_cast<int>(scratch);
+  a->df_total = static_cast<int>(df_total);
+  a->nblk = nblk;
   a->buf0 = static_cast<int>(buf[0]);
   a->buf1 = static_cast<int>(buf[1]);
   a->panel = static_cast<int>(panel);
+  a->smem = ustates + buf[0] + buf[1] + panel + a->acc + scratch + round4(df_total);
+  if (a->smem > (1 << 22)) return cudaErrorInvalidValue;
+  if (kind == kFwd) {
+    a->grid = B * a->m_tiles * a->q_tiles * a->k_tiles;
+  } else if (kind == kBwd) {
+    a->grid = B * a->m_tiles * a->k_tiles;
+  } else {
+    a->grid = B * nblk;
+  }
   return cudaSuccess;
 }
 
-template <typename T>
-using TileKernel = void (*)(TileArgs, const T*, T*);
-
-template <typename T, typename Acc>
-int launch(TileKernel<T> kernel, const TileArgs& a, const void* x, void* y, void* stream) {
-  const size_t smem = sizeof(Acc) * (static_cast<size_t>(a.buf0) + a.buf1 + a.panel);
+// Launch `kernel(a, args...)` on a.grid blocks of kThreads with a.smem
+// elements of Acc as dynamic shared memory; each argument is cast to the
+// kernel's parameter type.
+template <typename Acc, typename... KArgs, typename... Args>
+int launch(void (*kernel)(TileArgs, KArgs...), const TileArgs& a, void* stream, Args... args) {
+  const size_t smem = sizeof(Acc) * static_cast<size_t>(a.smem);
   if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
-  const long long blocks = a.B * a.m_tiles * a.q_tiles * a.k_tiles;
-  if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
-  if (blocks == 0) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(kernel), cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  if (a.grid > INT_MAX) return cudaErrorInvalidConfiguration;
+  if (a.grid == 0) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      a, static_cast<const T*>(x), static_cast<T*>(y));
+  kernel<<<static_cast<unsigned>(a.grid), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      a, static_cast<KArgs>(args)...);
   return cudaGetLastError();
 }
 
 }  // namespace kron
 
 // dtype codes shared with the Python wrappers: 0 float32, 1 bfloat16, 2 float64.
-#define KRON_DISPATCH(dtype, KERNEL, ...)                                         \
-  switch (dtype) {                                                                \
-    case 0:                                                                       \
-      return kron::launch<float, float>(KERNEL<float, float>, __VA_ARGS__);       \
-    case 1:                                                                       \
-      return kron::launch<__nv_bfloat16, float>(KERNEL<__nv_bfloat16, float>,     \
-                                                __VA_ARGS__);                     \
-    case 2:                                                                       \
-      return kron::launch<double, double>(KERNEL<double, double>, __VA_ARGS__);   \
-    default:                                                                      \
-      return cudaErrorInvalidValue;                                               \
+// KRON_DISPATCH(dtype, KERNEL, a, stream, pointers...) launches
+// KERNEL<T, Acc> for the code's (T, Acc).
+#define KRON_DISPATCH(dtype, KERNEL, ...)                                      \
+  switch (dtype) {                                                             \
+    case 0:                                                                    \
+      return kron::launch<float>(KERNEL<float, float>, __VA_ARGS__);           \
+    case 1:                                                                    \
+      return kron::launch<float>(KERNEL<__nv_bfloat16, float>, __VA_ARGS__);   \
+    case 2:                                                                    \
+      return kron::launch<double>(KERNEL<double, double>, __VA_ARGS__);        \
+    default:                                                                   \
+      return cudaErrorInvalidValue;                                            \
   }

@@ -39,7 +39,7 @@ int kron_sliced(int dtype, const void* x, const void* f, void* y, long long M, l
   const int ps[1] = {p}, qs[1] = {q}, tqs[1] = {t_q};
   const int err = kron::make_args(&a, fs, ps, qs, tqs, 1, 1, M, K, t_m, t_s * p);
   if (err != cudaSuccess) return err;
-  KRON_DISPATCH(dtype, sliced_kernel, a, x, y, stream)
+  KRON_DISPATCH(dtype, sliced_kernel, a, stream, x, y)
 }
 
 const char* kron_error_string(int code) {

@@ -1,6 +1,6 @@
 """StageProgram IR and the executor behind every planned Kron-Matmul path.
 
-The port of ``repro.kernels.emit`` for the forward pass:
+The port of ``repro.kernels.emit``:
 
 * a ``StageInstr`` is one kernel launch, typed ``multiply`` /
   ``transposed_multiply`` / ``prekron`` and carrying everything the executor
@@ -9,15 +9,15 @@ The port of ``repro.kernels.emit`` for the forward pass:
   path.
 * a ``StageProgram`` is a tuple of instructions; ``transpose(prog)`` derives
   the backward program mechanically.
-* ``run_stage`` / ``run_program`` / ``emit`` execute forward instructions.  A
-  stage on CUDA tensors is ONE launch of the hand-written chain kernel
-  (``chain_cuda``, ``csrc/chain_fwd.cu``); on CPU tensors it runs the
-  kernel's plain twin ``chain_reference``.  There is no fallback between the
-  two: the tensors' device decides.
-
-The backward instructions (``transposed_multiply`` and the stage backward)
-are the next slice of the port (ROADMAP.md queue 2, items 2, 3 and 5);
-executing one raises ``NotImplementedError``.
+* ``run_stage`` / ``run_program`` / ``emit`` execute instructions of either
+  direction; ``run_stage_grad`` runs one stage's full backward (dx and the
+  factor gradients).  On CUDA tensors each is ONE launch of a hand-written
+  kernel: the forward chain (``chain_cuda``, ``csrc/chain_fwd.cu``), the
+  transposed chain (``chain_bwd_cuda``, ``csrc/chain_bwd.cu``) or the stage
+  backward (``grad_cuda``, ``csrc/grad.cu``, plus its dF reduction launch).
+  On CPU tensors they run the kernels' plain twins ``chain_reference``,
+  ``chain_bwd_reference`` and ``grad_reference``.  There is no fallback
+  between the two: the tensors' device decides.
 """
 from __future__ import annotations
 
@@ -45,14 +45,12 @@ TRANSPOSED_MULTIPLY = "transposed_multiply"
 PREKRON = "prekron"
 _KINDS = (MULTIPLY, TRANSPOSED_MULTIPLY, PREKRON)
 
-BACKWARD_SLICE = (
-    "the backward pass (transposed chain, stage backward and transposed "
-    "sliced multiply) is the next slice of the port: ROADMAP.md queue 2, "
-    "items 2, 3 and 5"
-)
-
-# Launch counter of the chain kernel: +1 per launch, nowhere else.
+# Launch counters, +1 per CUDA launch and nowhere else: the forward chain,
+# the transposed chain, the stage backward and its dF reduction.
 chain_launches = 0
+chain_bwd_launches = 0
+grad_launches = 0
+grad_reduce_launches = 0
 
 _MAX_FACTORS = 16  # kron::kMaxFactors in csrc/kron_tile.cuh
 _KERNEL_DTYPES = {  # (input dtype, acc dtype) -> code in csrc/kron_tile.cuh
@@ -253,6 +251,46 @@ def sliced_apply(
     return out.reshape(b, m, s, q).transpose(2, 3).reshape(b, m, q * s).to(y.dtype)
 
 
+def sliced_apply_t(
+    g: torch.Tensor, f: torch.Tensor, acc_dtype: torch.dtype | None = None
+) -> torch.Tensor:
+    """Transposed sliced multiply (the input cotangent), batch-polymorphic,
+    rounded to g's dtype.
+
+    ``g: (M, Q*S)`` with ``f: (P, Q)`` -> ``(M, S*P)``; batched analogue with
+    3-D ``g``/``f`` as in ``sliced_apply``.
+    """
+    acc = acc_dtype_for(g.dtype) if acc_dtype is None else acc_dtype
+    if f.ndim == 2:
+        if g.ndim == 3:
+            b, m, l = g.shape
+            return sliced_apply_t(g.reshape(b * m, l), f, acc).reshape(b, m, -1)
+        m, l = g.shape
+        p, q = f.shape
+        s = l // q
+        g2 = g.reshape(m, q, s).transpose(1, 2).reshape(m * s, q).to(acc)
+        return (g2 @ f.to(acc).T).reshape(m, s * p).to(g.dtype)
+    b, m, l = g.shape
+    p, q = int(f.shape[1]), int(f.shape[2])
+    s = l // q
+    g2 = g.reshape(b, m, q, s).transpose(2, 3).reshape(b, m * s, q).to(acc)
+    out = torch.bmm(g2, f.to(acc).transpose(1, 2))
+    return out.reshape(b, m, s * p).to(g.dtype)
+
+
+def sliced_vjp_factor(
+    u: torch.Tensor, g: torch.Tensor, p: int, q: int, acc_dtype: torch.dtype | None = None
+) -> torch.Tensor:
+    """The factor cotangent of one sliced multiply, batch-polymorphic:
+    ``df[..., p, q] = sum_{m,s} u[..., m, s*P+p] g[..., m, q*S+s]``, in the
+    accumulator dtype (f32, f64 for f64) — per sample for 3-D operands."""
+    acc = acc_dtype_for(g.dtype) if acc_dtype is None else acc_dtype
+    s = int(u.shape[-1]) // p
+    u4 = u.reshape(*u.shape[:-1], s, p).to(acc)
+    g4 = g.reshape(*g.shape[:-1], q, s).to(acc)
+    return torch.einsum("...msp,...mqs->...pq", u4, g4)
+
+
 def prekron_product(stage_factors: Sequence[torch.Tensor]) -> torch.Tensor:
     """Explicit Kronecker product of a stage's factors, batch-polymorphic.
 
@@ -345,48 +383,103 @@ class ChainGeometry:
         return math.prod(self.qs) * (self.k // math.prod(self.ps))
 
 
+_KINDS_SMEM = ("fwd", "bwd", "grad")
+DF_THREADS = 256  # kron::kDfThreads: threads that split one factor's dF sums
+
+
+def _r4(e: int) -> int:
+    return -(-e // 4) * 4
+
+
 def block_smem_bytes(
-    t_m: int, t_k: int, ps: Sequence[int], t_qs: Sequence[int], acc_bytes: int
+    t_m: int,
+    t_k: int,
+    ps: Sequence[int],
+    t_qs: Sequence[int],
+    acc_bytes: int,
+    *,
+    kind: str = "fwd",
+    q_tiled: bool = False,
 ) -> int:
-    """Shared memory of one block of the chain kernel (kron::make_args): the
-    two chain-state buffers (even and odd states, each (t_m, p_i, s_i | 1),
-    rounded to 4 elements) and the largest (p_i, t_q_i) factor panel with
-    its columns padded to a multiple of 4, in the accumulator type."""
+    """Shared memory of one block of a chain kernel (``kron::make_args``),
+    in the accumulator type; every region is rounded to 4 elements.
+
+    ``kind="fwd"`` (chain_fwd.cu, sliced.cu): the two chain-state buffers
+    (even and odd states, each ``(t_m, p_i, s_i | 1)``) and the largest
+    ``(p_i, t_q_i)`` factor panel, columns padded to a multiple of 4.
+    ``kind="bwd"`` (chain_bwd.cu, sliced_t.cu): the two buffers of the flat
+    transposed states ``c_n .. c_1`` (``c_0 = t_k``, ``c_{i+1} = t_q_i *
+    c_i / p_i``), the largest transposed ``(t_q_i, p_i)`` panel, rows padded
+    to 4, and, when Q is tiled (``q_tiled``), the ``(t_m, t_k)`` sum of dX.
+    ``kind="grad"`` (grad.cu; ``t_qs`` must be the whole Q): every forward
+    state ``u_i`` in the forward layout, the two transposed-state buffers,
+    the larger panel of either orientation, the dF scratch of the widest
+    factor (``groups_i * p_i * q_i``) and the block's dF sums
+    (``sum p_i q_i``)."""
+    if kind not in _KINDS_SMEM:
+        raise ValueError(f"unknown kernel kind {kind!r}")
     bufs = [0, 0]
-    panel = 0
+    panel = ustates = scratch = df = 0
+    states = [t_k]
     cols = t_k
     for i, (p, tq) in enumerate(zip(ps, t_qs)):
         s = cols // p
-        bufs[i % 2] = max(bufs[i % 2], -(-t_m * p * (s | 1) // 4) * 4)
-        panel = max(panel, p * -(-tq // 4) * 4)
+        state = _r4(t_m * p * (s | 1))
+        fwd_panel = p * _r4(tq)
+        if kind == "fwd":
+            bufs[i % 2] = max(bufs[i % 2], state)
+            panel = max(panel, fwd_panel)
+        else:
+            panel = max(panel, tq * _r4(p))
+        if kind == "grad":
+            ustates += state
+            panel = max(panel, fwd_panel)
+            work = -(-p // 4) * -(-tq // 4)
+            groups = 1 if work >= DF_THREADS else DF_THREADS // work
+            scratch = max(scratch, _r4(groups * p * tq))
+            df += p * tq
         cols = s * tq
-    return acc_bytes * (bufs[0] + bufs[1] + panel)
+        states.append(cols)
+    n = len(states) - 1
+    if kind != "fwd":
+        for k in range(n):
+            bufs[k % 2] = max(bufs[k % 2], _r4(t_m * states[n - k]))
+    acc = _r4(t_m * t_k) if kind == "bwd" and q_tiled else 0
+    return acc_bytes * (ustates + bufs[0] + bufs[1] + panel + acc + scratch + _r4(df))
 
 
 def block_tile(
-    t_m: int, t_k: int, ps: Sequence[int], t_qs: Sequence[int], acc_bytes: int
+    t_m: int,
+    t_k: int,
+    ps: Sequence[int],
+    t_qs: Sequence[int],
+    acc_bytes: int,
+    *,
+    kind: str = "fwd",
+    q_tiled: bool = False,
 ) -> tuple[int, int]:
-    """The kernel's block tile ``(t_m', t_k')``: ``t_m'`` divides ``t_m``,
-    ``t_k'`` is a multiple of ``prod(ps)`` dividing ``t_k`` (tiles never split
-    a contraction, so the choice changes no result).  The largest
-    ``t_m' * t_k'`` wins, ties to the wider slab, among the tiles that fit
-    half of one block's shared memory, so that two blocks share an SM and
-    one loads while the other computes; when none does, among those that
-    fit at all.  Raises ``VmemOverflowError`` when not even
-    ``t_m'=1, t_k'=prod(ps)`` fits."""
+    """The block tile ``(t_m', t_k')`` of a chain kernel of the given kind
+    (``block_smem_bytes``): ``t_m'`` divides ``t_m``, ``t_k'`` is a multiple
+    of ``prod(ps)`` dividing ``t_k`` (tiles never split a contraction, so the
+    choice changes no result).  The largest ``t_m' * t_k'`` wins, ties to
+    the wider slab, among the tiles that fit half of one block's shared
+    memory, so that two blocks share an SM and one loads while the other
+    computes; when none does, among those that fit at all.  Raises
+    ``VmemOverflowError`` when not even ``t_m'=1, t_k'=prod(ps)`` fits.
+    Every kernel of the port takes its tiles from this one rule."""
     pprod = math.prod(ps)
     fits = []
     for d in _divisors(t_k // pprod):
         tk = d * pprod
         for tm in _divisors(t_m):
-            nbytes = block_smem_bytes(tm, tk, ps, t_qs, acc_bytes)
+            nbytes = block_smem_bytes(tm, tk, ps, t_qs, acc_bytes, kind=kind, q_tiled=q_tiled)
             if nbytes <= SMEM_BYTES:
                 fits.append((nbytes <= SMEM_BYTES // 2, tm * tk, tk, tm))
     if not fits:
-        need = block_smem_bytes(1, pprod, ps, t_qs, acc_bytes)
+        need = block_smem_bytes(1, pprod, ps, t_qs, acc_bytes, kind=kind, q_tiled=q_tiled)
         raise VmemOverflowError(
-            f"chain {list(ps)} with Q-tiles {list(t_qs)} needs {need} bytes of "
-            f"shared memory at the smallest block tile (t_m'=1, t_k'={pprod}); "
+            f"{kind} chain {list(ps)} with Q-tiles {list(t_qs)} needs {need} bytes "
+            f"of shared memory at the smallest block tile (t_m'=1, t_k'={pprod}); "
             f"one block holds {SMEM_BYTES}: tile Q via t_qs or split the stage"
         )
     best = max(fits)
@@ -403,18 +496,24 @@ def chain_geometry(
     t_qs: tuple[int, ...] | None = None,
     acc_bytes: int = 4,
     vmem_budget_elems: int = SMEM_BUDGET_ELEMS,
+    direction: str = "fwd",
 ) -> ChainGeometry:
-    """Check a forward chain's tiles as ``chain_pallas`` does, then pick the
-    kernel's block tile.  Raises ``LoweringError`` on shapes or tiles the
-    kernel cannot take and ``VmemOverflowError`` when the planned tile
-    exceeds the budget or no block tile fits shared memory.  Memoized: a
-    call's geometry depends on shapes and tiles only, and working it out
-    costs more host time than a small launch."""
+    """Check a chain's tiles as ``chain_pallas`` does, then pick the
+    kernel's block tile.  ``direction="fwd"``: ``x_shape`` is x's ``(B, M,
+    K)``; ``"bwd"``: it is dY's ``(B, M, prod(Q) * S)`` and ``k`` is dX's
+    column count.  Raises ``LoweringError`` on shapes or tiles the kernel
+    cannot take and ``VmemOverflowError`` when the planned tile exceeds the
+    budget (``fused_growth`` forward, ``transposed_growth`` backward) or no
+    block tile fits shared memory.  Memoized: a call's geometry depends on
+    shapes and tiles only, and working it out costs more host time than a
+    small launch."""
+    if direction not in ("fwd", "bwd"):
+        raise LoweringError(f"unknown direction {direction!r}")
     return _chain_geometry(
         tuple(int(d) for d in x_shape),
         tuple(tuple(int(d) for d in f) for f in f_shapes),
         t_b, t_m, t_k, None if t_qs is None else tuple(t_qs), acc_bytes,
-        vmem_budget_elems,
+        vmem_budget_elems, direction,
     )
 
 
@@ -428,6 +527,7 @@ def _chain_geometry(
     t_qs: tuple[int, ...] | None,
     acc_bytes: int,
     vmem_budget_elems: int,
+    direction: str,
 ) -> ChainGeometry:
     b, m, cols = x_shape
     n = len(f_shapes)
@@ -437,9 +537,15 @@ def _chain_geometry(
         if int(f[0]) != b:
             raise LoweringError(f"factor batch {f[0]} != x batch {b}")
     pprod = math.prod(ps)
-    if cols % pprod:
-        raise LoweringError(f"K={cols} not divisible by prod(P)={pprod}")
-    k = cols
+    qprod = math.prod(qs)
+    if direction == "fwd":
+        if cols % pprod:
+            raise LoweringError(f"K={cols} not divisible by prod(P)={pprod}")
+        k = cols
+    else:
+        if cols % qprod:
+            raise LoweringError(f"dY cols {cols} not divisible by prod(Q)={qprod}")
+        k = cols // qprod * pprod
     t_b = min(t_b, b)
     t_m = min(t_m, m)
     t_k = min(t_k or k, k)
@@ -452,7 +558,8 @@ def _chain_geometry(
         raise LoweringError(f"t_qs must divide factor Q dims: {t_qs} vs {qs}")
     if t_k % pprod:
         raise LoweringError(f"T_K={t_k} must be a multiple of prod(P)={pprod}")
-    growth = fused_growth(ps, qs, t_qs)
+    growth_fn = fused_growth if direction == "fwd" else transposed_growth
+    growth = growth_fn(ps, qs, t_qs)
     if t_b * t_m * t_k * growth > vmem_budget_elems:
         raise VmemOverflowError(
             f"tile {t_b}x{t_m}x{t_k} (growth {growth:.2f}) exceeds the "
@@ -464,8 +571,104 @@ def _chain_geometry(
         )
     if n > _MAX_FACTORS:
         raise LoweringError(f"a stage chains at most {_MAX_FACTORS} factors, got {n}")
-    block_m, block_k = block_tile(t_m, t_k, ps, t_qs, acc_bytes)
+    block_m, block_k = block_tile(
+        t_m, t_k, ps, t_qs, acc_bytes,
+        kind=direction, q_tiled=direction == "bwd" and t_qs != qs,
+    )
     return ChainGeometry(b, m, k, ps, qs, t_qs, block_m, block_k)
+
+
+@dataclasses.dataclass(frozen=True)
+class GradGeometry:
+    """A stage backward's checked dims and the kernel's block tile."""
+
+    b: int
+    m: int
+    k: int
+    ps: tuple[int, ...]
+    qs: tuple[int, ...]
+    block_m: int
+    block_k: int
+
+
+def grad_geometry(
+    x_shape: Sequence[int],
+    dy_shape: Sequence[int],
+    f_shapes: Sequence[Sequence[int]],
+    *,
+    t_b: int = 1,
+    t_m: int = 8,
+    t_k: int | None = None,
+    acc_bytes: int = 4,
+    vmem_budget_elems: int = SMEM_BUDGET_ELEMS,
+) -> GradGeometry:
+    """Check a stage backward's tiles as ``grad_pallas`` does (the live set
+    sums every chain state plus the gradient tile), then pick the kernel's
+    block tile.  Raises ``LoweringError`` on shapes or tiles the kernel
+    cannot take and ``VmemOverflowError`` when the live set exceeds the
+    budget or no block tile fits shared memory.  Memoized."""
+    return _grad_geometry(
+        tuple(int(d) for d in x_shape),
+        tuple(int(d) for d in dy_shape),
+        tuple(tuple(int(d) for d in f) for f in f_shapes),
+        t_b, t_m, t_k, acc_bytes, vmem_budget_elems,
+    )
+
+
+def grad_live_elems(t_k: int, ps: Sequence[int], qs: Sequence[int]) -> float:
+    """Live set of one row of a stage backward's tile (``grad_pallas``):
+    every chain state from ``t_k`` columns on, plus the gradient tile at the
+    stage's output width — a sum over chain states, not a max."""
+    cols = float(t_k)
+    live = cols
+    for p, q in zip(ps, qs):
+        cols = cols / p * q
+        live += cols
+    return live + cols
+
+
+@functools.lru_cache(maxsize=1024)
+def _grad_geometry(
+    x_shape: tuple[int, ...],
+    dy_shape: tuple[int, ...],
+    f_shapes: tuple[tuple[int, ...], ...],
+    t_b: int,
+    t_m: int,
+    t_k: int | None,
+    acc_bytes: int,
+    vmem_budget_elems: int,
+) -> GradGeometry:
+    b, m, k = x_shape
+    ps = tuple(f[1] for f in f_shapes)
+    qs = tuple(f[2] for f in f_shapes)
+    for f in f_shapes:
+        if int(f[0]) != b:
+            raise LoweringError(f"factor batch {f[0]} != x batch {b}")
+    pprod = math.prod(ps)
+    if k % pprod:
+        raise LoweringError(f"K={k} not divisible by prod(P)={pprod}")
+    want = (b, m, math.prod(qs) * (k // pprod))
+    if dy_shape != want:
+        raise LoweringError(f"dy shape {dy_shape} != {want}")
+    t_b = min(t_b, b)
+    t_m = min(t_m, m)
+    t_k = min(t_k or k, k)
+    if t_k % pprod:
+        raise LoweringError(f"T_K={t_k} must be a multiple of prod(P)={pprod}")
+    live = t_b * t_m * grad_live_elems(t_k, ps, qs)
+    if live > vmem_budget_elems:
+        raise VmemOverflowError(
+            f"bwd tile {t_b}x{t_m}x{t_k} live set {int(live)} elems exceeds the "
+            f"per-block budget; reduce t_b / t_k or split the stage"
+        )
+    if b % t_b or m % t_m or k % t_k:
+        raise LoweringError(
+            f"tiles must divide dims: {(b, m, k)} vs {(t_b, t_m, t_k)}"
+        )
+    if len(ps) > _MAX_FACTORS:
+        raise LoweringError(f"a stage chains at most {_MAX_FACTORS} factors, got {len(ps)}")
+    block_m, block_k = block_tile(t_m, t_k, ps, qs, acc_bytes, kind="grad")
+    return GradGeometry(b, m, k, ps, qs, block_m, block_k)
 
 
 def kernel_dtype_code(
@@ -496,16 +699,51 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name} needs contiguous tensors")
 
 
-def _chain_fn():
-    fn = _build.library("chain_fwd").kron_chain_fwd
+def kernel_fn(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """``kron_<name>`` of ``csrc/<name>.cu`` (built on first use), with its
+    ctypes signature set once; every pointer and the stream are
+    ``c_void_p`` so no 64-bit value is cut."""
+    fn = getattr(_build.library(name), f"kron_{name}")
     if fn.argtypes is None:
-        ll, i, vp = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
-        ip = ctypes.POINTER(ctypes.c_int)
-        fn.argtypes = [
-            i, vp, vp, ctypes.POINTER(vp), ip, ip, ip, i, ll, ll, ll, i, i, vp,
-        ]
+        fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return fn
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise ``RuntimeError`` for a kernel's nonzero launch status."""
+    if err:
+        raise RuntimeError(
+            f"{name} launch failed: {_build.error_string(_build.library(name), err)}"
+        )
+
+
+_LL, _I, _VP = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
+_IP, _VPP = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p)
+# kron_chain_fwd / kron_chain_bwd(dtype, in, out, fs, ps, qs, tqs, n, B, M,
+# K, t_m, t_k, stream).
+_CHAIN_ARGS = (_I, _VP, _VP, _VPP, _IP, _IP, _IP, _I, _LL, _LL, _LL, _I, _I, _VP)
+# kron_grad(dtype, x, dy, dx, part, df, fs, ps, qs, n, B, M, K, t_m, t_k,
+# nblk, stream).
+_GRAD_ARGS = (_I, _VP, _VP, _VP, _VP, _VP, _VPP, _IP, _IP, _I, _LL, _LL, _LL, _I, _I, _I, _VP)
+
+
+def _ints(values: Sequence[int]):
+    return (ctypes.c_int * len(values))(*values)
+
+
+def _ptrs(tensors: Sequence[torch.Tensor]):
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def _chain_launch(name, inp, out, factors, geo, code):
+    with torch.cuda.device(inp.device):
+        err = kernel_fn(name, _CHAIN_ARGS)(
+            code, inp.data_ptr(), out.data_ptr(), _ptrs(factors), _ints(geo.ps),
+            _ints(geo.qs), _ints(geo.t_qs), len(factors), geo.b, geo.m, geo.k,
+            geo.block_m, geo.block_k, torch.cuda.current_stream().cuda_stream,
+        )
+    check_launch(name, err)
 
 
 def chain_cuda(
@@ -538,20 +776,7 @@ def chain_cuda(
     y = torch.empty((geo.b, geo.m, geo.out_cols), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    n = len(factors)
-    fn = _chain_fn()
-    with torch.cuda.device(x.device):
-        err = fn(
-            code, x.data_ptr(), y.data_ptr(),
-            (ctypes.c_void_p * n)(*(f.data_ptr() for f in factors)),
-            (ctypes.c_int * n)(*geo.ps), (ctypes.c_int * n)(*geo.qs),
-            (ctypes.c_int * n)(*geo.t_qs), n, geo.b, geo.m, geo.k,
-            geo.block_m, geo.block_k, torch.cuda.current_stream().cuda_stream,
-        )
-    if err:
-        raise RuntimeError(
-            f"chain_fwd launch failed: {_build.error_string(_build.library('chain_fwd'), err)}"
-        )
+    _chain_launch("chain_fwd", x, y, factors, geo, code)
     chain_launches += 1
     return y
 
@@ -570,6 +795,145 @@ def chain_reference(
     return y.to(x.dtype)
 
 
+def chain_bwd_cuda(
+    dy: torch.Tensor,
+    *factors: torch.Tensor,
+    t_b: int = 1,
+    t_m: int = 8,
+    t_k: int | None = None,
+    t_qs: tuple[int, ...] | None = None,
+    acc_dtype: str | None = None,
+    vmem_budget_elems: int = SMEM_BUDGET_ELEMS,
+) -> torch.Tensor:
+    """One launch of the transposed chain kernel (``csrc/chain_bwd.cu``).
+
+    ``dy: (B, M, prod(Q) * S)``; each factor ``(B, P_i, Q_i)`` in
+    application order.  Returns dX ``(B, M, prod(P) * S)`` in dy's dtype:
+    the transposes applied last-applied factor first, the partial dX of the
+    Q-tiles (``t_qs``) summed in ``acc_dtype`` inside the kernel.  ``t_k`` is
+    in dX's columns.  The tiles are checked as ``chain_pallas(direction=
+    "bwd")`` checks them.  Raises on CPU tensors: their path is
+    ``chain_bwd_reference``.
+    """
+    global chain_bwd_launches
+    acc = _resolve_acc(acc_dtype, dy.dtype)
+    geo = chain_geometry(
+        dy.shape, [f.shape for f in factors], t_b=t_b, t_m=t_m, t_k=t_k,
+        t_qs=t_qs, acc_bytes=acc.itemsize, vmem_budget_elems=vmem_budget_elems,
+        direction="bwd",
+    )
+    require_cuda("chain_bwd_cuda", dy, *factors)
+    code = kernel_dtype_code(dy, factors, acc)
+    dx = torch.empty((geo.b, geo.m, geo.k), dtype=dy.dtype, device=dy.device)
+    if dx.numel() == 0:
+        return dx
+    _chain_launch("chain_bwd", dy, dx, factors, geo, code)
+    chain_bwd_launches += 1
+    return dx
+
+
+def chain_bwd_reference(
+    dy: torch.Tensor, *factors: torch.Tensor, acc_dtype: str | None = None
+) -> torch.Tensor:
+    """The transposed chain kernel's plain PyTorch twin: the transposes,
+    last-applied factor first, in the accumulator dtype, rounded to dy's
+    dtype once at the end."""
+    acc = _resolve_acc(acc_dtype, dy.dtype)
+    g = dy.to(acc)
+    for f in reversed(factors):
+        g = sliced_apply_t(g, f, acc)
+    return g.to(dy.dtype)
+
+
+def grad_blocks(geo: GradGeometry, smem_bytes: int, device: torch.device) -> int:
+    """Blocks per batch sample of a stage-backward launch: enough for every
+    SM to hold as many blocks as fit its shared memory (at most two), never
+    more than the sample has tiles.  Each block writes one dF partial."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    per_sm = 2 if smem_bytes <= SMEM_BYTES // 2 else 1
+    tiles = (geo.m // geo.block_m) * (geo.k // geo.block_k)
+    return max(1, min(tiles, sms * per_sm // geo.b))
+
+
+def grad_cuda(
+    x: torch.Tensor,
+    dy: torch.Tensor,
+    *factors: torch.Tensor,
+    t_b: int = 1,
+    t_m: int = 8,
+    t_k: int | None = None,
+    acc_dtype: str | None = None,
+    vmem_budget_elems: int = SMEM_BUDGET_ELEMS,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
+    """The stage backward kernel (``csrc/grad.cu``): (dx, factor grads).
+
+    ``x: (B, M, K)`` stage input, ``dy: (B, M, prod(Q) * S)`` stage output
+    cotangent, factors ``(B, P_i, Q_i)`` in application order.  Returns dx
+    in x's dtype and one ``(B, P_i, Q_i)`` grad per factor, in application
+    order, in the accumulator dtype.  Two launches: the stage backward,
+    whose blocks each write one dF partial, and the reduction of the
+    partials in block order.  The tiles are checked as ``grad_pallas``
+    checks them.  Raises on CPU tensors: their path is ``grad_reference``.
+    """
+    global grad_launches, grad_reduce_launches
+    acc = _resolve_acc(acc_dtype, dy.dtype)
+    geo = grad_geometry(
+        x.shape, dy.shape, [f.shape for f in factors], t_b=t_b, t_m=t_m,
+        t_k=t_k, acc_bytes=acc.itemsize, vmem_budget_elems=vmem_budget_elems,
+    )
+    require_cuda("grad_cuda", x, dy, *factors)
+    code = kernel_dtype_code(x, (dy, *factors), acc)
+    sizes = [p * q for p, q in zip(geo.ps, geo.qs)]
+    total = sum(sizes)
+    dx = torch.empty((geo.b, geo.m, geo.k), dtype=x.dtype, device=x.device)
+    if not dx.numel():
+        df = torch.zeros((geo.b, total), dtype=acc, device=x.device)
+    else:
+        df = torch.empty((geo.b, total), dtype=acc, device=x.device)
+        smem = block_smem_bytes(
+            geo.block_m, geo.block_k, geo.ps, geo.qs, acc.itemsize, kind="grad"
+        )
+        nblk = grad_blocks(geo, smem, x.device)
+        part = torch.empty((geo.b * nblk * total,), dtype=acc, device=x.device)
+        with torch.cuda.device(x.device):
+            err = kernel_fn("grad", _GRAD_ARGS)(
+                code, x.data_ptr(), dy.data_ptr(), dx.data_ptr(), part.data_ptr(),
+                df.data_ptr(), _ptrs(factors), _ints(geo.ps), _ints(geo.qs),
+                len(factors), geo.b, geo.m, geo.k, geo.block_m, geo.block_k, nblk,
+                torch.cuda.current_stream().cuda_stream,
+            )
+        check_launch("grad", err)
+        grad_launches += 1
+        grad_reduce_launches += 1
+    dfs = torch.split(df, sizes, dim=1)
+    return dx, tuple(d.reshape(geo.b, p, q) for d, p, q in zip(dfs, geo.ps, geo.qs))
+
+
+def grad_reference(
+    x: torch.Tensor,
+    dy: torch.Tensor,
+    *factors: torch.Tensor,
+    acc_dtype: str | None = None,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
+    """The stage backward kernel's plain PyTorch twin: the same (dx, factor
+    grads) as ``grad_cuda``, 3-D operands.  The forward states and the
+    gradient stay in the accumulator dtype through the stage; dx rounds to
+    x's dtype once, the grads stay in the accumulator dtype."""
+    acc = _resolve_acc(acc_dtype, dy.dtype)
+    us = []
+    y = x.to(acc)
+    for f in factors:
+        us.append(y)
+        y = sliced_apply(y, f, acc)
+    g = dy.to(acc)
+    dfs = [None] * len(factors)
+    for idx in reversed(range(len(factors))):
+        f = factors[idx]
+        dfs[idx] = sliced_vjp_factor(us[idx], g, int(f.shape[-2]), int(f.shape[-1]), acc)
+        g = sliced_apply_t(g, f, acc)
+    return g.to(x.dtype), tuple(dfs)
+
+
 # ---------------------------------------------------------------------------
 # Instruction / program interpreters (the executor's public surface)
 # ---------------------------------------------------------------------------
@@ -586,6 +950,18 @@ def _effective(instr: StageInstr, fs: tuple[torch.Tensor, ...]):
     return fs, instr.t_qs
 
 
+def _as_batched(instr: StageInstr, *tensors: torch.Tensor) -> list[torch.Tensor]:
+    """The operands with a leading batch axis: unbatched instructions
+    (``t_b=None``) run as a batch of one."""
+    return list(tensors) if instr.t_b is not None else [t[None] for t in tensors]
+
+
+def _same_device(y: torch.Tensor, fs: Sequence[torch.Tensor]) -> None:
+    for f in fs:
+        if f.device != y.device:
+            raise ValueError(f"x on {y.device} but a factor on {f.device}")
+
+
 def run_stage(
     y: torch.Tensor,
     stage_factors: Sequence[torch.Tensor],
@@ -594,41 +970,85 @@ def run_stage(
     backend: str = "auto",
     vmem_budget_elems: int = SMEM_BUDGET_ELEMS,
 ) -> torch.Tensor:
-    """Execute one forward chain instruction on ``y``.
+    """Execute one chain instruction on ``y``: a forward chain
+    (``direction="fwd"``) or its transpose (``"bwd"``: ``y`` is the stage
+    output's cotangent, the result the input's).
 
     ``stage_factors`` are the stage's factors in application order — 2-D
     when ``instr.t_b is None``, per-sample 3-D otherwise — on ``y``'s device.
-    CUDA tensors launch the chain kernel once; CPU tensors run
-    ``chain_reference`` after the same tile checks, so a plan that cannot
-    run on the card fails on the CPU too.  Raises ``VmemOverflowError`` /
+    CUDA tensors launch the chain kernel of the direction once; CPU tensors
+    run its plain twin after the same tile checks, so a plan that cannot run
+    on the card fails on the CPU too.  Raises ``VmemOverflowError`` /
     ``LoweringError`` on tiles the kernel cannot take.
     """
-    if instr.direction != "fwd":
-        raise NotImplementedError(BACKWARD_SLICE)
     fs, t_qs = _effective(instr, tuple(stage_factors))
-    for f in fs:
-        if f.device != y.device:
-            raise ValueError(f"x on {y.device} but a factor on {f.device}")
+    _same_device(y, fs)
     b = resolve_backend(backend, y)
-    batched = instr.t_b is not None
-    y3 = y if batched else y[None]
-    fs3 = fs if batched else tuple(f[None] for f in fs)
+    y3, *fs3 = _as_batched(instr, y, *fs)
     tiles = dict(
         t_b=instr.t_b or 1, t_m=instr.t_m, t_k=instr.t_k, t_qs=t_qs,
         vmem_budget_elems=vmem_budget_elems,
     )
+    fwd = instr.direction == "fwd"
     if b == "cuda":
-        out = chain_cuda(
+        kernel = chain_cuda if fwd else chain_bwd_cuda
+        out = kernel(
             y3.contiguous(), *(f.contiguous() for f in fs3),
             acc_dtype=instr.acc_dtype, **tiles,
         )
     else:
         acc = _resolve_acc(instr.acc_dtype, y.dtype)
         chain_geometry(
-            y3.shape, [f.shape for f in fs3], acc_bytes=acc.itemsize, **tiles
+            y3.shape, [f.shape for f in fs3], acc_bytes=acc.itemsize,
+            direction=instr.direction, **tiles,
         )
-        out = chain_reference(y3, *fs3, acc_dtype=instr.acc_dtype)
-    return out if batched else out[0]
+        twin = chain_reference if fwd else chain_bwd_reference
+        out = twin(y3, *fs3, acc_dtype=instr.acc_dtype)
+    return out if instr.t_b is not None else out[0]
+
+
+def run_stage_grad(
+    u: torch.Tensor,
+    g: torch.Tensor,
+    stage_factors: Sequence[torch.Tensor],
+    instr: StageInstr,
+    *,
+    backend: str = "auto",
+    vmem_budget_elems: int = SMEM_BUDGET_ELEMS,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
+    """Full backward of one forward chain instruction: (dx, factor grads).
+
+    ``u`` is the stage input, ``g`` the stage output cotangent; ``instr`` is
+    the FORWARD instruction (its transpose is implied; its ``t_qs`` does not
+    apply, the stage backward takes Q whole).  Factor grads are returned in
+    application order, accumulated in the stage's acc dtype (callers cast).
+    CUDA tensors launch the stage backward kernel (``grad_cuda``); CPU
+    tensors run ``grad_reference`` after the same checks.  Raises
+    ``VmemOverflowError`` when the stage's live set cannot fit one block.
+    """
+    fs = tuple(stage_factors)
+    _same_device(u, (g, *fs))
+    b = resolve_backend(backend, u)
+    u3, g3, *fs3 = _as_batched(instr, u, g, *fs)
+    tiles = dict(
+        t_b=instr.t_b or 1, t_m=instr.t_m, t_k=instr.t_k,
+        vmem_budget_elems=vmem_budget_elems,
+    )
+    if b == "cuda":
+        dx, dfs = grad_cuda(
+            u3.contiguous(), g3.contiguous(), *(f.contiguous() for f in fs3),
+            acc_dtype=instr.acc_dtype, **tiles,
+        )
+    else:
+        acc = _resolve_acc(instr.acc_dtype, g.dtype)
+        grad_geometry(
+            u3.shape, g3.shape, [f.shape for f in fs3], acc_bytes=acc.itemsize,
+            **tiles,
+        )
+        dx, dfs = grad_reference(u3, g3, *fs3, acc_dtype=instr.acc_dtype)
+    if instr.t_b is None:
+        return dx[0], tuple(d[0] for d in dfs)
+    return dx, dfs
 
 
 def run_program(
@@ -638,11 +1058,13 @@ def run_program(
     *,
     backend: str = "auto",
 ) -> torch.Tensor:
-    """Interpret a forward StageProgram: walk its instructions over ``x``.
+    """Interpret a StageProgram: walk its instructions over ``x``.
 
     ``factors`` is the full chain's factor tuple in PROBLEM order; each
     instruction selects its stage's factors via ``factor_ids`` into the
-    reversed (application-order) list.
+    reversed (application-order) list.  For a transposed program
+    (``transpose(prog)``), ``x`` is the output cotangent and the result is
+    the input cotangent.
     """
     factors = tuple(factors)
     if len(factors) != prog.n_factors:
@@ -659,7 +1081,9 @@ def run_program(
 
 
 def emit(prog: StageProgram, *, backend: str = "auto"):
-    """Close a forward StageProgram over a backend: returns ``fn(x, factors)``."""
+    """Close a StageProgram over a backend: returns ``fn(x, factors)``.
+
+    ``emit(transpose(prog))`` is the x-cotangent of ``emit(prog)``."""
 
     def fn(x, factors):
         return run_program(x, factors, prog, backend=backend)
@@ -671,15 +1095,25 @@ __all__ = [
     "StageInstr",
     "StageProgram",
     "ChainGeometry",
+    "GradGeometry",
     "transpose",
     "emit",
     "run_program",
     "run_stage",
+    "run_stage_grad",
     "sliced_apply",
+    "sliced_apply_t",
+    "sliced_vjp_factor",
     "prekron_product",
     "chain_cuda",
     "chain_reference",
+    "chain_bwd_cuda",
+    "chain_bwd_reference",
+    "grad_cuda",
+    "grad_reference",
     "chain_geometry",
+    "grad_geometry",
+    "grad_live_elems",
     "block_tile",
     "block_smem_bytes",
     "fused_growth",
@@ -692,5 +1126,4 @@ __all__ = [
     "PREKRON",
     "SMEM_BYTES",
     "SMEM_BUDGET_ELEMS",
-    "BACKWARD_SLICE",
 ]

@@ -20,10 +20,9 @@ import torch
 from ..runtime.guard import LoweringError, VmemOverflowError
 from . import _build
 from .emit import (
-    SMEM_BYTES,
     _divisors,
     acc_dtype_for,
-    block_smem_bytes,
+    block_tile,
     kernel_dtype_code,
     require_cuda,
     sliced_apply,
@@ -34,25 +33,28 @@ sliced_launches = 0
 
 
 @functools.lru_cache(maxsize=1024)
-def sliced_tiles(m: int, s: int, p: int, q: int, acc_bytes: int) -> tuple[int, int, int]:
-    """The card's tiles ``(t_m, t_s, t_q)`` for one sliced multiply.
+def sliced_tiles(
+    m: int, s: int, p: int, q: int, acc_bytes: int, kind: str = "fwd"
+) -> tuple[int, int, int]:
+    """The card's tiles ``(t_m, t_s, t_q)`` for one sliced multiply
+    (``kind="fwd"``, ``csrc/sliced.cu``) or its transpose (``"bwd"``,
+    ``csrc/sliced_t.cu``, where Q is the contraction and the Q-tiles are
+    summed inside the block).
 
     The widest Q-tile whose block fits shared memory (all of Q when it
-    does, so x is read once), then the largest ``t_m * t_s`` slab, ties to
-    the longer run of slices (longer coalesced stores along s), preferring
-    slabs that fit half of the block's shared memory so two blocks share an
-    SM, as ``emit.block_tile`` does.
+    does, so the Q-wide operand is read once), then ``emit.block_tile``'s
+    rule over the ``(t_m, t_s * P)`` slab for that kernel's shared-memory
+    model: the largest ``t_m * t_s``, ties to the longer run of slices,
+    preferring slabs that fit half of a block so two blocks share an SM.
     """
     for t_q in reversed(_divisors(q)):
-        fits = []
-        for t_s in _divisors(s):
-            for t_m in _divisors(m):
-                nbytes = block_smem_bytes(t_m, t_s * p, (p,), (t_q,), acc_bytes)
-                if nbytes <= SMEM_BYTES:
-                    fits.append((nbytes <= SMEM_BYTES // 2, t_m * t_s, t_s, t_m))
-        if fits:
-            _, _, t_s, t_m = max(fits)
-            return t_m, t_s, t_q
+        try:
+            t_m, t_k = block_tile(
+                m, s * p, (p,), (t_q,), acc_bytes, kind=kind, q_tiled=t_q < q
+            )
+        except VmemOverflowError:
+            continue
+        return t_m, t_k // p, t_q
     raise VmemOverflowError(
         f"sliced multiply with P={p} does not fit one block's shared memory "
         f"even at t_m=t_s=t_q=1"

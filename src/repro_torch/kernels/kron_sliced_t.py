@@ -1,0 +1,84 @@
+"""The TRANSPOSED FastKron sliced multiply on the card: the backward of one
+sliced multiply with respect to its input.
+
+Semantics: for ``dY: (M, Q*S)`` and ``F: (P, Q)`` compute
+
+    dX[m, s*P + p] = sum_q dY[m, q*S + s] * F[p, q]
+
+``sliced_multiply_t_cuda`` launches ``csrc/sliced_t.cu`` over the grid
+``(M/t_m, S/t_s)``: a block gathers its ``(t_m, t_q, t_s)`` block of the
+``(M, Q, S)`` view of dY for each Q-tile in turn, contracts it against the
+transposed ``(t_q, P)`` panel of F in shared memory, sums the Q-tiles in f32
+(f64 for f64) inside the block, and writes the contiguous ``(t_m, t_s*P)``
+block of dX.  ``sliced_multiply_t_reference`` is its plain twin.  The Pallas
+kernel it replaces sums Q-tiles in dY's dtype; at its default ``t_q = Q``
+there is one tile, so the two agree to within one rounding.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..runtime.guard import LoweringError
+from .emit import (
+    acc_dtype_for,
+    check_launch,
+    kernel_dtype_code,
+    kernel_fn,
+    require_cuda,
+    sliced_apply_t,
+)
+from .kron_sliced import sliced_tiles
+
+# Launch counter of the transposed sliced kernel: +1 per launch, nowhere else.
+sliced_t_launches = 0
+
+_LL, _I, _VP = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
+# kron_sliced_t(dtype, dy, f, dx, M, S, p, q, t_m, t_s, t_q, stream)
+_SLICED_T_ARGS = (_I, _VP, _VP, _VP, _LL, _LL, _I, _I, _I, _I, _I, _VP)
+
+
+def _dims(dy: torch.Tensor, f: torch.Tensor) -> tuple[int, int, int, int]:
+    m, l_cols = (int(d) for d in dy.shape)
+    p, q = (int(d) for d in f.shape)
+    if l_cols % q:
+        raise LoweringError(f"dY cols {l_cols} not divisible by Q={q}")
+    return m, l_cols // q, p, q
+
+
+def sliced_multiply_t_cuda(dy: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """One launch of the transposed sliced kernel: (M, Q*S) x (P, Q) ->
+    (M, S*P).  Tiles come from ``kron_sliced.sliced_tiles(kind="bwd")``.
+    Output in dy's dtype, accumulated in f32 (f64 for f64).  Raises on CPU
+    tensors: their path is ``sliced_multiply_t_reference``."""
+    global sliced_t_launches
+    m, s, p, q = _dims(dy, f)
+    acc = acc_dtype_for(dy.dtype)
+    t_m, t_s, t_q = sliced_tiles(m, s, p, q, acc.itemsize, kind="bwd")
+    require_cuda("sliced_multiply_t_cuda", dy, f)
+    code = kernel_dtype_code(dy, (f,), acc)
+    dx = torch.empty((m, s * p), dtype=dy.dtype, device=dy.device)
+    if dx.numel() == 0:
+        return dx
+    with torch.cuda.device(dy.device):
+        err = kernel_fn("sliced_t", _SLICED_T_ARGS)(
+            code, dy.data_ptr(), f.data_ptr(), dx.data_ptr(), m, s, p, q,
+            t_m, t_s, t_q, torch.cuda.current_stream().cuda_stream,
+        )
+    check_launch("sliced_t", err)
+    sliced_t_launches += 1
+    return dx
+
+
+def sliced_multiply_t_reference(dy: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """The transposed sliced kernel's plain PyTorch twin: the same function,
+    f32 accumulation (f64 for f64), output in dy's dtype."""
+    _dims(dy, f)
+    return sliced_apply_t(dy, f)
+
+
+__all__ = [
+    "sliced_multiply_t_cuda",
+    "sliced_multiply_t_reference",
+]

@@ -7,6 +7,7 @@ under the H100 constants the grouping and Q-tiling, which only the budget
 decides, still agree, and every stage the port plans for the smoke shapes
 fits one block of the chain kernel."""
 import dataclasses
+import math
 
 import jax
 import pytest
@@ -18,6 +19,7 @@ from repro_torch.convert import plan_from_jax_json
 from repro_torch.core import autotune as TA
 from repro_torch.core.kron import KronProblem as TProblem
 from repro_torch.kernels import emit as TE
+from repro_torch.runtime import guard as TG
 
 jax.config.update("jax_enable_x64", True)
 
@@ -36,6 +38,7 @@ SMOKE_SHAPES = [  # chip_smoke.py's main path: (M, ps, qs, dtype bytes)
     (4096, (64, 40), (128, 76), 2),
     (10, (52, 65), (50, 20), 4),
 ]
+BWD_BENCH_SHAPE = (256, (16,) * 4, (16,) * 4, 4)  # BENCH_bwd.json
 
 
 @pytest.fixture
@@ -62,13 +65,40 @@ def _plans(m, ps, qs, **kw):
     return got, want
 
 
+def _bwd_fits(stage, prob, budget):
+    """Whether both backward kernels of a forward stage fit the per-block
+    budget at the stage's t_k with the backward stage's M-tile ``t_m``:
+    ``t_m -> bool``."""
+    rps, rqs = prob.ps[::-1], prob.qs[::-1]
+    sps = [rps[i] for i in stage.factor_ids]
+    sqs = [rqs[i] for i in stage.factor_ids]
+    if stage.prekron:
+        sps, sqs = [math.prod(sps)], [math.prod(sqs)]
+    t_k = stage.tiles.t_s * math.prod(sps)
+    t_qs = stage.t_qs if stage.t_qs is not None and len(stage.t_qs) == len(sps) else None
+    trans = t_k * TE.transposed_growth(sps, sqs, t_qs)
+    live = TE.grad_live_elems(t_k, sps, sqs)
+    return lambda t_m: t_m * max(trans, live) <= budget
+
+
 @pytest.mark.parametrize("prekron", [False, True])
 @pytest.mark.parametrize("m,ps,qs", SHAPES)
 def test_make_plan_equals_jax_under_tpu_constants(tpu_model, m, ps, qs, prekron):
+    """The forward plan equals the JAX planner's.  The backward stages keep
+    the JAX planner's tuned tiles, with the port's repair: ``t_m`` is the
+    largest divisor of the tuned M-tile at which both backward kernels fit
+    the budget at the forward stage's ``t_k`` (1 when none does)."""
     got, want = _plans(
         m, ps, qs, enable_prekron=prekron, vmem_budget_elems=H100_BLOCK_BUDGET
     )
-    assert got == want
+    assert got.stages == want.stages and got.t_b == want.t_b
+    prob = TProblem(m, ps, qs)
+    assert len(got.bwd_stages) == len(want.bwd_stages)
+    for g, w, fwd in zip(got.bwd_stages, want.bwd_stages, reversed(want.stages)):
+        fits = _bwd_fits(fwd, prob, H100_BLOCK_BUDGET)
+        t_m = max((d for d in range(1, w.tiles.t_m + 1)
+                   if w.tiles.t_m % d == 0 and fits(d)), default=1)
+        assert g == dataclasses.replace(w, tiles=TA.TileConfig(t_m, w.tiles.t_s, w.tiles.t_q))
 
 
 @pytest.mark.parametrize("m,ps,qs", SHAPES)
@@ -121,3 +151,37 @@ def test_smoke_stages_fit_one_block(m, ps, qs, dtype_bytes):
         )
         assert TE.block_smem_bytes(geo.block_m, geo.block_k, ins.ps, t_qs, 4) <= TE.SMEM_BYTES
         k = k // ins.pprod * ins.qprod
+
+
+@pytest.mark.parametrize("m,ps,qs,dtype_bytes", SMOKE_SHAPES + [BWD_BENCH_SHAPE])
+def test_backward_tiles_fit_both_backward_kernels(m, ps, qs, dtype_bytes):
+    """Every stage's backward tiles (the forward t_k with the planner's
+    t_m_bwd) pass the transposed chain's and the stage backward's checks,
+    so no smoke shape leaves the fused backward for the per-factor
+    fallback."""
+    prog = TA.lower(TA.make_plan(TProblem(m, ps, qs), dtype_bytes=dtype_bytes,
+                                 enable_prekron=False), ps, qs)
+    k = TProblem(m, ps, qs).k
+    for ins in prog.instrs:
+        fs = [(1, p, q) for p, q in zip(ins.ps, ins.qs)]
+        k_out = k // ins.pprod * ins.qprod
+        t_ins = ins.transpose()
+        TE.chain_geometry((1, m, k_out), fs, t_m=t_ins.t_m, t_k=t_ins.t_k,
+                          t_qs=t_ins.t_qs, direction="bwd")
+        TE.grad_geometry((1, m, k), (1, m, k_out), fs, t_m=t_ins.t_m, t_k=ins.t_k)
+        k = k_out
+
+
+def test_unrepaired_ffn_backward_tile_overflows():
+    """The tuned transposed M-tile of the bf16 ffn shape's second stage
+    (t_m=16 at t_k=4864) fits neither backward kernel: the repair clamps it."""
+    m, ps, qs = 4096, (64, 40), (128, 76)
+    ins = TA.lower(TA.make_plan(TProblem(m, ps, qs), dtype_bytes=2,
+                                enable_prekron=False), ps, qs).instrs[1]
+    tuned = TA.tune_sliced(m, 4864 // 64, 128, 64, dtype_bytes=2).t_m
+    assert (ins.t_k, tuned) == (4864, 16) and ins.t_m_bwd < tuned
+    fs = [(1, 64, 128)]
+    with pytest.raises(TG.VmemOverflowError):
+        TE.chain_geometry((1, m, 9728), fs, t_m=tuned, t_k=4864, direction="bwd")
+    with pytest.raises(TG.VmemOverflowError):
+        TE.grad_geometry((1, m, 4864), (1, m, 9728), fs, t_m=tuned, t_k=4864)

@@ -147,13 +147,6 @@ def test_batched_per_sample_stage_matches_jax_pallas():
     assert_close(got, want, 1e-9)
 
 
-def test_backward_instructions_raise_not_implemented():
-    instr = TE.StageInstr("multiply", (2,), (2,), (0,))
-    x = torch.zeros(2, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TE.run_stage(x, (torch.eye(2),), instr.transpose())
-
-
 # ---------------------------------------------------------------------------
 # The chain kernel wrapper on the CPU: device rule and tile checks
 # ---------------------------------------------------------------------------

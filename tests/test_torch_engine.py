@@ -1,6 +1,7 @@
 """The port's KronOp (repro_torch.core.engine) against repro.core.KronOp on
-both JAX backends, the forward-only autograd contract, the device rule, and
-the import boundary of the port and chip_smoke.py."""
+both JAX backends, the autograd contract without gradient inputs, the
+device rule, and the import boundary of the port and chip_smoke.py.  The
+gradients are in test_torch_grad.py."""
 import os
 import subprocess
 import sys
@@ -101,17 +102,6 @@ def test_prekron_plan_executes():
     assert any(st.prekron for st in op.plan.stages)
     assert_close(got, JKronOp(ps, qs, enable_prekron=True)(to_jax(x), [to_jax(f) for f in fs]), 1e-9)
     assert not any(st.prekron for st in KronOp(ps, qs, m=m).plan.stages)  # gate off
-
-
-@pytest.mark.parametrize("which", ["x", "factors"])
-def test_backward_raises_not_implemented(which):
-    x, fs = make_inputs(25, 4, (4, 4), (4, 4))
-    xt = to_torch(x).requires_grad_(which == "x")
-    ft = [to_torch(f).requires_grad_(which == "factors") for f in fs]
-    y = KronOp((4, 4), (4, 4))(xt, ft)
-    assert y.grad_fn is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        y.sum().backward()
 
 
 def test_no_grad_inputs_give_no_graph():

@@ -1,0 +1,473 @@
+"""Gradients of the port's KronOp against jax.grad of repro.core.KronOp, and
+the backward pieces of the executor against their JAX counterparts: the
+transposed sliced multiply, the transposed chain, the stage backward, the
+transposed program, and the tile checks of the backward kernels.
+
+Inputs (and cotangents) are made with numpy from a seed and handed to both
+packages.  The JAX "pallas" backend runs its kernels in interpret mode on
+the CPU, as the JAX package's own tests run them; the port runs the plain
+twins of its CUDA kernels, as it does for every CPU tensor."""
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import assert_close, make_inputs, to_jax, to_torch
+from repro.core import KronOp as JKronOp
+from repro.core import autotune as JA
+from repro.core.kron import KronProblem as JProblem
+from repro.kernels import emit as JE
+from repro.kernels import ops as JO
+from repro.runtime import guard as JG
+from repro_torch.core import KronOp, engine, kron_matrix
+from repro_torch.core import autotune as TA
+from repro_torch.core.kron import KronProblem as TProblem
+from repro_torch.kernels import emit as TE
+from repro_torch.kernels import kron_sliced_t, ops
+from repro_torch.runtime import guard as TG
+
+jax.config.update("jax_enable_x64", True)
+
+CASES = [  # tests/test_torch_engine.py
+    (8, (4, 4), (4, 4)),
+    (4, (4, 2, 3), (3, 2, 4)),
+    (8, (8, 16, 32), (8, 16, 32)),
+    (10, (52, 65), (50, 20)),
+    (6, (5, 3), (2, 7)),
+]
+
+
+def _cotangent(seed, m, qs, dtype=np.float64):
+    return np.random.default_rng(seed).standard_normal((m, math.prod(qs))).astype(dtype)
+
+
+def _jax_grads(jop, x, fs, ct, *, factors=True, dtype=None):
+    """jax.grad of sum(y * ct) for x (and the factors)."""
+    xj = to_jax(x, dtype)
+    fj = [to_jax(f, dtype) for f in fs]
+    cj = to_jax(ct, dtype).astype(jnp.float64 if dtype is None else jnp.float32)
+
+    def loss(x, fs):
+        return jnp.sum(jop(x, fs).astype(cj.dtype) * cj)
+
+    if factors:
+        gx, gf = jax.grad(loss, argnums=(0, 1))(xj, fj)
+        return gx, list(gf)
+    return jax.grad(loss)(xj, fj), None
+
+
+def _port_grads(op, x, fs, ct, *, factors=True, dtype=None):
+    """torch.autograd.grad of op(x, fs) with cotangent ct."""
+    xt = to_torch(x, dtype).requires_grad_()
+    ft = [to_torch(f, dtype).requires_grad_(factors) for f in fs]
+    y = op(xt, ft)
+    got = torch.autograd.grad(y, [xt, *ft] if factors else [xt], to_torch(ct, dtype))
+    return got[0], (list(got[1:]) if factors else None)
+
+
+def _assert_grads(got, want, tol):
+    assert_close(got[0], want[0], tol)
+    if want[1] is not None:
+        assert len(got[1]) == len(want[1])
+        for a, b in zip(got[1], want[1]):
+            assert_close(a, b, tol)
+
+
+# ---------------------------------------------------------------------------
+# KronOp gradients
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("m,ps,qs", CASES)
+def test_kronop_grads_match_jax(m, ps, qs, backend):
+    x, fs = make_inputs(30, m, ps, qs)
+    ct = _cotangent(31, m, qs)
+    want = _jax_grads(JKronOp(ps, qs, backend=backend), x, fs, ct)
+    before = engine.bwd_per_factor_fallbacks
+    got = _port_grads(KronOp(ps, qs), x, fs, ct)
+    _assert_grads(got, want, 1e-9)
+    assert engine.bwd_per_factor_fallbacks == before  # every stage fused
+    assert got[0].dtype == torch.float64 and all(g.dtype == torch.float64 for g in got[1])
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("m,ps,qs", CASES)
+def test_kronop_x_only_grads_match_jax(m, ps, qs, backend, monkeypatch):
+    """Without factor grads the backward runs the transposed program alone:
+    no stage backward and no rematerialized stage input."""
+    x, fs = make_inputs(32, m, ps, qs)
+    ct = _cotangent(33, m, qs)
+    want = _jax_grads(JKronOp(ps, qs, backend=backend), x, fs, ct, factors=False)
+    calls = {"grad": 0, "fwd": 0}
+    orig_grad, orig_stage = TE.run_stage_grad, TE.run_stage
+
+    def grad(*a, **k):
+        calls["grad"] += 1
+        return orig_grad(*a, **k)
+
+    def stage(y, sf, instr, **k):
+        calls["fwd"] += instr.direction == "fwd"
+        return orig_stage(y, sf, instr, **k)
+
+    xt = to_torch(x).requires_grad_()
+    ft = [to_torch(f) for f in fs]
+    y = KronOp(ps, qs)(xt, ft)
+    monkeypatch.setattr(TE, "run_stage_grad", grad)
+    monkeypatch.setattr(TE, "run_stage", stage)
+    (gx,) = torch.autograd.grad(y, [xt], to_torch(ct))
+    assert calls == {"grad": 0, "fwd": 0}
+    assert_close(gx, want[0], 1e-9)
+
+
+@pytest.mark.parametrize("factors_only", [False, True])
+def test_kronop_factor_grads_only_for_factors_that_ask(factors_only):
+    m, ps, qs = 4, (4, 2, 3), (3, 2, 4)
+    x, fs = make_inputs(34, m, ps, qs)
+    ct = _cotangent(35, m, qs)
+    want = _jax_grads(JKronOp(ps, qs), x, fs, ct)
+    xt = to_torch(x).requires_grad_(not factors_only)
+    ft = [to_torch(f).requires_grad_(i != 1) for i, f in enumerate(fs)]
+    y = KronOp(ps, qs)(xt, ft)
+    wrt = ([] if factors_only else [xt]) + [ft[0], ft[2]]
+    got = torch.autograd.grad(y, wrt, to_torch(ct))
+    if not factors_only:
+        assert_close(got[0], want[0], 1e-9)
+    assert_close(got[-2], want[1][0], 1e-9)
+    assert_close(got[-1], want[1][2], 1e-9)
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("m,ps,qs", CASES)
+def test_unfused_plan_none_grads_match_jax(m, ps, qs, backend):
+    x, fs = make_inputs(36, m, ps, qs)
+    ct = _cotangent(37, m, qs)
+    if backend == "pallas" and m > 8 and m % 8:
+        # The JAX sliced kernels keep the TPU's default t_m=8 (ROADMAP
+        # queue 3); the port picks its tiles per shape.
+        backend = "xla"
+    want = _jax_grads(JKronOp(ps, qs, backend=backend, plan=None), x, fs, ct)
+    got = _port_grads(KronOp(ps, qs, plan=None), x, fs, ct)
+    _assert_grads(got, want, 1e-9)
+
+
+@pytest.mark.parametrize("factors", [True, False])
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+def test_prekron_plan_grads_match_jax(backend, factors):
+    m, ps, qs = 4, (2, 3, 2), (3, 2, 2)
+    x, fs = make_inputs(38, m, ps, qs)
+    ct = _cotangent(39, m, qs)
+    op = KronOp(ps, qs, enable_prekron=True)
+    assert any(st.prekron for st in op.plan.stages)
+    want = _jax_grads(JKronOp(ps, qs, backend=backend, enable_prekron=True), x, fs, ct,
+                      factors=factors)
+    _assert_grads(_port_grads(op, x, fs, ct, factors=factors), want, 1e-9)
+
+
+@pytest.mark.parametrize("factors", [True, False])
+def test_q_tiled_plan_takes_the_per_factor_fallback(factors):
+    """tests/test_grad_planned.py::test_pallas_backward_on_q_tiled_plan: a
+    stage fused only through Q-tiling cannot hold its gradient pairs in one
+    block, so its factor-grad backward runs per factor."""
+    m, ps, qs = 8, (2, 2, 2), (64, 64, 64)
+    plan = TA.make_plan(TProblem(m, ps, qs), enable_prekron=False)
+    assert any(st.t_qs is not None for st in plan.stages), plan.describe()
+    x, fs = make_inputs(40, m, ps, qs)
+    ct = _cotangent(41, m, qs)
+    want = _jax_grads(JKronOp(ps, qs, plan=None), x, fs, ct, factors=factors)
+    before = engine.bwd_per_factor_fallbacks
+    got = _port_grads(KronOp(ps, qs, plan=plan), x, fs, ct, factors=factors)
+    _assert_grads(got, want, 1e-9)
+    if factors:
+        assert engine.bwd_per_factor_fallbacks > before
+
+
+@pytest.mark.parametrize("m,ps,qs", CASES[:3])
+def test_bf16_grads_match_pallas_interpret(m, ps, qs):
+    """bf16 keeps the intermediates in f32 inside a stage, as the Pallas
+    kernels do; the tolerance is bf16's."""
+    x, fs = make_inputs(42, m, ps, qs, dtype=np.float32)
+    ct = _cotangent(43, m, qs, np.float32)
+    want = _jax_grads(JKronOp(ps, qs, backend="pallas"), x, fs, ct, dtype=jnp.bfloat16)
+    got = _port_grads(KronOp(ps, qs), x, fs, ct, dtype=torch.bfloat16)
+    assert got[0].dtype == torch.bfloat16 and all(g.dtype == torch.bfloat16 for g in got[1])
+    want = (np.asarray(want[0].astype(jnp.float32)),
+            [np.asarray(g.astype(jnp.float32)) for g in want[1]])
+    _assert_grads((got[0].float(), [g.float() for g in got[1]]), want, 1e-2)
+
+
+@pytest.mark.parametrize("m,ps,qs", CASES[:3])
+def test_f32_grads_match_dense_oracle(m, ps, qs):
+    x, fs = make_inputs(44, m, ps, qs, dtype=np.float32)
+    ct = _cotangent(45, m, qs, np.float32)
+    got = _port_grads(KronOp(ps, qs), x, fs, ct)
+    xt = to_torch(x).requires_grad_()
+    ft = [to_torch(f).requires_grad_() for f in fs]
+    want = torch.autograd.grad(xt @ kron_matrix(ft), [xt, *ft], to_torch(ct))
+    _assert_grads(got, (want[0].detach(), [w.detach() for w in want[1:]]), 1e-4)
+
+
+def test_grads_of_leading_dims_and_shared_factor_batch():
+    m, ps, qs, b = 4, (4, 2), (3, 4), 3
+    x, fs = make_inputs(46, m, ps, qs, batch=b)
+    fs = [f[0] for f in fs]
+    ct = np.random.default_rng(47).standard_normal((b, m, math.prod(qs)))
+    jop = JKronOp(ps, qs).with_batch(b)
+    xj, fj = to_jax(x), [to_jax(f) for f in fs]
+    gx, gf = jax.grad(lambda x, fs: jnp.sum(jop(x, fs) * to_jax(ct)), argnums=(0, 1))(xj, fj)
+    got = _port_grads(KronOp(ps, qs).with_batch(b), x, fs, ct)
+    _assert_grads(got, (gx, list(gf)), 1e-9)
+
+
+# ---------------------------------------------------------------------------
+# The transposed program and the executor's backward pieces
+# ---------------------------------------------------------------------------
+
+
+def _port_program(m, ps, qs, **kw):
+    return TA.lower(TA.make_plan(TProblem(m, ps, qs), **kw), ps, qs)
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("m,ps,qs", CASES)
+def test_transpose_program_is_vjp(m, ps, qs, backend):
+    """emit(transpose(prog)) is the x-cotangent of emit(prog): against
+    torch.autograd through the dense oracle, and against the JAX package's
+    transposed program on both backends."""
+    x, fs = make_inputs(48, m, ps, qs)
+    ct = _cotangent(49, m, qs)
+    prog = _port_program(m, ps, qs, enable_prekron=False)
+    ft = [to_torch(f) for f in fs]
+    got = TE.emit(TE.transpose(prog))(to_torch(ct), ft)
+    xt = to_torch(x).requires_grad_()
+    (vjp,) = torch.autograd.grad(xt @ kron_matrix(ft), [xt], to_torch(ct))
+    assert_close(got, vjp.detach(), 1e-9)
+    jprog = JA.lower(JA.make_plan(JProblem(m, ps, qs), enable_prekron=False), ps, qs)
+    want = JE.emit(JE.transpose(jprog), backend=backend)(to_jax(ct), [to_jax(f) for f in fs])
+    assert_close(got, want, 1e-9)
+
+
+STAGE_GRADS = [  # (M, ps, qs, t_m, t_k) of one forward instruction
+    (4, (4, 4), (4, 4), 2, 16),
+    (6, (5, 3), (2, 7), 3, None),
+    (4, (4, 2, 3), (3, 2, 4), 4, 24),
+    (2, (6,), (10,), 1, 12),
+]
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("m,ps,qs,t_m,t_k", STAGE_GRADS)
+def test_run_stage_grad_matches_jax(m, ps, qs, t_m, t_k, backend):
+    s = 2
+    k = math.prod(ps) * s
+    rng = np.random.default_rng(50)
+    u = rng.standard_normal((m, k))
+    g = rng.standard_normal((m, math.prod(qs) * s))
+    fs = [rng.standard_normal((p, q)) for p, q in zip(ps, qs)]
+    kw = dict(kind="multiply", ps=ps, qs=qs, factor_ids=tuple(range(len(ps))),
+              t_m=t_m, t_k=t_k)
+    jdx, jdfs = JE.run_stage_grad(to_jax(u), to_jax(g), [to_jax(f) for f in fs],
+                                  JE.StageInstr(**kw), backend=backend)
+    dx, dfs = TE.run_stage_grad(to_torch(u), to_torch(g), [to_torch(f) for f in fs],
+                                TE.StageInstr(**kw))
+    assert_close(dx, jdx, 1e-9)
+    assert len(dfs) == len(jdfs)
+    for a, b in zip(dfs, jdfs):
+        assert_close(a, b, 1e-9)
+
+
+def test_run_stage_grad_per_sample_matches_jax_pallas():
+    b, m, ps, qs = 3, 4, (4, 2), (2, 4)
+    x, fs = make_inputs(51, m, ps, qs, batch=b)
+    g = np.random.default_rng(52).standard_normal((b, m, math.prod(qs)))
+    kw = dict(kind="multiply", ps=ps, qs=qs, factor_ids=(0, 1), t_m=2, t_b=1)
+    jdx, jdfs = JE.run_stage_grad(to_jax(x), to_jax(g), [to_jax(f) for f in fs],
+                                  JE.StageInstr(**kw), backend="pallas")
+    dx, dfs = TE.run_stage_grad(to_torch(x), to_torch(g), [to_torch(f) for f in fs],
+                                TE.StageInstr(**kw))
+    assert_close(dx, jdx, 1e-9)
+    for a, c in zip(dfs, jdfs):
+        assert a.shape == (b, *c.shape[1:])
+        assert_close(a, c, 1e-9)
+
+
+CHAIN_BWD = [  # (B, M, ps, qs, S, tiles) -> chain_pallas(direction="bwd")
+    (1, 4, (4, 4), (4, 4), 3, dict(t_m=2)),
+    (1, 2, (4, 4), (8, 8), 2, dict(t_m=2, t_qs=(4, 2))),
+    (1, 2, (5, 6), (3, 7), 2, dict(t_m=1, t_k=30)),
+    (2, 2, (4, 3), (3, 4), 2, dict(t_m=2, t_b=1)),
+    (1, 2, (2, 3, 4), (4, 3, 2), 2, dict(t_m=1, t_qs=(2, 3, 1))),
+]
+
+
+@pytest.mark.parametrize("b,m,ps,qs,s,tiles", CHAIN_BWD)
+def test_chain_bwd_reference_matches_chain_pallas(b, m, ps, qs, s, tiles):
+    rng = np.random.default_rng(53)
+    dy = rng.standard_normal((b, m, math.prod(qs) * s))
+    fs = [rng.standard_normal((b, p, q)) for p, q in zip(ps, qs)]
+    want = JE.chain_pallas(to_jax(dy), *(to_jax(f) for f in fs), direction="bwd",
+                           interpret=True, **tiles)
+    got = TE.chain_bwd_reference(to_torch(dy), *(to_torch(f) for f in fs))
+    assert_close(got, want, 1e-9)
+    # The executor's tile checks accept what chain_pallas accepts.
+    geo = TE.chain_geometry(dy.shape, [f.shape for f in fs], direction="bwd", **tiles)
+    assert geo.k == math.prod(ps) * s and geo.out_cols == dy.shape[2]
+
+
+@pytest.mark.parametrize("m,p,q,s", [(6, 12, 5, 3), (4, 7, 9, 2), (8, 16, 16, 4)])
+def test_sliced_t_reference_and_dispatch_match_jax(m, p, q, s):
+    rng = np.random.default_rng(54)
+    dy = rng.standard_normal((m, q * s))
+    f = rng.standard_normal((p, q))
+    for backend in ("xla", "pallas"):
+        if backend == "pallas" and m > 8 and m % 8:
+            continue
+        want = JO.sliced_multiply_t(to_jax(dy), to_jax(f), backend=backend)
+        assert_close(ops.sliced_multiply_t(to_torch(dy), to_torch(f)), want, 1e-9)
+        assert_close(kron_sliced_t.sliced_multiply_t_reference(to_torch(dy), to_torch(f)),
+                     want, 1e-9)
+
+
+def test_sliced_apply_t_matches_jax():
+    rng = np.random.default_rng(55)
+    g, f = rng.standard_normal((4, 15)), rng.standard_normal((6, 5))
+    assert_close(TE.sliced_apply_t(to_torch(g), to_torch(f)),
+                 JE.sliced_apply_t(to_jax(g), to_jax(f)), 1e-12)
+    g3, f3 = rng.standard_normal((2, 4, 15)), rng.standard_normal((2, 6, 5))
+    assert_close(TE.sliced_apply_t(to_torch(g3), to_torch(f3)),
+                 JE.sliced_apply_t(to_jax(g3), to_jax(f3)), 1e-12)
+    assert_close(TE.sliced_apply_t(to_torch(g3), to_torch(f3[0])),
+                 JE.sliced_apply_t(to_jax(g3), to_jax(f3[0])), 1e-12)
+
+
+@pytest.mark.parametrize("batch", [None, 3])
+def test_sliced_vjp_factor_matches_jax(batch):
+    from repro.core.engine import _sliced_vjp_factor as jax_vjp_factor
+
+    rng = np.random.default_rng(57)
+    lead = () if batch is None else (batch,)
+    u, g = rng.standard_normal((*lead, 4, 18)), rng.standard_normal((*lead, 4, 15))
+    want = jax_vjp_factor(to_jax(u), to_jax(g), 6, 5)
+    got = TE.sliced_vjp_factor(to_torch(u), to_torch(g), 6, 5)
+    assert tuple(got.shape) == (*lead, 6, 5)
+    assert_close(got, want, 1e-12)
+
+
+def test_run_stage_executes_transposed_and_prekron_bwd_instructions():
+    m, ps, qs = 4, (2, 3), (3, 2)
+    rng = np.random.default_rng(56)
+    g = rng.standard_normal((m, math.prod(qs) * 2))
+    fs = [rng.standard_normal((p, q)) for p, q in zip(ps, qs)]
+    for kind in ("transposed_multiply", "prekron"):
+        kw = dict(kind=kind, ps=ps, qs=qs, factor_ids=(0, 1), t_m=2,
+                  direction="bwd")
+        want = JE.run_stage(to_jax(g), [to_jax(f) for f in fs], JE.StageInstr(**kw),
+                            backend="pallas")
+        got = TE.run_stage(to_torch(g), [to_torch(f) for f in fs], TE.StageInstr(**kw))
+        assert_close(got, want, 1e-9)
+
+
+# ---------------------------------------------------------------------------
+# The backward kernels' tile checks and block tiles
+# ---------------------------------------------------------------------------
+
+BUDGET = 4096
+BWD_TILE_CASES = [  # (dY shape, factor (p, q)s, tiles) -> chain_pallas(direction="bwd")
+    ((1, 8, 30), ((4, 4), (2, 2)), dict(t_m=8)),                    # dY cols % prod(Q)
+    ((1, 8, 64 * 4), ((4, 4), (8, 8)), dict(t_m=8, t_qs=(4, 3))),   # t_qs must divide Q
+    ((1, 8, 64 * 4), ((4, 4), (8, 8)), dict(t_m=8, t_k=48)),        # T_K % prod(P)
+    ((1, 8, 64 * 64), ((4, 4), (8, 8)), dict(t_m=8, t_k=1024)),     # budget
+    ((1, 6, 64 * 4), ((4, 4), (8, 8)), dict(t_m=4, t_k=64)),        # tiles divide dims
+]
+
+
+def _port_error(jax_type):
+    return {JG.LoweringError: TG.LoweringError, JG.VmemOverflowError: TG.VmemOverflowError}[jax_type]
+
+
+@pytest.mark.parametrize("dy_shape,pqs,tiles", BWD_TILE_CASES)
+def test_chain_bwd_tile_checks_match_chain_pallas(dy_shape, pqs, tiles):
+    b = dy_shape[0]
+    with pytest.raises(JG.KronError) as jax_err:
+        JE.chain_pallas(jnp.zeros(dy_shape, jnp.float32),
+                        *(jnp.zeros((b, p, q), jnp.float32) for p, q in pqs),
+                        direction="bwd", interpret=True, vmem_budget_elems=BUDGET, **tiles)
+    with pytest.raises(_port_error(type(jax_err.value))):
+        TE.chain_bwd_cuda(torch.zeros(dy_shape), *(torch.zeros(b, p, q) for p, q in pqs),
+                          vmem_budget_elems=BUDGET, **tiles)
+
+
+GRAD_TILE_CASES = [  # (x shape, dy shape, factor (p, q)s, tiles) -> grad_pallas
+    ((1, 8, 30), (1, 8, 30), ((4, 4), (2, 2)), dict(t_m=8)),         # K % prod(P)
+    ((1, 8, 64), (1, 8, 60), ((4, 4), (4, 4)), dict(t_m=8)),         # dy shape
+    ((1, 8, 64), (1, 8, 256), ((4, 4), (8, 8)), dict(t_m=8, t_k=48)),  # T_K % prod(P)
+    ((1, 8, 1024), (1, 8, 4096), ((4, 4), (8, 8)), dict(t_m=8)),      # live set
+    ((1, 6, 64), (1, 6, 256), ((4, 4), (8, 8)), dict(t_m=4, t_k=64)),  # tiles divide dims
+]
+
+
+@pytest.mark.parametrize("x_shape,dy_shape,pqs,tiles", GRAD_TILE_CASES)
+def test_grad_tile_checks_match_grad_pallas(x_shape, dy_shape, pqs, tiles):
+    b = x_shape[0]
+    with pytest.raises(JG.KronError) as jax_err:
+        JE.grad_pallas(jnp.zeros(x_shape, jnp.float32), jnp.zeros(dy_shape, jnp.float32),
+                       *(jnp.zeros((b, p, q), jnp.float32) for p, q in pqs),
+                       interpret=True, vmem_budget_elems=BUDGET, **tiles)
+    with pytest.raises(_port_error(type(jax_err.value))):
+        TE.grad_cuda(torch.zeros(x_shape), torch.zeros(dy_shape),
+                     *(torch.zeros(b, p, q) for p, q in pqs),
+                     vmem_budget_elems=BUDGET, **tiles)
+
+
+@pytest.mark.parametrize("kind", ["bwd", "grad"])
+@pytest.mark.parametrize(
+    "t_m,t_k,ps,qs",
+    [(4, 8192, (32, 32), (32, 32)), (2, 4864, (64,), (128,)), (2, 3380, (65,), (20,)),
+     (1, 8192, (16, 16), (16, 16))],
+)
+def test_backward_block_tiles_are_the_largest_that_fit(t_m, t_k, ps, qs, kind):
+    tm, tk = TE.block_tile(t_m, t_k, ps, qs, 4, kind=kind)
+    pprod = math.prod(ps)
+    assert t_k % tk == 0 and tk % pprod == 0 and t_m % tm == 0
+    nbytes = TE.block_smem_bytes(tm, tk, ps, qs, 4, kind=kind)
+    half = nbytes <= TE.SMEM_BYTES // 2
+    assert nbytes <= TE.SMEM_BYTES
+    for d in range(1, t_k // pprod + 1):
+        for m in range(1, t_m + 1):
+            if (t_k // pprod) % d or t_m % m or m * d * pprod <= tm * tk:
+                continue
+            other = TE.block_smem_bytes(m, d * pprod, ps, qs, 4, kind=kind)
+            assert other > (TE.SMEM_BYTES // 2 if half else TE.SMEM_BYTES)
+
+
+def test_backward_smem_models_count_every_region():
+    # One (32, 32) stage at t_m=1, t_k=4096 in f32, by hand: transposed
+    # states of 4096 columns in each buffer and the (32, 32) panel (Q-tiles
+    # (16, 32): states of 2048 columns and the (t_m, t_k) sum of dX); the
+    # stage backward adds the two forward states (32 x 129 each), the dF
+    # scratch of 4 groups (the 64 4x4 micro-tiles of 32x32 give 256 / 64)
+    # and the 2 x 1024 dF sums.
+    assert TE.block_smem_bytes(1, 4096, (32, 32), (32, 32), 4, kind="bwd") == 4 * (
+        4096 + 4096 + 1024)
+    assert TE.block_smem_bytes(1, 4096, (32, 32), (16, 32), 4, kind="bwd", q_tiled=True) == 4 * (
+        2048 + 2048 + 32 * 32 + 4096)
+    assert TE.block_smem_bytes(1, 4096, (32, 32), (32, 32), 4, kind="grad") == 4 * (
+        2 * 32 * 129 + 4096 + 4096 + 1024 + 4 * 1024 + 2048)
+
+
+def test_backward_wrappers_on_cpu_tensors_raise():
+    dy, f = torch.zeros(1, 2, 16), torch.zeros(1, 4, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        TE.chain_bwd_cuda(dy, f, f, t_m=2)
+    with pytest.raises(ValueError, match="CUDA"):
+        TE.grad_cuda(torch.zeros(1, 2, 16), dy, f, f, t_m=2)
+    with pytest.raises(ValueError, match="CUDA"):
+        kron_sliced_t.sliced_multiply_t_cuda(torch.zeros(2, 16), torch.zeros(4, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.sliced_multiply_t(torch.zeros(2, 16), torch.zeros(4, 4), backend="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        TE.run_stage_grad(torch.zeros(2, 16), torch.zeros(2, 16), (torch.eye(4),) * 2,
+                          TE.StageInstr("multiply", (4, 4), (4, 4), (0, 1)), backend="cuda")
