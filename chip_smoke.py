@@ -9,12 +9,17 @@ port's main path — ``KronOp(ps, qs)(x, factors)`` on CUDA tensors and
 ``torch.autograd.grad`` through it — at full size and checks that every call
 went through the kernels.  Phases, one line each:
 
-  1. build / device: nvcc time and libraries; the card's name and power limit.
+  1. build / device: nvcc time and libraries, each kernel's ptxas registers
+     and spills (grad and sliced_t must not spill); the card's name and
+     power limit.
   2. check: each of the five kernels against its plain twin at stated
      tolerances (relative to max|ref|: 1e-5 f32, 1e-2 bf16, 1e-12 f64; the
      stage backward's dF against its twin run in f64 at 1e-4 f32, 2e-2
      bf16), and one small f32 KronOp, value and gradients, against
-     ``x @ kron_matrix(factors)``.
+     ``x @ kron_matrix(factors)``.  The stage backward and the transposed
+     sliced multiply also run cases that reach each branch of their code
+     (tensor cores, many tiles per block, Q-tiles, odd slices), every
+     stage backward twice and asserted bitwise equal.
   3. main: five full-size KronOp calls (fig9, gp16, ffn, compress,
      fig9-unfused) and five full-size backward passes (fig9-grad, fig9-dx,
      gp16-grad, ffn-grad, fig9-unfused-grad): launches per call (asserted),
@@ -22,8 +27,12 @@ went through the kernels.  Phases, one line each:
      bitwise equal, and CUDA-event times of the call, of its plain twins and
      of one PyTorch yardstick (``torch.einsum``, or ``torch.autograd.grad``
      through it), beside the card's bound for the same function.
-  4. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit.
-  5. last line: ``{"ok": true, "device": {...}}``.
+  4. alone: one launch of ``grad`` (each stage of fig9-grad and ffn-grad)
+     and of ``sliced_t`` (fig9-unfused-grad) timed by itself, beside its
+     bound, the blocks per SM from the occupancy query (at least two, or
+     the run fails) and one PyTorch call computing the same function.
+  5. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit.
+  6. last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero.  Needs one CUDA card; imports nothing of JAX.
 """
@@ -31,6 +40,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -111,6 +121,31 @@ def compare(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     return err, err / scale if scale else err
 
 
+def flat(grads):
+    """(dx, (dF_0, ...)) -> (dx, dF_0, ...)."""
+    return (grads[0], *grads[1])
+
+
+def ptxas_entries(log: str) -> list[dict]:
+    """Each kernel entry of a ``ptxas -v`` log: its name, registers and
+    spill bytes (stores plus loads)."""
+    entries = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entries.append({"entry": m.group(1), "registers": None, "spill_bytes": 0})
+            continue
+        if not entries:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            entries[-1]["spill_bytes"] += int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entries[-1]["registers"] = int(m.group(1))
+    return entries
+
+
 def stage_tiles(m: int, k: int, ps, qs, t_qs, budget: int, kind: str = "fwd"):
     """(t_m, t_k) for a direct chain_cuda / chain_bwd_cuda / grad_cuda call:
     the widest t_k, then the most rows, whose per-row live set (the
@@ -157,6 +192,32 @@ SLICED_CASES = [
     ("f64 40x76", 32, 40, 76, 64, torch.float64),
     ("f32 odd 65x20 M=10", 10, 65, 20, 52, torch.float32),
 ]
+# The transposed sliced multiply's own branches: Q tiled (a 256 x 256 panel
+# does not stay whole), slices not a multiple of 4, bf16 runs too short for
+# asynchronous copies (odd S: element-wise loads).
+SLICED_T_CASES = [
+    ("f32 Q-tiled 256x256", 16, 256, 256, 64, torch.float32),
+    ("f32 t_s=39", 6, 32, 32, 39, torch.float32),
+    ("bf16 odd S 40x76", 6, 40, 76, 39, torch.bfloat16),
+]
+# The stage backward's own branches, (name, application-order ps, qs, rows,
+# slices, dtype, batch, t_m, t_k): bf16 single-factor stages on the tensor
+# cores with P and Q not multiples of 16 (padding masked), odd slices and
+# B=2, warps sharing an output tile; a bf16 factor too large for the tensor
+# core path and f32 single-factor stages on the CUDA cores; a grid whose
+# blocks walk many tiles each (the small cases give samples fewer tiles
+# than blocks); a mixed chain.
+GRAD_CASES = [
+    ("mma bf16 40->76", (40,), (76,), 64, 64, torch.bfloat16, 1, 2, 1280),
+    ("mma bf16 64->128", (64,), (128,), 64, 38, torch.bfloat16, 1, 2, 1216),
+    ("mma bf16 65->20", (65,), (20,), 6, 52, torch.bfloat16, 1, 2, 3380),
+    ("mma bf16 odd s 40->76 B=2", (40,), (76,), 3, 7, torch.bfloat16, 2, 3, 280),
+    ("f32 65->20", (65,), (20,), 4, 13, torch.float32, 1, 2, None),
+    ("f32 (32,32) many tiles per block", (32, 32), (32, 32), 64, 64, torch.float32, 1, 1, 8192),
+    ("f32 mixed (32,16,8)", (32, 16, 8), (32, 16, 8), 2, 2, torch.float32, 1, 1, None),
+    ("mma bf16 16->16 warps share tiles", (16,), (16,), 8, 64, torch.bfloat16, 1, 2, None),
+    ("bf16 128->128 on the CUDA cores", (128,), (128,), 4, 16, torch.bfloat16, 1, 1, None),
+]
 
 
 def check_kernels(gen) -> dict:
@@ -178,6 +239,12 @@ def check_kernels(gen) -> dict:
             passed[kernel] += 1
         else:
             failures.append(f"{kernel} {name}")
+
+    def repeat(kernel, name, first, second):
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            print(f"check {kernel} {name}: a second run differs FAIL", flush=True)
+            failures.append(f"{kernel} {name} repeat")
 
     for name, ps, qs, m, s, dtype, t_qs, b in CHAIN_CASES:
         k = math.prod(ps) * s
@@ -205,6 +272,21 @@ def check_kernels(gen) -> dict:
         record("grad", f"{name} dx tiles=({t_m},{t_k})", dx, rdx, TOLERANCE[dtype])
         for i, (d, r) in enumerate(zip(dfs, rdfs)):
             record("grad", f"{name} dF{i} (vs f64)", d, r, GRAD_TOLERANCE[dtype])
+        repeat("grad", name, (dx, *dfs), flat(emit.grad_cuda(x, dy, *fs, t_b=1, t_m=t_m, t_k=t_k)))
+
+    for name, ps, qs, m, s, dtype, b, t_m, t_k in GRAD_CASES:
+        k = math.prod(ps) * s
+        x = randn(gen, (b, m, k), dtype)
+        dy = randn(gen, (b, m, math.prod(qs) * s), dtype)
+        fs = [randn(gen, (b, p, q), dtype) for p, q in zip(ps, qs)]
+        dx, dfs = emit.grad_cuda(x, dy, *fs, t_m=t_m, t_k=t_k)
+        rdx, _ = emit.grad_reference(x, dy, *fs)
+        _, rdfs = emit.grad_reference(x.double(), dy.double(), *(f.double() for f in fs))
+        torch.cuda.synchronize()
+        record("grad", f"{name} dx", dx, rdx, TOLERANCE[dtype])
+        for i, (d, r) in enumerate(zip(dfs, rdfs)):
+            record("grad", f"{name} dF{i} (vs f64)", d, r, GRAD_TOLERANCE[dtype])
+        repeat("grad", name, (dx, *dfs), flat(emit.grad_cuda(x, dy, *fs, t_m=t_m, t_k=t_k)))
 
     for name, m, p, q, s, dtype in SLICED_CASES:
         x = randn(gen, (m, s * p), dtype)
@@ -219,7 +301,19 @@ def check_kernels(gen) -> dict:
         got = kron_sliced_t.sliced_multiply_t_cuda(dy, f)
         ref = kron_sliced_t.sliced_multiply_t_reference(dy, f)
         torch.cuda.synchronize()
-        tiles = kron_sliced.sliced_tiles(m, s, p, q, acc_bytes, kind="bwd")
+        tiles = kron_sliced.sliced_tiles(
+            m, s, p, q, acc_bytes, kind="sliced_t", in_bytes=dy.element_size())
+        record("sliced_t", f"{name} tiles={tiles}", got, ref, TOLERANCE[dtype])
+
+    for name, m, p, q, s, dtype in SLICED_T_CASES:
+        dy = randn(gen, (m, q * s), dtype)
+        f = randn(gen, (p, q), dtype)
+        got = kron_sliced_t.sliced_multiply_t_cuda(dy, f)
+        ref = kron_sliced_t.sliced_multiply_t_reference(dy, f)
+        torch.cuda.synchronize()
+        tiles = kron_sliced.sliced_tiles(
+            m, s, p, q, emit.acc_dtype_for(dtype).itemsize, kind="sliced_t",
+            in_bytes=dy.element_size())
         record("sliced_t", f"{name} tiles={tiles}", got, ref, TOLERANCE[dtype])
 
     # One small KronOp against the dense oracle x @ (F^1 (x) ... (x) F^N):
@@ -394,6 +488,9 @@ BWD_CASES = [
 ]
 
 
+MAIN_PROGRAMS: dict = {}  # backward case -> the StageProgram its run used
+
+
 def plain_bwd(op, x, fs, g, factors: bool):
     """The op's backward through the kernels' plain twins on the card, in
     the tensors' dtype: (dx, [dF^1 .. dF^N] in the accumulator dtype, or
@@ -481,6 +578,8 @@ def run_backward(gen, peaks) -> list[dict]:
                     if factors else expect(chain_bwd=n_stages))
         if launches != want:
             raise AssertionError(f"{name}: launches {launches}, expected {want}")
+        if op.plan is not None:
+            MAIN_PROGRAMS[name] = _lowered(op.plan, op.ps, op.qs)
         again = backward()
         torch.cuda.synchronize()
         bitwise = all(torch.equal(a, b) for a, b in zip(grads, again))
@@ -542,6 +641,112 @@ def run_backward(gen, peaks) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 4: the redesigned kernels alone
+# ---------------------------------------------------------------------------
+
+def stage_einsum(x, fs, m, s_rest):
+    """One torch.einsum computing a stage: x (M, S * prod(P)) viewed as
+    (M, S, p_{n-1}, .., p_0) against factors (p_i, q_i) in application order,
+    out (M, q_{n-1}, .., q_0, S) flattened, the chain's final-index layout."""
+    n = len(fs)
+    ps_l, qs_l = "abcdefgh"[:n], "ijklmnop"[:n]
+    spec = ("zy" + ps_l[::-1] + "," + ",".join(p + q for p, q in zip(ps_l, qs_l))
+            + "->z" + qs_l[::-1] + "y")
+    xv = x.reshape(m, s_rest, *(int(f.shape[0]) for f in reversed(fs)))
+    return torch.einsum(spec, xv, *fs).reshape(m, -1)
+
+
+def bound(nbytes, flops, peaks, dtype):
+    t_bytes = nbytes / peaks["bw"] * 1e3
+    t_ops = flops / peaks[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def run_alone(gen, peaks) -> dict:
+    """One launch of each redesigned kernel at its main case's shapes:
+    CUDA-event time (median of ITERS after WARMUP), the per-launch bound,
+    the blocks per SM from the occupancy query, and one PyTorch call
+    computing the same function.  Fails when a kernel fits fewer than two
+    blocks per SM."""
+    from repro_torch.kernels import emit, kron_sliced, kron_sliced_t
+
+    out = {"grad": [], "sliced_t": []}
+    for case, m, ps, qs, dtype in (
+        ("fig9-grad", 1024, (32,) * 4, (32,) * 4, torch.float32),
+        ("ffn-grad", 4096, (64, 40), (128, 76), torch.bfloat16),
+    ):
+        prog = MAIN_PROGRAMS[case]
+        acc = emit.acc_dtype_for(dtype)
+        k = math.prod(ps)
+        seen = set()
+        for idx, ins in enumerate(prog.instrs):
+            k_out = k // ins.pprod * ins.qprod
+            t_m, t_k = ins.transpose().t_m, ins.t_k
+            key = (ins.ps, ins.qs, k, t_m, t_k)
+            if key in seen:
+                k = k_out
+                continue
+            seen.add(key)
+            x = randn(gen, (1, m, k), dtype)
+            dy = randn(gen, (1, m, k_out), dtype)
+            fs = [randn(gen, (1, p, q), dtype) for p, q in zip(ins.ps, ins.qs)]
+            geo = emit.grad_geometry(
+                x.shape, dy.shape, [f.shape for f in fs], t_m=t_m, t_k=t_k,
+                acc_bytes=acc.itemsize, in_bytes=x.element_size())
+            per_sm, smem = emit.grad_occupancy(x, dy, geo, emit.kernel_dtype_code(x, fs, acc))
+            ms = time_ms(lambda: emit.grad_cuda(x, dy, *fs, t_m=t_m, t_k=t_k))
+            xl = x[0].detach().clone().requires_grad_()
+            fl = [f[0].detach().clone().requires_grad_() for f in fs]
+            yl = stage_einsum(xl, fl, m, k // ins.pprod)
+            library_ms = time_ms(lambda: torch.autograd.grad(yl, [xl, *fl], dy[0], retain_graph=True))
+            del xl, fl, yl
+            fsize = sum(p * q for p, q in zip(ins.ps, ins.qs))
+            nbytes = (2 * m * k + m * k_out + fsize) * x.element_size() + fsize * acc.itemsize
+            cols, fwd_flops = k, 0
+            for p, q in zip(ins.ps, ins.qs):
+                fwd_flops += 2 * m * cols * q
+                cols = cols // p * q
+            b_ms, b_by = bound(nbytes, 2 * fwd_flops, peaks, dtype)
+            row = {
+                "case": case, "stage": idx, "ps": list(ins.ps), "qs": list(ins.qs),
+                "block_tile": [geo.block_m, geo.block_k], "smem_bytes": smem,
+                "blocks_per_sm": per_sm, "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": library_ms,
+            }
+            print("alone grad " + json.dumps(row), flush=True)
+            out["grad"].append(row)
+            del x, dy, fs
+            torch.cuda.empty_cache()
+            k = k_out
+
+    # fig9-unfused-grad: each of its four sliced_t launches is (1024, 32 *
+    # 32768) x (32, 32).
+    m, p, q, s_ = 1024, 32, 32, 32768
+    dy = randn(gen, (m, q * s_), torch.float32)
+    f = randn(gen, (p, q), torch.float32)
+    t_m, t_s, t_q = kron_sliced.sliced_tiles(m, s_, p, q, 4, kind="sliced_t", in_bytes=4)
+    per_sm, smem = kron_sliced_t.sliced_t_occupancy(
+        0, dy.data_ptr() % 16, m, s_, p, q, t_m, t_s, t_q, dy.device)
+    ms = time_ms(lambda: kron_sliced_t.sliced_multiply_t_cuda(dy, f))
+    dyv = dy.view(m, q, s_)
+    library_ms = time_ms(lambda: torch.einsum("mqs,pq->msp", dyv, f))
+    b_ms, b_by = bound((2 * m * q * s_ + p * q) * 4, 2 * m * s_ * p * q, peaks, torch.float32)
+    row = {
+        "case": "fig9-unfused-grad", "tiles": [t_m, t_s, t_q], "smem_bytes": smem,
+        "blocks_per_sm": per_sm, "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": library_ms,
+    }
+    print("alone sliced_t " + json.dumps(row), flush=True)
+    out["sliced_t"].append(row)
+    del dy, dyv, f
+    torch.cuda.empty_cache()
+    few = [r for rows in out.values() for r in rows if r["blocks_per_sm"] < 2]
+    if few:
+        raise AssertionError(f"fewer than two blocks per SM: {few}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -555,10 +760,17 @@ def main() -> int:
     libs = _build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s nvcc -> "
           + ", ".join(str(p) for p in libs.values()), flush=True)
+    spills = []
     for name in libs:
         log = (_build.build_dir() / f"{name}.log").read_text()
-        usage = [ln.strip() for ln in log.splitlines() if "registers" in ln]
-        print(f"build: {name}.cu ptxas: " + " | ".join(usage), flush=True)
+        for e in ptxas_entries(log):
+            print(f"build: {name}.cu ptxas: {e['entry']}: {e['registers']} registers, "
+                  f"{e['spill_bytes']} bytes spilled", flush=True)
+            if name in ("grad", "sliced_t") and e["spill_bytes"]:
+                spills.append(e["entry"])
+    if spills:
+        print(f"chip_smoke: ptxas spills registers in {spills}", file=sys.stderr)
+        return 1
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     print(f"device: {smi} ({kind}, torch {torch.__version__}, CUDA {torch.version.cuda})",
@@ -569,6 +781,7 @@ def main() -> int:
     gen.manual_seed(0)
     passed = check_kernels(gen)
     rows = {r["case"]: r for r in run_main(gen, peaks) + run_backward(gen, peaks)}
+    alone = run_alone(gen, peaks)
 
     def kernel_row(name):
         source, replaces, case = KERNELS[name]
@@ -583,6 +796,8 @@ def main() -> int:
         }
         if name == "grad":
             row["reduce_launches"] = sum(row["launches"]["grad_reduce"] for row in rows.values())
+        if name in alone:
+            row["alone"] = alone[name]
         return row
 
     kernels = [kernel_row(name) for name in KERNELS]

@@ -13,4 +13,9 @@ kron_sliced_t.py — its transpose: ``sliced_multiply_t_cuda``
 ops.py          — sliced-multiply (and transpose) backend dispatch.
 ref.py          — plain PyTorch oracles for the tests.
 _build.py       — builds csrc/*.cu with nvcc at the first launch; ctypes.
+
+csrc/kron_tile.cuh is the block routine of chain_fwd, chain_bwd and sliced;
+csrc/kron_async.cuh holds the Hopper pieces of grad and sliced_t (the
+cp.async ring, the register-tiled step, the persistent dF accumulator, the
+bf16 mma.sync step).
 """

@@ -1,0 +1,374 @@
+// Hopper pieces of the persistent kernels (grad.cu, sliced_t.cu): the
+// asynchronous-copy ring, the register-tiled contraction step, the
+// persistent per-thread dF accumulator and the bf16 tensor-core step.
+//
+// Every piece of inline PTX sits behind one small device function below
+// (cp_async16/8/4, cp_async_commit, cp_async_wait, mma_bf16_16816,
+// ldmatrix_x4_trans).  A host
+// build that defines KRON_PTX_STUB supplies scalar bodies for them instead,
+// so that the index math of the kernels can be rehearsed on a CPU.
+//
+// The ring: a block walks its tiles in a fixed order and keeps the next
+// tiles' operands in flight with cp.async while it computes on the current
+// one.  Copies are chunks of 16, 8 or 4 bytes (the widest that every run,
+// offset and base pointer of the launch allows, chosen on the host); an
+// input whose runs allow no 4-byte chunk (bfloat16 at an odd offset) is
+// copied element by element with ordinary loads.
+//
+// The contraction step: acc[r][c] += sum_k A[k*lda + soff[r]] * B[k*ldb + c]
+// for RS slices r of one thread and kRQ = 4 consecutive panel columns c (one
+// 16-byte vector).  Both the forward step (A = a chain state in the (m, p,
+// s) layout, B = the (p, q) panel) and the transposed step (A = a gradient
+// state in the (m, q, s) layout, B = the transposed (q, p) panel) are this
+// loop; RS is picked per step so that every thread of the block has work.
+//
+// The dF accumulator: each thread owns a fixed set of (group, 4x4 tile)
+// items of every factor's dF for the whole tile loop and keeps their sums
+// in its own slice of shared memory (element-major, so a warp's accesses
+// fall in distinct banks).  Nothing else reads a slice until the block's
+// tiles are done; then the groups are summed once, in group order.
+#pragma once
+
+#include <initializer_list>
+
+#include "kron_tile.cuh"
+
+namespace kron {
+
+constexpr int kAsyncThreads = 256;           // threads of grad and sliced_t blocks
+constexpr int kWarps = kAsyncThreads / 32;
+
+// ---------------------------------------------------------------------------
+// PTX
+// ---------------------------------------------------------------------------
+#ifndef KRON_PTX_STUB
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+// d += A * B for one 16x8x16 tile: A (16x16, row-major) bf16, B (16x8,
+// column-major) bf16, d f32; the fragments hold the PTX ISA's per-lane
+// elements (two bf16 per 32-bit register, the lower index in the low half).
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const unsigned (&a)[4],
+                                               const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// Four 8x8 bf16 matrices, transposed, from shared memory: lane l gives the
+// address of row l % 8 of matrix l / 8 (16 bytes, 16-byte aligned); r[i]
+// receives this lane's elements of the transpose of matrix i.
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row)));
+}
+#endif
+
+// One chunk of a run from device to shared memory: `vbytes` of 16, 8 or 4
+// go through cp.async; 0 copies one element with ordinary loads.
+template <typename T>
+__device__ __forceinline__ void copy_chunk(T* dst, const T* src, int vbytes) {
+  if (vbytes == 16) {
+    cp_async16(dst, src);
+  } else if (vbytes == 8) {
+    cp_async8(dst, src);
+  } else if (vbytes == 4) {
+    cp_async4(dst, src);
+  } else {
+    *dst = *src;
+  }
+}
+
+// Host side: the widest chunk (16, 8 or 4 bytes; 0 = element by element)
+// that divides every run length, run offset and base address, all given in
+// bytes.
+inline int chunk_bytes(std::initializer_list<long long> bytes) {
+  for (int v : {16, 8, 4}) {
+    bool ok = true;
+    for (long long b : bytes) ok = ok && b % v == 0;
+    if (ok) return v;
+  }
+  return 0;
+}
+
+inline long long round16(long long bytes) { return (bytes + 15) / 16 * 16; }
+
+// ---------------------------------------------------------------------------
+// Panels, loaded once per block
+// ---------------------------------------------------------------------------
+
+// The factor f (p, q) row-major into dst[pp * ld + c] (forward
+// orientation); columns q..ld-1 are zero.
+template <typename T, typename Acc>
+__device__ void panel_fwd(const T* __restrict__ f, int p, int q, int ld, Acc* dst) {
+  const int total = p * ld;
+  const float rld = 1.0f / ld;
+  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+    const int r = div_fast(idx, ld, rld);
+    const int c = idx - r * ld;
+    dst[idx] = c < q ? to_acc(f[static_cast<long long>(r) * q + c]) : Acc(0);
+  }
+}
+
+// Columns [q0, q0 + tq) of f (p, q) transposed: dst[c * ld + pp] for
+// c < tq (ld >= p, padding zero).  Reads run along f's rows.
+template <typename T, typename Acc>
+__device__ void panel_t(const T* __restrict__ f, int p, int q, int q0, int tq, int ld, Acc* dst) {
+  const int total = ld * tq;
+  const float rtq = 1.0f / tq;
+  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+    const int pp = div_fast(idx, tq, rtq);
+    const int c = idx - pp * tq;
+    dst[c * ld + pp] = pp < p ? to_acc(f[static_cast<long long>(pp) * q + q0 + c]) : Acc(0);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The register-tiled contraction step
+// ---------------------------------------------------------------------------
+
+// acc[r][c] += sum_{k < nk} A[k * lda + soff[r]] * B[k * ldb + c].
+template <int RS, typename TA, typename Acc>
+__device__ __forceinline__ void contract(Acc (&acc)[RS][kRQ], const TA* __restrict__ A, int lda,
+                                         const int (&soff)[RS], const Acc* __restrict__ B,
+                                         int ldb, int nk) {
+  constexpr int kUnroll = sizeof(Acc) == 8 ? 2 : 4;  // f64 would spill at 4
+#pragma unroll(kUnroll)
+  for (int k = 0; k < nk; ++k) {
+    Acc bv[kRQ];
+    load4(B + k * ldb, bv);
+#pragma unroll
+    for (int r = 0; r < RS; ++r) {
+      const Acc av = to_acc(A[k * lda + soff[r]]);
+#pragma unroll
+      for (int c = 0; c < kRQ; ++c) acc[r][c] += av * bv[c];
+    }
+  }
+}
+
+// The largest RS of {4, 2, 1} at which `rows * ceil(s / RS)` work items
+// still give every thread of the block one (1 when none does).
+__device__ __forceinline__ int pick_rs(int rows, int s) {
+  const int threads = blockDim.x;
+  if (rows * ((s + 3) / 4) >= threads) return 4;
+  if (rows * ((s + 1) / 2) >= threads) return 2;
+  return 1;
+}
+
+// One step over a state of t_m rows: for every row m, slice sl < s and
+// column block xb < nxb, v[c] = sum_k A[m*am + k*lda + sl] * B[k*ldb +
+// xb*kRQ + c] is handed to sink(m, sl, xb, v).  Lanes take neighbouring xb
+// first when xb_fast (neighbouring output vectors), else neighbouring
+// slices.  A thread's RS slices are strided by ceil(s / RS).
+template <int RS, typename TA, typename Acc, typename Sink>
+__device__ __forceinline__ void step_rs(int t_m, int s, int nxb, const TA* A, int am, int lda,
+                                        const Acc* B, int ldb, int nk, bool xb_fast, Sink sink) {
+  const int nsb = (s + RS - 1) / RS;
+  const float rnsb = 1.0f / nsb, rnxb = 1.0f / nxb;
+  const int work = t_m * nsb * nxb;
+  for (int w = threadIdx.x; w < work; w += blockDim.x) {
+    int m, sb, xb;
+    if (xb_fast) {
+      const int t = div_fast(w, nxb, rnxb);
+      xb = w - t * nxb;
+      m = div_fast(t, nsb, rnsb);
+      sb = t - m * nsb;
+    } else {
+      const int t = div_fast(w, nsb, rnsb);
+      sb = w - t * nsb;
+      m = div_fast(t, nxb, rnxb);
+      xb = t - m * nxb;
+    }
+    int soff[RS];
+#pragma unroll
+    for (int r = 0; r < RS; ++r) {
+      const int sl = sb + r * nsb;
+      soff[r] = sl < s ? sl : 0;  // out-of-range slices read slice 0, never stored
+    }
+    Acc acc[RS][kRQ];
+#pragma unroll
+    for (int r = 0; r < RS; ++r)
+#pragma unroll
+      for (int c = 0; c < kRQ; ++c) acc[r][c] = Acc(0);
+    contract<RS>(acc, A + m * am, lda, soff, B + xb * kRQ, ldb, nk);
+#pragma unroll
+    for (int r = 0; r < RS; ++r) {
+      const int sl = sb + r * nsb;
+      if (sl < s) sink(m, sl, xb, acc[r]);
+    }
+  }
+}
+
+template <typename TA, typename Acc, typename Sink>
+__device__ __forceinline__ void step(int t_m, int s, int nxb, const TA* A, int am, int lda,
+                                     const Acc* B, int ldb, int nk, bool xb_fast, Sink sink) {
+  const int rs = pick_rs(t_m * nxb, s);
+  if (rs == 4) {
+    step_rs<4>(t_m, s, nxb, A, am, lda, B, ldb, nk, xb_fast, sink);
+  } else if (rs == 2) {
+    step_rs<2>(t_m, s, nxb, A, am, lda, B, ldb, nk, xb_fast, sink);
+  } else {
+    step_rs<1>(t_m, s, nxb, A, am, lda, B, ldb, nk, xb_fast, sink);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The persistent dF accumulator
+// ---------------------------------------------------------------------------
+
+// The dF items of one (p, q) factor: `tiles` 4x4 register tiles, each
+// split over `groups` shares of the contraction; items w = grp * tiles + t,
+// thread threadIdx.x owning w = threadIdx.x + j * blockDim.x.
+__host__ __device__ inline int df_tiles(int p, int q) { return ((p + 3) / 4) * ((q + 3) / 4); }
+__host__ __device__ inline int df_groups(int p, int q, int threads) {
+  const int t = df_tiles(p, q);
+  return t >= threads ? 1 : threads / t;
+}
+
+// acc[c][d] of item w over the tile's contraction (every slice sl = grp +
+// j * groups < s of every row m, rows in order):
+//   dF[pp, qq] += sum U[m*um + pp*ust + sl] * G[m*gm + qq*gst + sl]
+// for pp = pb + c * npb and qq = qb * 4 + d.  The sums live in
+// dfp[e * W + w] between tiles (e = c * 4 + d).
+template <typename Acc>
+__device__ __forceinline__ void df_accumulate(int p, int q, int s, int t_m, const Acc* U, int um,
+                                              int ust, const Acc* G, int gm, int gst, Acc* dfp) {
+  const int npb = (p + 3) / 4, tiles = df_tiles(p, q);
+  const int groups = df_groups(p, q, blockDim.x), W = tiles * groups;
+  const float rtiles = 1.0f / tiles, rnpb = 1.0f / npb;
+  constexpr int kUnroll = sizeof(Acc) == 8 ? 1 : 4;  // f64 would spill at 4
+  for (int w = threadIdx.x; w < W; w += blockDim.x) {
+    const int grp = div_fast(w, tiles, rtiles);
+    const int t = w - grp * tiles;
+    const int qb = div_fast(t, npb, rnpb);
+    const int pb = t - qb * npb;
+    int poff[kRQ], qoff[kRQ];
+#pragma unroll
+    for (int c = 0; c < kRQ; ++c) {
+      const int pp = pb + c * npb, qq = qb * kRQ + c;
+      poff[c] = (pp < p ? pp : 0) * ust;
+      qoff[c] = (qq < q ? qq : 0) * gst;
+    }
+    Acc acc[kRQ][kRQ];
+#pragma unroll
+    for (int c = 0; c < kRQ; ++c)
+#pragma unroll
+      for (int d = 0; d < kRQ; ++d) acc[c][d] = dfp[(c * kRQ + d) * W + w];
+    for (int m = 0; m < t_m; ++m) {
+      const Acc* ur = U + m * um;
+      const Acc* gr = G + m * gm;
+#pragma unroll(kUnroll)
+      for (int sl = grp; sl < s; sl += groups) {
+        Acc uv[kRQ], gv[kRQ];
+#pragma unroll
+        for (int c = 0; c < kRQ; ++c) {
+          uv[c] = ur[poff[c] + sl];
+          gv[c] = gr[qoff[c] + sl];
+        }
+#pragma unroll
+        for (int c = 0; c < kRQ; ++c)
+#pragma unroll
+          for (int d = 0; d < kRQ; ++d) acc[c][d] += uv[c] * gv[d];
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kRQ; ++c)
+#pragma unroll
+      for (int d = 0; d < kRQ; ++d) dfp[(c * kRQ + d) * W + w] = acc[c][d];
+  }
+}
+
+// dF[pp * q + qq] = sum over groups, in group order, of the items' sums.
+template <typename Acc>
+__device__ void df_finish(int p, int q, const Acc* dfp, Acc* out) {
+  const int npb = (p + 3) / 4, tiles = df_tiles(p, q);
+  const int groups = df_groups(p, q, blockDim.x), W = tiles * groups;
+  const float rq = 1.0f / q, rnpb = 1.0f / npb;
+  for (int e = threadIdx.x; e < p * q; e += blockDim.x) {
+    const int pp = div_fast(e, q, rq), qq = e - pp * q;
+    const int c = div_fast(pp, npb, rnpb), pb = pp - c * npb;
+    const int qb = qq / kRQ, d = qq - qb * kRQ;
+    const int t = qb * npb + pb;
+    const Acc* src = dfp + (c * kRQ + d) * W + t;
+    Acc v = Acc(0);
+    for (int grp = 0; grp < groups; ++grp) v += src[grp * tiles];
+    out[e] = v;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 tensor-core step
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned ld_pair(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+
+// Fragments of m16n8k16 from K-contiguous bf16 tiles in shared memory:
+// A rows (16) at base + row * ld, B columns (8) at base + col * ld, both
+// starting at the chunk's first k.
+__device__ __forceinline__ void frag_a(unsigned (&a)[4], const __nv_bfloat16* base, int ld) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = (lane & 3) * 2;
+  a[0] = ld_pair(base + g * ld + t);
+  a[1] = ld_pair(base + (g + 8) * ld + t);
+  a[2] = ld_pair(base + g * ld + t + 8);
+  a[3] = ld_pair(base + (g + 8) * ld + t + 8);
+}
+__device__ __forceinline__ void frag_b(unsigned (&b)[2], const __nv_bfloat16* base, int ld) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = (lane & 3) * 2;
+  b[0] = ld_pair(base + g * ld + t);
+  b[1] = ld_pair(base + g * ld + t + 8);
+}
+
+// The A fragment of a 16x16 tile stored transposed: A[r][c] = base[c * ld
+// + r] (K-major rows of 16 bytes, ld a multiple of 8 elements).
+__device__ __forceinline__ void frag_a_t(unsigned (&a)[4], const __nv_bfloat16* base, int ld) {
+  const int lane = threadIdx.x & 31, i = lane >> 3;
+  // Matrices 0..3 are A's (rows 0-7, cols 0-7), (rows 8-15, cols 0-7),
+  // (rows 0-7, cols 8-15), (rows 8-15, cols 8-15): stored rows c, columns r.
+  ldmatrix_x4_trans(a, base + ((i >> 1) * 8 + (lane & 7)) * ld + (i & 1) * 8);
+}
+
+// d += sum over the chunks kc = kc0, kc0 + kc_step, .. < nk16 of A[16
+// rows, 16 k] * B[16 k, 8 cols]; A at a (row stride lda), B stored as 8
+// rows of k at b (row stride ldb).
+__device__ __forceinline__ void mma_tile(float (&d)[4], const __nv_bfloat16* a, int lda,
+                                         const __nv_bfloat16* b, int ldb, int kc0, int kc_step,
+                                         int nk16) {
+  for (int kc = kc0; kc < nk16; kc += kc_step) {
+    unsigned af[4], bf[2];
+    frag_a(af, a + kc * 16, lda);
+    frag_b(bf, b + kc * 16, ldb);
+    mma_bf16_16816(d, af, bf);
+  }
+}
+
+// The same with A stored transposed (A[r][k] = a[k * lda + r]).
+__device__ __forceinline__ void mma_tile_t(float (&d)[4], const __nv_bfloat16* a, int lda,
+                                           const __nv_bfloat16* b, int ldb, int nk16) {
+  for (int kc = 0; kc < nk16; ++kc) {
+    unsigned af[4], bf[2];
+    frag_a_t(af, a + kc * 16 * lda, lda);
+    frag_b(bf, b + kc * 16, ldb);
+    mma_bf16_16816(d, af, bf);
+  }
+}
+
+}  // namespace kron

@@ -1,6 +1,6 @@
 // Block tiles of a FastKron chain: the device code shared by chain_fwd.cu,
-// sliced.cu, chain_bwd.cu, sliced_t.cu and grad.cu, and the host code that
-// fills a launch's arguments.
+// sliced.cu and chain_bwd.cu, the helpers grad.cu and sliced_t.cu take from
+// it (kron_async.cuh), and the host code that fills a launch's arguments.
 //
 // A block owns one batch sample, t_m rows and a t_k column slab of x (t_k a
 // multiple of prod(P)), and keeps every chain state of that tile in shared
@@ -35,15 +35,6 @@
 //   multiple of 4 columns, so a thread's kRQ = 4 consecutive pp are one
 //   16-byte vector; neighbouring threads take neighbouring pp groups.
 //
-// Stage backward (grad_block): rematerializes every forward state of the
-// tile (u_0 .. u_{n-1}, forward layout), gathers the tile's dY and walks
-// the transposed chain; before each transposed step it forms the tile's
-// dF_i[pp, q] = sum_{m,s} u_i[m, s*p_i + pp] G[m, q*s_i + s].  A block
-// walks many tiles (grid-stride) and keeps its dF sums in shared memory;
-// it writes one partial per block, which a second launch reduces in a
-// fixed order (grad.cu).  Every dF sum has one owner thread and a fixed
-// order, so the result is the same bit for bit on every run.
-//
 // Global loads keep kLoadUnroll loads in flight per thread.  Index math
 // divides through float reciprocals (div_fast).  Intermediates stay in the
 // accumulator type Acc inside the block; only stores to device memory round
@@ -62,10 +53,9 @@ constexpr int kThreads = 512;
 constexpr int kRS = 4;          // slices per thread
 constexpr int kRQ = 4;          // factor-panel columns per thread (one vector)
 constexpr int kLoadUnroll = 8;  // global loads in flight per thread
-constexpr int kDfThreads = 256; // grad: threads that split one factor's dF sums
 constexpr size_t kMaxSmemBytes = 232448;  // 227 KB: one Hopper block's limit
 
-enum Kind { kFwd = 0, kBwd = 1, kGrad = 2 };
+enum Kind { kFwd = 0, kBwd = 1 };
 
 struct TileArgs {
   const void* f[kMaxFactors];  // factor i: (B, p_i, q_i), application order
@@ -91,13 +81,6 @@ struct TileArgs {
   // (16-byte aligned panels and vectors).
   int buf0, buf1, panel;       // chain-state ping-pong buffers and the panel
   int acc;                     // bwd: the Q-tile sum of dX (0 when Q is whole)
-  int ustates;                 // grad: all forward states u_0 .. u_{n-1}
-  int u[kMaxFactors];          // grad: offset of u_i inside ustates
-  int scratch;                 // grad: per-group dF partials of one factor
-  int df_groups[kMaxFactors];  // grad: thread groups splitting factor i's dF
-  int df_off[kMaxFactors];     // grad: offset of dF_i in the packed dF vector
-  int df_total;                // grad: sum_i p_i * q_i
-  int nblk;                    // grad: blocks per batch sample
   long long smem;              // total elements
 };
 
@@ -532,137 +515,6 @@ __device__ void chain_bwd_block(const TileArgs& a, const T* __restrict__ dy, T* 
   }
 }
 
-// dF partial of factor i over one tile: every (group, 4x4 micro-tile) work
-// item sums u_i[m, s*p + pp] * G[m, q*s_i + s] over its share of the
-// (m, s) pairs and writes scratch[group][pp][q].
-template <typename Acc>
-__device__ __forceinline__ void df_partial(const TileArgs& a, int i, const Acc* u, const Acc* g,
-                                           Acc* scratch) {
-  const int p = a.p[i], q = a.q[i], s = a.s[i], st = a.sstr[i];
-  const int npb = (p + kRQ - 1) / kRQ, nqb = (q + kRQ - 1) / kRQ;
-  const int tiles = npb * nqb, groups = a.df_groups[i];
-  const float rnpb = 1.0f / npb, rtiles = 1.0f / tiles;
-  const int ms = p * st, cin = q * s, pq = p * q;
-  for (int w = threadIdx.x; w < tiles * groups; w += blockDim.x) {
-    const int grp = div_fast(w, tiles, rtiles);
-    const int t = w - grp * tiles;
-    const int qb = div_fast(t, npb, rnpb);
-    const int pb = t - qb * npb;
-    // A thread's pp are strided by npb (neighbouring threads read
-    // neighbouring rows of u_i); its q are consecutive.
-    int poff[kRQ], qoff[kRQ];
-#pragma unroll
-    for (int c = 0; c < kRQ; ++c) {
-      const int pp = pb + c * npb;
-      const int qq = qb * kRQ + c;
-      poff[c] = (pp < p ? pp : 0) * st;
-      qoff[c] = (qq < q ? qq : 0) * s;
-    }
-    Acc acc[kRQ][kRQ];
-#pragma unroll
-    for (int c = 0; c < kRQ; ++c)
-#pragma unroll
-      for (int d = 0; d < kRQ; ++d) acc[c][d] = Acc(0);
-    int m = 0, sp = grp;
-    while (sp >= s) {
-      sp -= s;
-      ++m;
-    }
-    for (; m < a.t_m;) {
-      const Acc* ur = u + m * ms + sp;
-      const Acc* gr = g + m * cin + sp;
-      Acc uv[kRQ], gv[kRQ];
-#pragma unroll
-      for (int c = 0; c < kRQ; ++c) {
-        uv[c] = ur[poff[c]];
-        gv[c] = gr[qoff[c]];
-      }
-#pragma unroll
-      for (int c = 0; c < kRQ; ++c)
-#pragma unroll
-        for (int d = 0; d < kRQ; ++d) acc[c][d] += uv[c] * gv[d];
-      sp += groups;
-      while (sp >= s) {
-        sp -= s;
-        ++m;
-      }
-    }
-    Acc* o = scratch + grp * pq;
-#pragma unroll
-    for (int c = 0; c < kRQ; ++c) {
-      const int pp = pb + c * npb;
-      if (pp >= p) continue;
-#pragma unroll
-      for (int d = 0; d < kRQ; ++d) {
-        const int qq = qb * kRQ + d;
-        if (qq < q) o[pp * q + qq] = acc[c][d];
-      }
-    }
-  }
-}
-
-template <typename T, typename Acc>
-__device__ void grad_block(const TileArgs& a, const T* __restrict__ x, const T* __restrict__ dy,
-                           T* __restrict__ dx, Acc* __restrict__ part, Acc* smem) {
-  const long long b = blockIdx.x / a.nblk;
-  const long long j0 = blockIdx.x % a.nblk;
-  Acc* us = smem;
-  Acc* buf[2] = {us + a.ustates, us + a.ustates + a.buf0};
-  Acc* panel = buf[1] + a.buf1;
-  Acc* scratch = panel + a.panel;
-  Acc* dfacc = scratch + a.scratch;
-  for (int e = threadIdx.x; e < a.df_total; e += blockDim.x) dfacc[e] = Acc(0);
-  int qd[kMaxFactors];
-  q_digits(a, 0, qd);  // Q is never tiled here: every digit is 0
-
-  const long long tiles = a.m_tiles * a.k_tiles;
-  for (long long tile = j0; tile < tiles; tile += a.nblk) {
-    const long long kt = tile % a.k_tiles;
-    const long long row0 = b * a.M + (tile / a.k_tiles) * a.t_m;
-    load_slab(a, x + row0 * a.K + kt * a.t_k, us + a.u[0]);
-    gather_dy(a, dy + row0 * a.out_cols, kt, qd, buf[0]);
-    // Rematerialize u_1 .. u_{n-1}.
-    for (int i = 0; i + 1 < a.n; ++i) {
-      load_panel<T>(a, i, b, 0, panel);
-      __syncthreads();
-      fwd_step_to_state(a, i, us + a.u[i], us + a.u[i + 1], panel);
-      __syncthreads();
-    }
-    T* dxt = dx + row0 * a.K + kt * a.t_k;
-    for (int j = 0; j < a.n; ++j) {
-      const int i = a.n - 1 - j;
-      load_panel_t<T>(a, i, b, 0, panel);
-      __syncthreads();  // G_{i+1}, u_i and the panel are in place
-      const Acc* g = buf[j & 1];
-      df_partial(a, i, us + a.u[i], g, scratch);
-      const int p = a.p[i];
-      if (i > 0) {
-        Acc* o = buf[(j + 1) & 1];
-        const int ld = a.c[i];
-        t_step(a, i, g, panel, [&](int m, int sp, int pb, const Acc(&v)[kRQ]) {
-          put_row(o, ld, p, m, sp, pb, v);
-        });
-      } else {
-        t_step(a, i, g, panel, [&](int m, int sp, int pb, const Acc(&v)[kRQ]) {
-          put_row(dxt, a.K, p, m, sp, pb, v);
-        });
-      }
-      __syncthreads();  // scratch and G_i are complete
-      // Sum the groups' partials in a fixed order; one owner per element.
-      const int pq = p * a.q[i], groups = a.df_groups[i];
-      Acc* d = dfacc + a.df_off[i];
-      for (int e = threadIdx.x; e < pq; e += blockDim.x) {
-        Acc v = d[e];
-        for (int grp = 0; grp < groups; ++grp) v += scratch[grp * pq + e];
-        d[e] = v;
-      }
-    }
-  }
-  __syncthreads();
-  Acc* out = part + static_cast<long long>(blockIdx.x) * a.df_total;
-  for (int e = threadIdx.x; e < a.df_total; e += blockDim.x) out[e] = dfacc[e];
-}
-
 inline long long round4(long long e) { return (e + 3) / 4 * 4; }
 
 // Host side: fill the arguments of one launch of the given kind.  Returns
@@ -671,16 +523,14 @@ inline long long round4(long long e) { return (e + 3) / 4 * 4; }
 // repro_torch.kernels.emit.block_smem_bytes for the same kind.
 //   fwd:  x (B, M, K) -> y (B, M, prod(Q) * K/prod(P)); tqs tile Q.
 //   bwd:  dY (B, M, prod(Q) * K/prod(P)) -> dX (B, M, K); tqs tile Q.
-//   grad: x, dY -> dX and dF; tqs must equal qs; nblk blocks per sample.
 inline int make_args(TileArgs* a, const void* const* fs, const int* ps, const int* qs,
                      const int* tqs, int n, long long B, long long M, long long K, int t_m,
-                     int t_k, int kind = kFwd, int nblk = 1) {
-  if (n < 1 || n > kMaxFactors || t_m < 1 || t_k < 1 || nblk < 1) return cudaErrorInvalidValue;
+                     int t_k, int kind = kFwd) {
+  if (n < 1 || n > kMaxFactors || t_m < 1 || t_k < 1) return cudaErrorInvalidValue;
   if (M % t_m || K % t_k) return cudaErrorInvalidValue;
   long long pprod = 1, qprod = 1;
   for (int i = 0; i < n; ++i) {
     if (ps[i] < 1 || qs[i] < 1 || tqs[i] < 1 || qs[i] % tqs[i]) return cudaErrorInvalidValue;
-    if (kind == kGrad && tqs[i] != qs[i]) return cudaErrorInvalidValue;
     pprod *= ps[i];
     qprod *= qs[i];
   }
@@ -699,7 +549,7 @@ inline int make_args(TileArgs* a, const void* const* fs, const int* ps, const in
   a->k_tiles = K / t_k;
   a->q_tiles = 1;
   long long cols = t_k, qstride = 1;
-  long long buf[2] = {0, 0}, panel = 0, ustates = 0, scratch = 0, df_total = 0;
+  long long buf[2] = {0, 0}, panel = 0;
   a->c[0] = t_k;
   for (int i = 0; i < n; ++i) {
     a->f[i] = fs[i];
@@ -724,17 +574,6 @@ inline int make_args(TileArgs* a, const void* const* fs, const int* ps, const in
     } else {
       if (t_panel > panel) panel = t_panel;
     }
-    if (kind == kGrad) {
-      a->u[i] = static_cast<int>(ustates);
-      ustates += state;
-      if (fwd_panel > panel) panel = fwd_panel;
-      const int work = static_cast<int>(((ps[i] + kRQ - 1) / kRQ) * ((qs[i] + kRQ - 1) / kRQ));
-      a->df_groups[i] = work >= kDfThreads ? 1 : kDfThreads / work;
-      const long long sc = round4(static_cast<long long>(a->df_groups[i]) * ps[i] * qs[i]);
-      if (sc > scratch) scratch = sc;
-      a->df_off[i] = static_cast<int>(df_total);
-      df_total += static_cast<long long>(ps[i]) * qs[i];
-    }
     cols = s * tqs[i];
     a->c[i + 1] = static_cast<int>(cols);
   }
@@ -747,21 +586,15 @@ inline int make_args(TileArgs* a, const void* const* fs, const int* ps, const in
     }
   }
   a->acc = kind == kBwd && a->q_tiles > 1 ? static_cast<int>(round4(static_cast<long long>(t_m) * t_k)) : 0;
-  a->ustates = static_cast<int>(ustates);
-  a->scratch = static_cast<int>(scratch);
-  a->df_total = static_cast<int>(df_total);
-  a->nblk = nblk;
   a->buf0 = static_cast<int>(buf[0]);
   a->buf1 = static_cast<int>(buf[1]);
   a->panel = static_cast<int>(panel);
-  a->smem = ustates + buf[0] + buf[1] + panel + a->acc + scratch + round4(df_total);
+  a->smem = buf[0] + buf[1] + panel + a->acc;
   if (a->smem > (1 << 22)) return cudaErrorInvalidValue;
   if (kind == kFwd) {
     a->grid = B * a->m_tiles * a->q_tiles * a->k_tiles;
-  } else if (kind == kBwd) {
-    a->grid = B * a->m_tiles * a->k_tiles;
   } else {
-    a->grid = B * nblk;
+    a->grid = B * a->m_tiles * a->k_tiles;
   }
   return cudaSuccess;
 }

@@ -384,11 +384,85 @@ class ChainGeometry:
 
 
 _KINDS_SMEM = ("fwd", "bwd", "grad")
-DF_THREADS = 256  # kron::kDfThreads: threads that split one factor's dF sums
+# Shared memory of one SM (228 KB); each resident block also holds 1 KB for
+# the runtime.  A block of the persistent kernels (grad.cu, sliced_t.cu) that
+# leaves room for a second one takes at most SM_SMEM_BYTES / 2 - 1 KB.
+SM_SMEM_BYTES = 233472
+TWO_BLOCK_SMEM_BYTES = SM_SMEM_BYTES // 2 - 1024  # 115,712
+ASYNC_THREADS = 256  # kron::kAsyncThreads: threads of a grad / sliced_t block
+_WARPS = ASYNC_THREADS // 32
 
 
 def _r4(e: int) -> int:
     return -(-e // 4) * 4
+
+
+def _r8(e: int) -> int:
+    return -(-e // 8) * 8
+
+
+def _r16(e: int) -> int:
+    return -(-e // 16) * 16
+
+
+def df_items(p: int, q: int) -> int:
+    """Persistent dF items of one (p, q) factor in grad.cu: its 4x4 register
+    tiles times the groups that split the contraction (``kron::df_tiles *
+    kron::df_groups``), each item 16 sums in its owner's slice."""
+    tiles = -(-p // 4) * -(-q // 4)
+    return tiles * (1 if tiles >= ASYNC_THREADS else ASYNC_THREADS // tiles)
+
+
+_MMA_ITEMS = 8  # kMmaItems in csrc/grad.cu: dF output tiles per warp in registers
+
+
+def _mma_tiles(p: int, q: int) -> int:
+    """16 x 8 output tiles of a (p, q) dF on the tensor cores."""
+    return (-(-p // 16)) * (_r8(q) // 8)
+
+
+def grad_uses_mma(ps: Sequence[int], qs: Sequence[int], in_bytes: int) -> bool:
+    """grad.cu runs a stage on the tensor cores (grad_mma_kernel) when it is
+    one bf16 factor whose dF tiles fit the warps' registers."""
+    return len(ps) == 1 and in_bytes == 2 and _mma_tiles(ps[0], qs[0]) <= _MMA_ITEMS * _WARPS
+
+
+def _grad_smem_bytes(t_m, t_k, ps, qs, acc_bytes, in_bytes) -> int:
+    """grad.cu's shared memory (``grad_args``), in bytes, every region
+    rounded to 16 bytes: the slot of the raw x slab (and raw dY block) in
+    the input dtype, then either (``grad_uses_mma``) the tensor-core
+    operands x^T, dY^T and F, at least as large as the warps' dF sums
+    when several warps share an output tile, or the forward states, the
+    gradient state G_n (where f32 and f64 multi-factor stages copy dY
+    directly), the two gradient states G_{n-1} .. G_1 in turn, the panels
+    of both orientations and the persistent dF items."""
+    n = len(ps)
+    s, cols = [], t_k
+    for p, q in zip(ps, qs):
+        s.append(cols // p)
+        cols = cols // p * q
+    direct = in_bytes == acc_bytes and n > 1
+    slot = _r16(t_m * t_k * in_bytes) + (0 if direct else _r16(t_m * cols * in_bytes))
+    if grad_uses_mma(ps, qs, in_bytes):
+        p, q = ps[0], qs[0]
+        k16 = -(-t_m * s[0] // 16) * 16
+        q16 = -(-q // 16) * 16
+        ops = slot + sum(_r16(e) for e in (
+            2 * (-(-p // 16) * 16) * (k16 + 8), 2 * q16 * (k16 + 8), 2 * _r8(p) * (q16 + 8),
+        ))
+        ct = _mma_tiles(p, q)
+        groups = 1 if ct >= _WARPS else _WARPS // ct
+        return max(ops, 512 * ct * groups if groups > 1 else 0)
+    u = sum(_r16(t_m * p * (si | 1) * acc_bytes) for p, si in zip(ps, s))
+    gn = _r16(t_m * qs[-1] * (s[-1] | 1) * acc_bytes)
+    g = [0, 0]
+    for i in range(n - 1):  # G_{i+1}, i = n-2 .. 0
+        k = (n - 2 - i) % 2
+        g[k] = max(g[k], _r16(t_m * qs[i] * (s[i] | 1) * acc_bytes))
+    fpan = sum(_r16(p * _r4(q) * acc_bytes) for p, q in zip(ps[:-1], qs[:-1]))
+    tpan = sum(_r16(q * _r4(p) * acc_bytes) for p, q in zip(ps, qs))
+    dfp = sum(_r16(16 * df_items(p, q) * acc_bytes) for p, q in zip(ps, qs))
+    return slot + u + gn + g[0] + g[1] + fpan + tpan + dfp
 
 
 def block_smem_bytes(
@@ -400,52 +474,47 @@ def block_smem_bytes(
     *,
     kind: str = "fwd",
     q_tiled: bool = False,
+    in_bytes: int | None = None,
 ) -> int:
-    """Shared memory of one block of a chain kernel (``kron::make_args``),
-    in the accumulator type; every region is rounded to 4 elements.
+    """Shared memory of one block of a chain kernel, in bytes.
 
-    ``kind="fwd"`` (chain_fwd.cu, sliced.cu): the two chain-state buffers
-    (even and odd states, each ``(t_m, p_i, s_i | 1)``) and the largest
-    ``(p_i, t_q_i)`` factor panel, columns padded to a multiple of 4.
-    ``kind="bwd"`` (chain_bwd.cu, sliced_t.cu): the two buffers of the flat
-    transposed states ``c_n .. c_1`` (``c_0 = t_k``, ``c_{i+1} = t_q_i *
-    c_i / p_i``), the largest transposed ``(t_q_i, p_i)`` panel, rows padded
-    to 4, and, when Q is tiled (``q_tiled``), the ``(t_m, t_k)`` sum of dX.
-    ``kind="grad"`` (grad.cu; ``t_qs`` must be the whole Q): every forward
-    state ``u_i`` in the forward layout, the two transposed-state buffers,
-    the larger panel of either orientation, the dF scratch of the widest
-    factor (``groups_i * p_i * q_i``) and the block's dF sums
-    (``sum p_i q_i``)."""
+    ``kind="fwd"`` (chain_fwd.cu, sliced.cu; ``kron::make_args``, in the
+    accumulator type, every region rounded to 4 elements): the two
+    chain-state buffers (even and odd states, each ``(t_m, p_i, s_i | 1)``)
+    and the largest ``(p_i, t_q_i)`` factor panel, columns padded to a
+    multiple of 4.  ``kind="bwd"`` (chain_bwd.cu): the two buffers of the
+    flat transposed states ``c_n .. c_1`` (``c_0 = t_k``, ``c_{i+1} = t_q_i
+    * c_i / p_i``), the largest transposed ``(t_q_i, p_i)`` panel, rows
+    padded to 4, and, when Q is tiled (``q_tiled``), the ``(t_m, t_k)`` sum
+    of dX.  ``kind="grad"`` (grad.cu; ``t_qs`` must be the whole Q;
+    ``in_bytes`` is the input dtype's size, default ``acc_bytes``): see
+    ``_grad_smem_bytes``."""
     if kind not in _KINDS_SMEM:
         raise ValueError(f"unknown kernel kind {kind!r}")
+    if kind == "grad":
+        return _grad_smem_bytes(
+            t_m, t_k, tuple(ps), tuple(t_qs), acc_bytes,
+            acc_bytes if in_bytes is None else in_bytes,
+        )
     bufs = [0, 0]
-    panel = ustates = scratch = df = 0
+    panel = 0
     states = [t_k]
     cols = t_k
     for i, (p, tq) in enumerate(zip(ps, t_qs)):
         s = cols // p
-        state = _r4(t_m * p * (s | 1))
-        fwd_panel = p * _r4(tq)
         if kind == "fwd":
-            bufs[i % 2] = max(bufs[i % 2], state)
-            panel = max(panel, fwd_panel)
+            bufs[i % 2] = max(bufs[i % 2], _r4(t_m * p * (s | 1)))
+            panel = max(panel, p * _r4(tq))
         else:
             panel = max(panel, tq * _r4(p))
-        if kind == "grad":
-            ustates += state
-            panel = max(panel, fwd_panel)
-            work = -(-p // 4) * -(-tq // 4)
-            groups = 1 if work >= DF_THREADS else DF_THREADS // work
-            scratch = max(scratch, _r4(groups * p * tq))
-            df += p * tq
         cols = s * tq
         states.append(cols)
     n = len(states) - 1
-    if kind != "fwd":
+    if kind == "bwd":
         for k in range(n):
             bufs[k % 2] = max(bufs[k % 2], _r4(t_m * states[n - k]))
     acc = _r4(t_m * t_k) if kind == "bwd" and q_tiled else 0
-    return acc_bytes * (ustates + bufs[0] + bufs[1] + panel + acc + scratch + _r4(df))
+    return acc_bytes * (bufs[0] + bufs[1] + panel + acc)
 
 
 def block_tile(
@@ -457,33 +526,46 @@ def block_tile(
     *,
     kind: str = "fwd",
     q_tiled: bool = False,
+    in_bytes: int | None = None,
 ) -> tuple[int, int]:
     """The block tile ``(t_m', t_k')`` of a chain kernel of the given kind
     (``block_smem_bytes``): ``t_m'`` divides ``t_m``, ``t_k'`` is a multiple
     of ``prod(ps)`` dividing ``t_k`` (tiles never split a contraction, so the
     choice changes no result).  The largest ``t_m' * t_k'`` wins, ties to
-    the wider slab, among the tiles that fit half of one block's shared
-    memory, so that two blocks share an SM and one loads while the other
-    computes; when none does, among those that fit at all.  Raises
-    ``VmemOverflowError`` when not even ``t_m'=1, t_k'=prod(ps)`` fits.
-    Every kernel of the port takes its tiles from this one rule."""
+    the wider slab, among the tiles that fit a share of the SM's shared
+    memory; when none does, among those that fit one block at all.  The
+    share is half of one block's 227 KB for the chain kernels (``fwd``,
+    ``bwd``).  For the stage backward (``grad``) it is what leaves room for
+    a second block on the SM (``TWO_BLOCK_SMEM_BYTES``), and among those
+    tiles the ones whose dY runs fill a 32-byte sector (``t_k' / prod(ps) *
+    in_bytes >= 32``) come first.  Whether two blocks are resident also
+    depends on registers: the launch takes the blocks per SM from the
+    occupancy query, not from this rule.  Raises ``VmemOverflowError`` when
+    not even ``t_m'=1, t_k'=prod(ps)`` fits."""
     pprod = math.prod(ps)
+    ib = acc_bytes if in_bytes is None else in_bytes
+    share = TWO_BLOCK_SMEM_BYTES if kind == "grad" else SMEM_BYTES // 2
     fits = []
     for d in _divisors(t_k // pprod):
         tk = d * pprod
         for tm in _divisors(t_m):
-            nbytes = block_smem_bytes(tm, tk, ps, t_qs, acc_bytes, kind=kind, q_tiled=q_tiled)
+            nbytes = block_smem_bytes(
+                tm, tk, ps, t_qs, acc_bytes, kind=kind, q_tiled=q_tiled, in_bytes=ib
+            )
             if nbytes <= SMEM_BYTES:
-                fits.append((nbytes <= SMEM_BYTES // 2, tm * tk, tk, tm))
+                sector = kind == "grad" and d * ib >= 32
+                fits.append((nbytes <= share, sector, tm * tk, tk, tm))
     if not fits:
-        need = block_smem_bytes(1, pprod, ps, t_qs, acc_bytes, kind=kind, q_tiled=q_tiled)
+        need = block_smem_bytes(
+            1, pprod, ps, t_qs, acc_bytes, kind=kind, q_tiled=q_tiled, in_bytes=ib
+        )
         raise VmemOverflowError(
             f"{kind} chain {list(ps)} with Q-tiles {list(t_qs)} needs {need} bytes "
             f"of shared memory at the smallest block tile (t_m'=1, t_k'={pprod}); "
             f"one block holds {SMEM_BYTES}: tile Q via t_qs or split the stage"
         )
     best = max(fits)
-    return best[3], best[2]
+    return best[4], best[3]
 
 
 def chain_geometry(
@@ -601,17 +683,20 @@ def grad_geometry(
     t_k: int | None = None,
     acc_bytes: int = 4,
     vmem_budget_elems: int = SMEM_BUDGET_ELEMS,
+    in_bytes: int | None = None,
 ) -> GradGeometry:
     """Check a stage backward's tiles as ``grad_pallas`` does (the live set
     sums every chain state plus the gradient tile), then pick the kernel's
-    block tile.  Raises ``LoweringError`` on shapes or tiles the kernel
-    cannot take and ``VmemOverflowError`` when the live set exceeds the
-    budget or no block tile fits shared memory.  Memoized."""
+    block tile for inputs of ``in_bytes`` (default ``acc_bytes``).  Raises
+    ``LoweringError`` on shapes or tiles the kernel cannot take and
+    ``VmemOverflowError`` when the live set exceeds the budget or no block
+    tile fits shared memory.  Memoized."""
     return _grad_geometry(
         tuple(int(d) for d in x_shape),
         tuple(int(d) for d in dy_shape),
         tuple(tuple(int(d) for d in f) for f in f_shapes),
         t_b, t_m, t_k, acc_bytes, vmem_budget_elems,
+        acc_bytes if in_bytes is None else in_bytes,
     )
 
 
@@ -637,6 +722,7 @@ def _grad_geometry(
     t_k: int | None,
     acc_bytes: int,
     vmem_budget_elems: int,
+    in_bytes: int,
 ) -> GradGeometry:
     b, m, k = x_shape
     ps = tuple(f[1] for f in f_shapes)
@@ -667,7 +753,7 @@ def _grad_geometry(
         )
     if len(ps) > _MAX_FACTORS:
         raise LoweringError(f"a stage chains at most {_MAX_FACTORS} factors, got {len(ps)}")
-    block_m, block_k = block_tile(t_m, t_k, ps, qs, acc_bytes, kind="grad")
+    block_m, block_k = block_tile(t_m, t_k, ps, qs, acc_bytes, kind="grad", in_bytes=in_bytes)
     return GradGeometry(b, m, k, ps, qs, block_m, block_k)
 
 
@@ -726,6 +812,8 @@ _CHAIN_ARGS = (_I, _VP, _VP, _VPP, _IP, _IP, _IP, _I, _LL, _LL, _LL, _I, _I, _VP
 # kron_grad(dtype, x, dy, dx, part, df, fs, ps, qs, n, B, M, K, t_m, t_k,
 # nblk, stream).
 _GRAD_ARGS = (_I, _VP, _VP, _VP, _VP, _VP, _VPP, _IP, _IP, _I, _LL, _LL, _LL, _I, _I, _I, _VP)
+# kron_grad_occupancy(dtype, x, dy, ps, qs, n, M, K, t_m, t_k, &blocks, &smem).
+_GRAD_OCC_ARGS = (_I, _VP, _VP, _IP, _IP, _I, _LL, _LL, _I, _I)
 
 
 def _ints(values: Sequence[int]):
@@ -845,14 +933,61 @@ def chain_bwd_reference(
     return g.to(dy.dtype)
 
 
-def grad_blocks(geo: GradGeometry, smem_bytes: int, device: torch.device) -> int:
-    """Blocks per batch sample of a stage-backward launch: enough for every
-    SM to hold as many blocks as fit its shared memory (at most two), never
-    more than the sample has tiles.  Each block writes one dF partial."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    per_sm = 2 if smem_bytes <= SMEM_BYTES // 2 else 1
-    tiles = (geo.m // geo.block_m) * (geo.k // geo.block_k)
-    return max(1, min(tiles, sms * per_sm // geo.b))
+def grad_blocks(sms: int, per_sm: int, tiles: int, b: int) -> int:
+    """Blocks per batch sample of a persistent launch (grad.cu, sliced_t.cu
+    with ``b=1``): as many as the card holds at once (``sms`` SMs times the
+    ``per_sm`` blocks the occupancy query reports), shared among the ``b``
+    samples, never more than a sample has tiles and at least one.  Each
+    block of the stage backward writes one dF partial."""
+    return max(1, min(tiles, sms * per_sm // b))
+
+
+def occupancy(name: str, argtypes: Sequence, *args) -> tuple[int, int]:
+    """``kron_<name>_occupancy(*args, &blocks, &smem)`` of ``csrc/<name>.cu``:
+    (blocks of the kernel per SM at the launch's threads and shared memory,
+    that shared memory in bytes).  Raises when the kernel cannot launch."""
+    fn = getattr(_build.library(name), f"kron_{name}_occupancy")
+    if fn.argtypes is None:
+        fn.argtypes = [*argtypes, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)]
+        fn.restype = ctypes.c_int
+    blocks, smem = ctypes.c_int(0), ctypes.c_longlong(0)
+    check_launch(name, fn(*args, ctypes.byref(blocks), ctypes.byref(smem)))
+    if blocks.value < 1:
+        raise RuntimeError(f"{name}: no block fits an SM at {smem.value} bytes of shared memory")
+    return blocks.value, smem.value
+
+
+# dtype code -> (input, accumulator) bytes
+CODE_BYTES = {code: (i.itemsize, a.itemsize) for (i, a), code in _KERNEL_DTYPES.items()}
+
+
+@functools.lru_cache(maxsize=256)
+def _grad_occupancy(code, x_align, dy_align, ps, qs, m, k, t_m, t_k, device):
+    with torch.cuda.device(device):
+        per_sm, smem = occupancy(
+            "grad", _GRAD_OCC_ARGS, code, x_align, dy_align, _ints(ps), _ints(qs),
+            len(ps), m, k, t_m, t_k,
+        )
+    in_bytes, acc_bytes = CODE_BYTES[code]
+    model = block_smem_bytes(t_m, t_k, ps, qs, acc_bytes, kind="grad", in_bytes=in_bytes)
+    if smem != model:
+        raise RuntimeError(f"grad.cu lays out {smem} bytes of shared memory, the model {model}")
+    return per_sm, smem
+
+
+def grad_occupancy(x: torch.Tensor, dy: torch.Tensor, geo: GradGeometry, code: int) -> tuple[int, int]:
+    """(blocks per SM, shared-memory bytes) of the stage backward at ``geo``'s
+    block tile, from the kernel's occupancy query; memoized.  The pointers'
+    residues mod 16 set the ring's copy width, so they are part of the key.
+    Raises when the kernel's layout and ``block_smem_bytes`` disagree."""
+    return _grad_occupancy(
+        code, x.data_ptr() % 16, dy.data_ptr() % 16, geo.ps, geo.qs, geo.m, geo.k,
+        geo.block_m, geo.block_k, x.device,
+    )
+
+
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def grad_cuda(
@@ -870,16 +1005,18 @@ def grad_cuda(
     ``x: (B, M, K)`` stage input, ``dy: (B, M, prod(Q) * S)`` stage output
     cotangent, factors ``(B, P_i, Q_i)`` in application order.  Returns dx
     in x's dtype and one ``(B, P_i, Q_i)`` grad per factor, in application
-    order, in the accumulator dtype.  Two launches: the stage backward,
-    whose blocks each write one dF partial, and the reduction of the
-    partials in block order.  The tiles are checked as ``grad_pallas``
-    checks them.  Raises on CPU tensors: their path is ``grad_reference``.
+    order, in the accumulator dtype.  Two launches: the stage backward on a
+    persistent grid (``grad_blocks`` from the occupancy query), whose blocks
+    each write one dF partial, and the reduction of the partials in block
+    order.  The tiles are checked as ``grad_pallas`` checks them.  Raises on
+    CPU tensors: their path is ``grad_reference``.
     """
     global grad_launches, grad_reduce_launches
     acc = _resolve_acc(acc_dtype, dy.dtype)
     geo = grad_geometry(
         x.shape, dy.shape, [f.shape for f in factors], t_b=t_b, t_m=t_m,
         t_k=t_k, acc_bytes=acc.itemsize, vmem_budget_elems=vmem_budget_elems,
+        in_bytes=x.element_size(),
     )
     require_cuda("grad_cuda", x, dy, *factors)
     code = kernel_dtype_code(x, (dy, *factors), acc)
@@ -890,10 +1027,9 @@ def grad_cuda(
         df = torch.zeros((geo.b, total), dtype=acc, device=x.device)
     else:
         df = torch.empty((geo.b, total), dtype=acc, device=x.device)
-        smem = block_smem_bytes(
-            geo.block_m, geo.block_k, geo.ps, geo.qs, acc.itemsize, kind="grad"
-        )
-        nblk = grad_blocks(geo, smem, x.device)
+        per_sm, _ = grad_occupancy(x, dy, geo, code)
+        tiles = (geo.m // geo.block_m) * (geo.k // geo.block_k)
+        nblk = grad_blocks(sm_count(x.device), per_sm, tiles, geo.b)
         part = torch.empty((geo.b * nblk * total,), dtype=acc, device=x.device)
         with torch.cuda.device(x.device):
             err = kernel_fn("grad", _GRAD_ARGS)(
@@ -1043,7 +1179,7 @@ def run_stage_grad(
         acc = _resolve_acc(instr.acc_dtype, g.dtype)
         grad_geometry(
             u3.shape, g3.shape, [f.shape for f in fs3], acc_bytes=acc.itemsize,
-            **tiles,
+            in_bytes=u.element_size(), **tiles,
         )
         dx, dfs = grad_reference(u3, g3, *fs3, acc_dtype=instr.acc_dtype)
     if instr.t_b is None:
@@ -1114,6 +1250,8 @@ __all__ = [
     "chain_geometry",
     "grad_geometry",
     "grad_live_elems",
+    "grad_blocks",
+    "grad_occupancy",
     "block_tile",
     "block_smem_bytes",
     "fused_growth",
@@ -1126,4 +1264,6 @@ __all__ = [
     "PREKRON",
     "SMEM_BYTES",
     "SMEM_BUDGET_ELEMS",
+    "SM_SMEM_BYTES",
+    "TWO_BLOCK_SMEM_BYTES",
 ]

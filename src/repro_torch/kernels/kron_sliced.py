@@ -20,6 +20,9 @@ import torch
 from ..runtime.guard import LoweringError, VmemOverflowError
 from . import _build
 from .emit import (
+    ASYNC_THREADS,
+    SMEM_BYTES,
+    TWO_BLOCK_SMEM_BYTES,
     _divisors,
     acc_dtype_for,
     block_tile,
@@ -32,31 +35,78 @@ from .emit import (
 sliced_launches = 0
 
 
+SLICED_T_STAGES = 3  # the ring slots of csrc/sliced_t.cu (kStages)
+_SLICES = 4  # slices of one thread's register tile in sliced_t.cu
+
+
+def sliced_t_smem_bytes(
+    t_m: int, t_s: int, p: int, q: int, t_q: int, in_bytes: int, acc_bytes: int
+) -> int:
+    """Shared memory of one ``csrc/sliced_t.cu`` block (``sliced_t_args``),
+    in bytes, each region rounded to 16: the ring's three ``(t_m, t_q,
+    t_s)`` dY boxes in the input dtype, and the transposed ``(t_q, P)``
+    panel (P padded to 4) in the accumulator dtype, once when Q is whole,
+    else one Q-tile slice in every slot."""
+    box = -(-t_m * t_q * t_s * in_bytes // 16) * 16
+    panel = -(-t_q * (-(-p // 4) * 4) * acc_bytes // 16) * 16
+    if t_q < q:
+        return SLICED_T_STAGES * (box + panel)
+    return SLICED_T_STAGES * box + panel
+
+
+def sliced_t_fits_threads(t_m: int, t_s: int, p: int) -> bool:
+    """A sliced_t tile gives each thread at most one register tile of
+    (1 row, 4 slices, 4 columns of P)."""
+    return t_m * -(-t_s // _SLICES) * -(-p // 4) <= ASYNC_THREADS
+
+
 @functools.lru_cache(maxsize=1024)
 def sliced_tiles(
-    m: int, s: int, p: int, q: int, acc_bytes: int, kind: str = "fwd"
+    m: int, s: int, p: int, q: int, acc_bytes: int, kind: str = "fwd",
+    in_bytes: int | None = None,
 ) -> tuple[int, int, int]:
     """The card's tiles ``(t_m, t_s, t_q)`` for one sliced multiply
-    (``kind="fwd"``, ``csrc/sliced.cu``) or its transpose (``"bwd"``,
-    ``csrc/sliced_t.cu``, where Q is the contraction and the Q-tiles are
-    summed inside the block).
+    (``kind="fwd"``, ``csrc/sliced.cu``) or its transpose
+    (``kind="sliced_t"``, ``csrc/sliced_t.cu``, where Q is the contraction
+    and the Q-tiles are summed inside the block).
 
-    The widest Q-tile whose block fits shared memory (all of Q when it
-    does, so the Q-wide operand is read once), then ``emit.block_tile``'s
-    rule over the ``(t_m, t_s * P)`` slab for that kernel's shared-memory
-    model: the largest ``t_m * t_s``, ties to the longer run of slices,
-    preferring slabs that fit half of a block so two blocks share an SM.
+    ``fwd``: the widest Q-tile whose block fits shared memory (all of Q when
+    it does, so the Q-wide operand is read once), then ``emit.block_tile``'s
+    rule over the ``(t_m, t_s * P)`` slab.
+
+    ``sliced_t``: among the tiles that give each of the block's threads at
+    most one register tile (``sliced_t_fits_threads``) and fit one block
+    (``sliced_t_smem_bytes`` for inputs of ``in_bytes``, default
+    ``acc_bytes``), those that leave room for a second block on the SM come
+    first, then the widest Q-tile (the panel is loaded once per block when
+    it is all of Q), then the largest ``t_m * t_s``, ties to the longer run
+    of slices.
     """
-    for t_q in reversed(_divisors(q)):
-        try:
-            t_m, t_k = block_tile(
-                m, s * p, (p,), (t_q,), acc_bytes, kind=kind, q_tiled=t_q < q
-            )
-        except VmemOverflowError:
-            continue
-        return t_m, t_k // p, t_q
+    if kind == "fwd":
+        for t_q in reversed(_divisors(q)):
+            try:
+                t_m, t_k = block_tile(m, s * p, (p,), (t_q,), acc_bytes, kind="fwd")
+            except VmemOverflowError:
+                continue
+            return t_m, t_k // p, t_q
+    elif kind == "sliced_t":
+        ib = acc_bytes if in_bytes is None else in_bytes
+        fits = []
+        for t_q in _divisors(q):
+            for t_s in _divisors(s):
+                for t_m in _divisors(m):
+                    if not sliced_t_fits_threads(t_m, t_s, p):
+                        continue
+                    nbytes = sliced_t_smem_bytes(t_m, t_s, p, q, t_q, ib, acc_bytes)
+                    if nbytes <= SMEM_BYTES:
+                        fits.append((nbytes <= TWO_BLOCK_SMEM_BYTES, t_q, t_m * t_s, t_s, t_m))
+        if fits:
+            best = max(fits)
+            return best[4], best[3], best[1]
+    else:
+        raise ValueError(f"unknown sliced kernel kind {kind!r}")
     raise VmemOverflowError(
-        f"sliced multiply with P={p} does not fit one block's shared memory "
+        f"{kind} sliced multiply with P={p} does not fit one block "
         f"even at t_m=t_s=t_q=1"
     )
 
@@ -116,5 +166,6 @@ def sliced_multiply_reference(x: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
 __all__ = [
     "sliced_multiply_cuda",
     "sliced_multiply_reference",
+    "sliced_t_smem_bytes",
     "sliced_tiles",
 ]

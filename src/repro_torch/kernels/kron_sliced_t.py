@@ -5,38 +5,62 @@ Semantics: for ``dY: (M, Q*S)`` and ``F: (P, Q)`` compute
 
     dX[m, s*P + p] = sum_q dY[m, q*S + s] * F[p, q]
 
-``sliced_multiply_t_cuda`` launches ``csrc/sliced_t.cu`` over the grid
-``(M/t_m, S/t_s)``: a block gathers its ``(t_m, t_q, t_s)`` block of the
-``(M, Q, S)`` view of dY for each Q-tile in turn, contracts it against the
-transposed ``(t_q, P)`` panel of F in shared memory, sums the Q-tiles in f32
-(f64 for f64) inside the block, and writes the contiguous ``(t_m, t_s*P)``
-block of dX.  ``sliced_multiply_t_reference`` is its plain twin.  The Pallas
-kernel it replaces sums Q-tiles in dY's dtype; at its default ``t_q = Q``
-there is one tile, so the two agree to within one rounding.
+``sliced_multiply_t_cuda`` launches ``csrc/sliced_t.cu`` on a persistent
+grid (as many blocks as the card holds, from the kernel's occupancy query):
+each block walks ``(t_m, t_s)`` tiles, brings the ``(t_m, t_q, t_s)`` boxes
+of the ``(M, Q, S)`` view of dY in through an asynchronous-copy ring,
+contracts them against the transposed ``(t_q, P)`` panel of F, sums the
+Q-tiles in f32 (f64 for f64) in registers, and writes the contiguous
+``(t_m, t_s*P)`` block of dX.  ``sliced_multiply_t_reference`` is its plain
+twin.  The Pallas kernel it replaces sums Q-tiles in dY's dtype; at its
+default ``t_q = Q`` there is one tile, so the two agree to within one
+rounding.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ..runtime.guard import LoweringError
 from .emit import (
+    CODE_BYTES,
     acc_dtype_for,
     check_launch,
+    grad_blocks,
     kernel_dtype_code,
     kernel_fn,
+    occupancy,
     require_cuda,
     sliced_apply_t,
+    sm_count,
 )
-from .kron_sliced import sliced_tiles
+from .kron_sliced import sliced_t_smem_bytes, sliced_tiles
 
 # Launch counter of the transposed sliced kernel: +1 per launch, nowhere else.
 sliced_t_launches = 0
 
 _LL, _I, _VP = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
-# kron_sliced_t(dtype, dy, f, dx, M, S, p, q, t_m, t_s, t_q, stream)
-_SLICED_T_ARGS = (_I, _VP, _VP, _VP, _LL, _LL, _I, _I, _I, _I, _I, _VP)
+# kron_sliced_t(dtype, dy, f, dx, M, S, p, q, t_m, t_s, t_q, nblk, stream)
+_SLICED_T_ARGS = (_I, _VP, _VP, _VP, _LL, _LL, _I, _I, _I, _I, _I, _I, _VP)
+# kron_sliced_t_occupancy(dtype, dy, M, S, p, q, t_m, t_s, t_q, &blocks, &smem)
+_OCC_ARGS = (_I, _VP, _LL, _LL, _I, _I, _I, _I, _I)
+
+
+@functools.lru_cache(maxsize=256)
+def sliced_t_occupancy(code, dy_align, m, s, p, q, t_m, t_s, t_q, device):
+    """(blocks per SM, shared-memory bytes) of the kernel at these tiles,
+    from its occupancy query; ``dy_align`` (dY's address mod 16) sets the
+    ring's copy width.  Memoized.  Raises when the kernel's layout and
+    ``sliced_t_smem_bytes`` disagree."""
+    with torch.cuda.device(device):
+        per_sm, smem = occupancy("sliced_t", _OCC_ARGS, code, dy_align, m, s, p, q, t_m, t_s, t_q)
+    in_bytes, acc_bytes = CODE_BYTES[code]
+    model = sliced_t_smem_bytes(t_m, t_s, p, q, t_q, in_bytes, acc_bytes)
+    if smem != model:
+        raise RuntimeError(f"sliced_t.cu lays out {smem} bytes of shared memory, the model {model}")
+    return per_sm, smem
 
 
 def _dims(dy: torch.Tensor, f: torch.Tensor) -> tuple[int, int, int, int]:
@@ -49,22 +73,28 @@ def _dims(dy: torch.Tensor, f: torch.Tensor) -> tuple[int, int, int, int]:
 
 def sliced_multiply_t_cuda(dy: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     """One launch of the transposed sliced kernel: (M, Q*S) x (P, Q) ->
-    (M, S*P).  Tiles come from ``kron_sliced.sliced_tiles(kind="bwd")``.
-    Output in dy's dtype, accumulated in f32 (f64 for f64).  Raises on CPU
-    tensors: their path is ``sliced_multiply_t_reference``."""
+    (M, S*P).  Tiles come from ``kron_sliced.sliced_tiles(kind="sliced_t")``,
+    the grid from the occupancy query (``emit.grad_blocks``).  Output in dy's
+    dtype, accumulated in f32 (f64 for f64).  Raises on CPU tensors: their
+    path is ``sliced_multiply_t_reference``."""
     global sliced_t_launches
     m, s, p, q = _dims(dy, f)
     acc = acc_dtype_for(dy.dtype)
-    t_m, t_s, t_q = sliced_tiles(m, s, p, q, acc.itemsize, kind="bwd")
+    isz = dy.element_size()
+    t_m, t_s, t_q = sliced_tiles(m, s, p, q, acc.itemsize, kind="sliced_t", in_bytes=isz)
     require_cuda("sliced_multiply_t_cuda", dy, f)
     code = kernel_dtype_code(dy, (f,), acc)
     dx = torch.empty((m, s * p), dtype=dy.dtype, device=dy.device)
     if dx.numel() == 0:
         return dx
+    per_sm, _ = sliced_t_occupancy(
+        code, dy.data_ptr() % 16, m, s, p, q, t_m, t_s, t_q, dy.device
+    )
+    nblk = grad_blocks(sm_count(dy.device), per_sm, (m // t_m) * (s // t_s), 1)
     with torch.cuda.device(dy.device):
         err = kernel_fn("sliced_t", _SLICED_T_ARGS)(
             code, dy.data_ptr(), f.data_ptr(), dx.data_ptr(), m, s, p, q,
-            t_m, t_s, t_q, torch.cuda.current_stream().cuda_stream,
+            t_m, t_s, t_q, nblk, torch.cuda.current_stream().cuda_stream,
         )
     check_launch("sliced_t", err)
     sliced_t_launches += 1

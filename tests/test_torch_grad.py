@@ -26,7 +26,7 @@ from repro_torch.core import KronOp, engine, kron_matrix
 from repro_torch.core import autotune as TA
 from repro_torch.core.kron import KronProblem as TProblem
 from repro_torch.kernels import emit as TE
-from repro_torch.kernels import kron_sliced_t, ops
+from repro_torch.kernels import kron_sliced, kron_sliced_t, ops
 from repro_torch.runtime import guard as TG
 
 jax.config.update("jax_enable_x64", True)
@@ -429,33 +429,137 @@ def test_grad_tile_checks_match_grad_pallas(x_shape, dy_shape, pqs, tiles):
      (1, 8192, (16, 16), (16, 16))],
 )
 def test_backward_block_tiles_are_the_largest_that_fit(t_m, t_k, ps, qs, kind):
+    # The chain kernels prefer tiles within half of one block's 227 KB; the
+    # stage backward prefers tiles that leave room for a second block on the
+    # SM, then dY runs that fill a 32-byte sector; then the largest tile,
+    # ties to the wider slab.
     tm, tk = TE.block_tile(t_m, t_k, ps, qs, 4, kind=kind)
     pprod = math.prod(ps)
     assert t_k % tk == 0 and tk % pprod == 0 and t_m % tm == 0
-    nbytes = TE.block_smem_bytes(tm, tk, ps, qs, 4, kind=kind)
-    half = nbytes <= TE.SMEM_BYTES // 2
-    assert nbytes <= TE.SMEM_BYTES
+    share = TE.TWO_BLOCK_SMEM_BYTES if kind == "grad" else TE.SMEM_BYTES // 2
+
+    def key(m, k):
+        nbytes = TE.block_smem_bytes(m, k, ps, qs, 4, kind=kind)
+        return (nbytes <= share, kind == "grad" and k // pprod * 4 >= 32, m * k, k)
+
+    assert TE.block_smem_bytes(tm, tk, ps, qs, 4, kind=kind) <= TE.SMEM_BYTES
     for d in range(1, t_k // pprod + 1):
         for m in range(1, t_m + 1):
-            if (t_k // pprod) % d or t_m % m or m * d * pprod <= tm * tk:
+            if (t_k // pprod) % d or t_m % m or (m, d * pprod) == (tm, tk):
                 continue
-            other = TE.block_smem_bytes(m, d * pprod, ps, qs, 4, kind=kind)
-            assert other > (TE.SMEM_BYTES // 2 if half else TE.SMEM_BYTES)
+            if TE.block_smem_bytes(m, d * pprod, ps, qs, 4, kind=kind) <= TE.SMEM_BYTES:
+                assert key(m, d * pprod) < key(tm, tk)
 
 
 def test_backward_smem_models_count_every_region():
     # One (32, 32) stage at t_m=1, t_k=4096 in f32, by hand: transposed
     # states of 4096 columns in each buffer and the (32, 32) panel (Q-tiles
-    # (16, 32): states of 2048 columns and the (t_m, t_k) sum of dX); the
-    # stage backward adds the two forward states (32 x 129 each), the dF
-    # scratch of 4 groups (the 64 4x4 micro-tiles of 32x32 give 256 / 64)
-    # and the 2 x 1024 dF sums.
+    # (16, 32): states of 2048 columns and the (t_m, t_k) sum of dX).
     assert TE.block_smem_bytes(1, 4096, (32, 32), (32, 32), 4, kind="bwd") == 4 * (
         4096 + 4096 + 1024)
     assert TE.block_smem_bytes(1, 4096, (32, 32), (16, 32), 4, kind="bwd", q_tiled=True) == 4 * (
         2048 + 2048 + 32 * 32 + 4096)
-    assert TE.block_smem_bytes(1, 4096, (32, 32), (32, 32), 4, kind="grad") == 4 * (
-        2 * 32 * 129 + 4096 + 4096 + 1024 + 4 * 1024 + 2048)
+    # The stage backward, in bytes: the slot of the raw x slab (4096; an f32
+    # multi-factor stage copies dY straight into G_2); the forward states
+    # u_0, u_1 (32 rows of 128 slices at stride 129); the gradient states
+    # G_2 and G_1 (32 x 129 each); the forward panel of F_0 and the
+    # transposed panels of both factors (32 x 32 each); the persistent dF
+    # items of both factors (64 4x4 tiles x 4 groups x 16 sums).
+    assert TE.block_smem_bytes(1, 4096, (32, 32), (32, 32), 4, kind="grad") == (
+        4096 * 4
+        + 2 * 32 * 129 * 4
+        + 2 * 32 * 129 * 4
+        + 32 * 32 * 4 + 2 * 32 * 32 * 4
+        + 2 * 64 * 4 * 16 * 4)
+    # A bf16 single-factor stage (ffn's 64 -> 128 at t_m'=2, t_k'=1216, 19
+    # slices, so 38 contraction rows padded to 48 and rows padded by 8): the
+    # slot of raw x (2 x 1216) and dY (2 x 2432) in bf16; the tensor-core
+    # operands x^T (64 x 56), dY^T (128 x 56) and F (64 x 136) in bf16. Its
+    # 64 dF output tiles of 16 x 8 stay in the warps' registers.
+    assert TE.block_smem_bytes(2, 1216, (64,), (128,), 4, kind="grad", in_bytes=2) == (
+        2 * 1216 * 2 + 2 * 2432 * 2
+        + 2 * (64 * 56 + 128 * 56 + 64 * 136))
+    # A (16, 16) bf16 stage at one slice: 2 output tiles shared by 4 warps
+    # each, whose sums meet in shared memory (2 x 4 x 512 bytes) over the
+    # smaller slot and operands (x^T and dY^T 16 x 24, F 16 x 24).
+    assert TE.block_smem_bytes(1, 16, (16,), (16,), 4, kind="grad", in_bytes=2) == max(
+        16 * 2 + 16 * 2 + 2 * (16 * 24 + 16 * 24 + 16 * 24), 2 * 4 * 512)
+    # A bf16 factor with more dF tiles than the warps' registers hold
+    # (128 x 128: 128 tiles) takes the CUDA-core path.
+    assert TE.grad_uses_mma((64,), (128,), 2) and not TE.grad_uses_mma((128,), (128,), 2)
+
+
+def test_sliced_t_smem_model_counts_every_region():
+    # Three ring slots of the (t_m, t_q, t_s) dY box and the (Q, P) panel
+    # once; Q-tiled, a (t_q, P) panel slice rides in every slot.
+    assert kron_sliced.sliced_t_smem_bytes(1, 128, 32, 32, 32, 4, 4) == (
+        3 * 32 * 128 * 4 + 32 * 32 * 4)
+    assert kron_sliced.sliced_t_smem_bytes(2, 8, 256, 256, 32, 4, 4) == 3 * (
+        2 * 32 * 8 * 4 + 32 * 256 * 4)
+    assert kron_sliced.sliced_t_smem_bytes(3, 39, 40, 76, 76, 2, 4) == (
+        3 * ((3 * 76 * 39 * 2 + 15) // 16 * 16) + 76 * 40 * 4)
+
+
+SMOKE_STAGES = [  # (M, ps, qs, input bytes) of chip_smoke.py's backward cases
+    (1024, (32,) * 4, (32,) * 4, 4),
+    (16, (16,) * 6, (16,) * 6, 4),
+    (4096, (64, 40), (128, 76), 2),
+    (10, (52, 65), (50, 20), 4),
+]
+
+
+def _stage_block_tiles(m, ps, qs, in_bytes):
+    plan = TA.make_plan(TProblem(m, ps, qs), dtype_bytes=in_bytes, enable_prekron=False)
+    prog = TA.lower(plan, ps, qs)
+    k = TProblem(m, ps, qs).k
+    out = []
+    for ins in prog.instrs:
+        k_out = k // ins.pprod * ins.qprod
+        geo = TE.grad_geometry(
+            (1, m, k), (1, m, k_out), [(1, p, q) for p, q in zip(ins.ps, ins.qs)],
+            t_m=ins.transpose().t_m, t_k=ins.t_k, in_bytes=in_bytes,
+        )
+        out.append((ins.ps, ins.qs, geo.block_m, geo.block_k))
+        k = k_out
+    return out
+
+
+@pytest.mark.parametrize(
+    "m,ps,qs,in_bytes,want",
+    [
+        (*SMOKE_STAGES[0], [((32, 32), (32, 32), 1, 2048)] * 2),
+        (*SMOKE_STAGES[1], [((16, 16), (16, 16), 1, 2048)] * 3),
+        (*SMOKE_STAGES[2], [((40,), (76,), 2, 2560), ((64,), (128,), 1, 4864)]),
+        (*SMOKE_STAGES[3], [((65,), (20,), 2, 3380), ((52,), (50,), 2, 1040)]),
+    ],
+)
+def test_stage_backward_block_tiles_at_the_smoke_shapes(m, ps, qs, in_bytes, want):
+    got = _stage_block_tiles(m, ps, qs, in_bytes)
+    assert got == want
+    for sps, sqs, bm, bk in got:
+        nbytes = TE.block_smem_bytes(bm, bk, sps, sqs, 4, kind="grad", in_bytes=in_bytes)
+        assert nbytes <= TE.TWO_BLOCK_SMEM_BYTES
+
+
+def test_sliced_t_tiles_at_the_smoke_shapes():
+    # fig9-unfused-grad: one (32, 32) factor, M=1024, S=32768: a (1, 128)
+    # tile gives each of the 256 threads one 4x4 register tile, Q whole.
+    assert kron_sliced.sliced_tiles(1024, 32768, 32, 32, 4, kind="sliced_t") == (1, 128, 32)
+    # A panel of 256 x 256 f32 cannot stay whole: Q is tiled.
+    t_m, t_s, t_q = kron_sliced.sliced_tiles(16, 64, 256, 256, 4, kind="sliced_t")
+    assert t_q < 256 and kron_sliced.sliced_t_smem_bytes(
+        t_m, t_s, 256, 256, t_q, 4, 4) <= TE.TWO_BLOCK_SMEM_BYTES
+    # Slices not a multiple of 4 are taken whole.
+    assert kron_sliced.sliced_tiles(6, 39, 32, 32, 4, kind="sliced_t") == (3, 39, 32)
+
+
+@pytest.mark.parametrize(
+    "sms,per_sm,tiles,b,want",
+    [(132, 2, 524288, 1, 264), (132, 2, 10, 1, 10), (132, 2, 5, 3, 5),
+     (132, 1, 100, 300, 1), (132, 2, 1000, 4, 66), (132, 3, 4096, 1, 396)],
+)
+def test_grad_blocks_is_a_function_of_sms_occupancy_tiles_and_batch(sms, per_sm, tiles, b, want):
+    assert TE.grad_blocks(sms, per_sm, tiles, b) == want
 
 
 def test_backward_wrappers_on_cpu_tensors_raise():
