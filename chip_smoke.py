@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase
+    python3 chip_smoke.py --alone    # phases 1 and 4 only (A/B of two trees)
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
 holds each kernel against its plain PyTorch twin on the card, then drives the
@@ -10,16 +11,18 @@ port's main path — ``KronOp(ps, qs)(x, factors)`` on CUDA tensors and
 went through the kernels.  Phases, one line each:
 
   1. build / device: nvcc time and libraries, each kernel's ptxas registers
-     and spills (grad and sliced_t must not spill); the card's name and
-     power limit.
+     and spills (the persistent kernels chain_fwd, chain_bwd, grad and
+     sliced_t must not spill); the card's name and power limit.
   2. check: each of the five kernels against its plain twin at stated
      tolerances (relative to max|ref|: 1e-5 f32, 1e-2 bf16, 1e-12 f64; the
      stage backward's dF against its twin run in f64 at 1e-4 f32, 2e-2
      bf16), and one small f32 KronOp, value and gradients, against
-     ``x @ kron_matrix(factors)``.  The stage backward and the transposed
-     sliced multiply also run cases that reach each branch of their code
-     (tensor cores, many tiles per block, Q-tiles, odd slices), every
-     stage backward twice and asserted bitwise equal.
+     ``x @ kron_matrix(factors)``.  The chain kernels, the stage backward
+     and the transposed sliced multiply also run cases that reach each
+     branch of their code (many tiles per block, walks crossing samples and
+     Q-tile digits, tensor cores, odd slices, copies too short for 16
+     bytes); every transposed chain and stage backward runs twice and is
+     asserted bitwise equal.
   3. main: five full-size KronOp calls (fig9, gp16, ffn, compress,
      fig9-unfused) and five full-size backward passes (fig9-grad, fig9-dx,
      gp16-grad, ffn-grad, fig9-unfused-grad): launches per call (asserted),
@@ -27,10 +30,12 @@ went through the kernels.  Phases, one line each:
      bitwise equal, and CUDA-event times of the call, of its plain twins and
      of one PyTorch yardstick (``torch.einsum``, or ``torch.autograd.grad``
      through it), beside the card's bound for the same function.
-  4. alone: one launch of ``grad`` (each stage of fig9-grad and ffn-grad)
-     and of ``sliced_t`` (fig9-unfused-grad) timed by itself, beside its
-     bound, the blocks per SM from the occupancy query (at least two, or
-     the run fails) and one PyTorch call computing the same function.
+  4. alone: one launch of every kernel at its main cases' shapes, timed by
+     itself (chain_fwd: each stage of fig9, gp16 and ffn; chain_bwd: fig9-dx;
+     grad: fig9-grad and ffn-grad; sliced and sliced_t: one fig9-unfused
+     launch), beside its per-launch bound, the blocks per SM from the
+     occupancy query (at least two for the persistent kernels, or the run
+     fails) and one PyTorch call computing the same function.
   5. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit.
   6. last line: ``{"ok": true, "device": {...}}``.
 
@@ -184,6 +189,16 @@ CHAIN_CASES = [
     ("t_qs (16,16)->(64,64) @ (16,32)", (16, 16), (64, 64), 32, 16, torch.float32, (16, 32), 1),
     ("B=3 per-sample (8,8)", (8, 8), (8, 8), 16, 32, torch.float32, None, 3),
     ("f64 (16,8)", (16, 8), (16, 8), 8, 16, torch.float64, None, 1),
+    # The persistent walk's branches: blocks that walk many tiles each;
+    # walks that cross samples (B=3) or Q-tile digits, so the panels change
+    # inside a block's walk; bf16 rows and dY runs too short for 16-byte
+    # copies (element by element).
+    ("fused (32,32) many tiles per block", (32, 32), (32, 32), 1024, 16, torch.float32, None, 1),
+    ("B=3 per-sample (16,16) crossing samples", (16, 16), (16, 16), 64, 64, torch.float32,
+     None, 3),
+    ("t_qs (16,16)->(64,64) @ (16,32) crossing digits", (16, 16), (64, 64), 64, 16,
+     torch.float32, (16, 32), 1),
+    ("bf16 odd runs (5,7)->(3,2)", (7, 5), (2, 3), 16, 3, torch.bfloat16, None, 1),
 ]
 # (name, M, P, Q, S, dtype)
 SLICED_CASES = [
@@ -262,6 +277,8 @@ def check_kernels(gen) -> dict:
         ref = emit.chain_bwd_reference(dy, *fs)
         torch.cuda.synchronize()
         record("chain_bwd", f"{name} tiles=({t_m},{t_k})", got, ref, TOLERANCE[dtype])
+        repeat("chain_bwd", name, (got,),
+               (emit.chain_bwd_cuda(dy, *fs, t_b=1, t_m=t_m, t_k=t_k, t_qs=t_qs),))
 
         # The stage backward takes Q whole.
         t_m, t_k = stage_tiles(m, k, ps, qs, qs, budget, kind="grad")
@@ -488,9 +505,6 @@ BWD_CASES = [
 ]
 
 
-MAIN_PROGRAMS: dict = {}  # backward case -> the StageProgram its run used
-
-
 def plain_bwd(op, x, fs, g, factors: bool):
     """The op's backward through the kernels' plain twins on the card, in
     the tensors' dtype: (dx, [dF^1 .. dF^N] in the accumulator dtype, or
@@ -578,8 +592,6 @@ def run_backward(gen, peaks) -> list[dict]:
                     if factors else expect(chain_bwd=n_stages))
         if launches != want:
             raise AssertionError(f"{name}: launches {launches}, expected {want}")
-        if op.plan is not None:
-            MAIN_PROGRAMS[name] = _lowered(op.plan, op.ps, op.qs)
         again = backward()
         torch.cuda.synchronize()
         bitwise = all(torch.equal(a, b) for a, b in zip(grads, again))
@@ -642,8 +654,18 @@ def run_backward(gen, peaks) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: the redesigned kernels alone
+# Phase 4: every kernel of the main path alone
 # ---------------------------------------------------------------------------
+
+def main_program(m, ps, qs, dtype):
+    """The StageProgram of ``KronOp(ps, qs)``'s default plan for m rows of
+    ``dtype``: the one the main path's calls and backward passes run."""
+    from repro_torch.core import KronOp
+    from repro_torch.core.engine import _lowered
+
+    op = KronOp(ps, qs, m=m, dtype_bytes=torch.tensor([], dtype=dtype).element_size())
+    return _lowered(op.plan, op.ps, op.qs)
+
 
 def stage_einsum(x, fs, m, s_rest):
     """One torch.einsum computing a stage: x (M, S * prod(P)) viewed as
@@ -657,37 +679,127 @@ def stage_einsum(x, fs, m, s_rest):
     return torch.einsum(spec, xv, *fs).reshape(m, -1)
 
 
+def stage_einsum_t(dy, fs, m, s_rest):
+    """One torch.einsum computing a stage's transpose: dY (M, q_{n-1}, ..,
+    q_0, S) against the transposed factors, out dX (M, S, p_{n-1}, .., p_0)
+    flattened."""
+    n = len(fs)
+    ps_l, qs_l = "abcdefgh"[:n], "ijklmnop"[:n]
+    spec = ("z" + qs_l[::-1] + "y," + ",".join(p + q for p, q in zip(ps_l, qs_l))
+            + "->zy" + ps_l[::-1])
+    dyv = dy.reshape(m, *(int(f.shape[1]) for f in reversed(fs)), s_rest)
+    return torch.einsum(spec, dyv, *fs).reshape(m, -1)
+
+
+def stage_flops(m, k, ps, qs):
+    """Multiply-adds x 2 of one stage's chain over m rows of k columns."""
+    cols, flops = k, 0
+    for p, q in zip(ps, qs):
+        flops += 2 * m * cols * q
+        cols = cols // p * q
+    return flops
+
+
 def bound(nbytes, flops, peaks, dtype):
     t_bytes = nbytes / peaks["bw"] * 1e3
     t_ops = flops / peaks[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def distinct_stages(prog, k):
+    """(index, instruction, input columns, output columns) of each stage of
+    ``prog`` whose shapes and tiles no earlier stage had."""
+    seen = set()
+    for idx, ins in enumerate(prog.instrs):
+        k_out = k // ins.pprod * ins.qprod
+        key = (ins.ps, ins.qs, k, ins.t_m, ins.t_k, ins.transpose().t_m)
+        if key not in seen:
+            seen.add(key)
+            yield idx, ins, k, k_out
+        k = k_out
+
+
+# Kernels whose blocks must share an SM two at a time (occupancy query).
+TWO_BLOCK_KERNELS = ("chain_fwd", "chain_bwd", "grad", "sliced_t")
+
+
 def run_alone(gen, peaks) -> dict:
-    """One launch of each redesigned kernel at its main case's shapes:
-    CUDA-event time (median of ITERS after WARMUP), the per-launch bound,
-    the blocks per SM from the occupancy query, and one PyTorch call
-    computing the same function.  Fails when a kernel fits fewer than two
+    """One launch of each kernel at its main cases' shapes: CUDA-event time
+    (median of ITERS after WARMUP), the per-launch bound (each input read
+    once, each output written once; the stage's FLOPs), the blocks per SM
+    from the occupancy query, and one PyTorch call computing the same
+    function.  Fails when a kernel of TWO_BLOCK_KERNELS fits fewer than two
     blocks per SM."""
     from repro_torch.kernels import emit, kron_sliced, kron_sliced_t
 
-    out = {"grad": [], "sliced_t": []}
+    out = {"chain_fwd": [], "chain_bwd": [], "grad": [], "sliced": [], "sliced_t": []}
+
+    def report(kernel, row):
+        print(f"alone {kernel} " + json.dumps(row), flush=True)
+        out[kernel].append(row)
+        torch.cuda.empty_cache()
+
+    # chain_fwd: each distinct stage of fig9, gp16 and ffn (bf16).
+    for case, m, ps, qs, dtype in (
+        ("fig9", 1024, (32,) * 4, (32,) * 4, torch.float32),
+        ("gp16", 16, (16,) * 6, (16,) * 6, torch.float32),
+        ("ffn", 4096, (64, 40), (128, 76), torch.bfloat16),
+    ):
+        acc = emit.acc_dtype_for(dtype)
+        for idx, ins, k, k_out in distinct_stages(main_program(m, ps, qs, dtype), math.prod(ps)):
+            x = randn(gen, (1, m, k), dtype)
+            fs = [randn(gen, (1, p, q), dtype) for p, q in zip(ins.ps, ins.qs)]
+            tiles = dict(t_m=ins.t_m, t_k=ins.t_k, t_qs=ins.t_qs)
+            geo = emit.chain_geometry(x.shape, [f.shape for f in fs], acc_bytes=acc.itemsize,
+                                      in_bytes=x.element_size(), **tiles)
+            per_sm, smem = emit.chain_occupancy(geo, emit.kernel_dtype_code(x, fs, acc),
+                                                x.device)
+            ms = time_ms(lambda: emit.chain_cuda(x, *fs, **tiles))
+            xl, fl = x[0], [f[0] for f in fs]
+            library_ms = time_ms(lambda: stage_einsum(xl, fl, m, k // ins.pprod))
+            fsize = sum(p * q for p, q in zip(ins.ps, ins.qs))
+            b_ms, b_by = bound((m * k + m * k_out + fsize) * x.element_size(),
+                               stage_flops(m, k, ins.ps, ins.qs), peaks, dtype)
+            report("chain_fwd", {
+                "case": case, "stage": idx, "ps": list(ins.ps), "qs": list(ins.qs),
+                "block_tile": [geo.block_m, geo.block_k], "smem_bytes": smem,
+                "blocks_per_sm": per_sm, "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": library_ms,
+            })
+            del x, fs, xl, fl
+
+    # chain_bwd: each distinct stage of fig9-dx (the transposed program).
+    m, ps, qs, dtype = 1024, (32,) * 4, (32,) * 4, torch.float32
+    for idx, ins, k, k_out in distinct_stages(main_program(m, ps, qs, dtype), math.prod(ps)):
+        t_ins = ins.transpose()
+        dy = randn(gen, (1, m, k_out), dtype)
+        fs = [randn(gen, (1, p, q), dtype) for p, q in zip(ins.ps, ins.qs)]
+        tiles = dict(t_m=t_ins.t_m, t_k=t_ins.t_k, t_qs=t_ins.t_qs)
+        geo = emit.chain_geometry(dy.shape, [f.shape for f in fs], direction="bwd", **tiles)
+        per_sm, smem = emit.chain_occupancy(geo, emit.kernel_dtype_code(dy, fs, torch.float32),
+                                            dy.device)
+        ms = time_ms(lambda: emit.chain_bwd_cuda(dy, *fs, **tiles))
+        dyl, fl = dy[0], [f[0] for f in fs]
+        library_ms = time_ms(lambda: stage_einsum_t(dyl, fl, m, k // ins.pprod))
+        fsize = sum(p * q for p, q in zip(ins.ps, ins.qs))
+        b_ms, b_by = bound((m * k + m * k_out + fsize) * 4, stage_flops(m, k, ins.ps, ins.qs),
+                           peaks, dtype)
+        report("chain_bwd", {
+            "case": "fig9-dx", "stage": idx, "ps": list(ins.ps), "qs": list(ins.qs),
+            "block_tile": [geo.block_m, geo.block_k], "smem_bytes": smem,
+            "blocks_per_sm": per_sm, "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms,
+        })
+        del dy, fs, dyl, fl
+
+    # grad: each distinct stage of fig9-grad and ffn-grad.
     for case, m, ps, qs, dtype in (
         ("fig9-grad", 1024, (32,) * 4, (32,) * 4, torch.float32),
         ("ffn-grad", 4096, (64, 40), (128, 76), torch.bfloat16),
     ):
-        prog = MAIN_PROGRAMS[case]
         acc = emit.acc_dtype_for(dtype)
-        k = math.prod(ps)
-        seen = set()
-        for idx, ins in enumerate(prog.instrs):
-            k_out = k // ins.pprod * ins.qprod
+        for idx, ins, k, k_out in distinct_stages(main_program(m, ps, qs, dtype), math.prod(ps)):
             t_m, t_k = ins.transpose().t_m, ins.t_k
-            key = (ins.ps, ins.qs, k, t_m, t_k)
-            if key in seen:
-                k = k_out
-                continue
-            seen.add(key)
             x = randn(gen, (1, m, k), dtype)
             dy = randn(gen, (1, m, k_out), dtype)
             fs = [randn(gen, (1, p, q), dtype) for p, q in zip(ins.ps, ins.qs)]
@@ -700,48 +812,49 @@ def run_alone(gen, peaks) -> dict:
             fl = [f[0].detach().clone().requires_grad_() for f in fs]
             yl = stage_einsum(xl, fl, m, k // ins.pprod)
             library_ms = time_ms(lambda: torch.autograd.grad(yl, [xl, *fl], dy[0], retain_graph=True))
-            del xl, fl, yl
             fsize = sum(p * q for p, q in zip(ins.ps, ins.qs))
             nbytes = (2 * m * k + m * k_out + fsize) * x.element_size() + fsize * acc.itemsize
-            cols, fwd_flops = k, 0
-            for p, q in zip(ins.ps, ins.qs):
-                fwd_flops += 2 * m * cols * q
-                cols = cols // p * q
-            b_ms, b_by = bound(nbytes, 2 * fwd_flops, peaks, dtype)
-            row = {
+            b_ms, b_by = bound(nbytes, 2 * stage_flops(m, k, ins.ps, ins.qs), peaks, dtype)
+            report("grad", {
                 "case": case, "stage": idx, "ps": list(ins.ps), "qs": list(ins.qs),
                 "block_tile": [geo.block_m, geo.block_k], "smem_bytes": smem,
                 "blocks_per_sm": per_sm, "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": library_ms,
-            }
-            print("alone grad " + json.dumps(row), flush=True)
-            out["grad"].append(row)
-            del x, dy, fs
-            torch.cuda.empty_cache()
-            k = k_out
+            })
+            del x, dy, fs, xl, fl, yl
 
-    # fig9-unfused-grad: each of its four sliced_t launches is (1024, 32 *
-    # 32768) x (32, 32).
+    # sliced (fig9-unfused) and sliced_t (fig9-unfused-grad): each of their
+    # launches is (1024, 32 * 32768) x (32, 32).
     m, p, q, s_ = 1024, 32, 32, 32768
-    dy = randn(gen, (m, q * s_), torch.float32)
     f = randn(gen, (p, q), torch.float32)
+    b_ms, b_by = bound((2 * m * q * s_ + p * q) * 4, 2 * m * s_ * p * q, peaks, torch.float32)
+    x = randn(gen, (m, s_ * p), torch.float32)
+    t_m, t_s, t_q = kron_sliced.sliced_tiles(m, s_, p, q, 4)
+    per_sm, smem = kron_sliced.sliced_occupancy(0, m, s_, p, q, t_m, t_s, t_q, x.device)
+    ms = time_ms(lambda: kron_sliced.sliced_multiply_cuda(x, f))
+    xv = x.view(m, s_, p)
+    library_ms = time_ms(lambda: torch.einsum("msp,pq->mqs", xv, f))
+    report("sliced", {
+        "case": "fig9-unfused", "tiles": [t_m, t_s, t_q], "smem_bytes": smem,
+        "blocks_per_sm": per_sm, "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": library_ms,
+    })
+    del x, xv
+    dy = randn(gen, (m, q * s_), torch.float32)
     t_m, t_s, t_q = kron_sliced.sliced_tiles(m, s_, p, q, 4, kind="sliced_t", in_bytes=4)
     per_sm, smem = kron_sliced_t.sliced_t_occupancy(
         0, dy.data_ptr() % 16, m, s_, p, q, t_m, t_s, t_q, dy.device)
     ms = time_ms(lambda: kron_sliced_t.sliced_multiply_t_cuda(dy, f))
     dyv = dy.view(m, q, s_)
     library_ms = time_ms(lambda: torch.einsum("mqs,pq->msp", dyv, f))
-    b_ms, b_by = bound((2 * m * q * s_ + p * q) * 4, 2 * m * s_ * p * q, peaks, torch.float32)
-    row = {
+    report("sliced_t", {
         "case": "fig9-unfused-grad", "tiles": [t_m, t_s, t_q], "smem_bytes": smem,
         "blocks_per_sm": per_sm, "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": library_ms,
-    }
-    print("alone sliced_t " + json.dumps(row), flush=True)
-    out["sliced_t"].append(row)
+    })
     del dy, dyv, f
     torch.cuda.empty_cache()
-    few = [r for rows in out.values() for r in rows if r["blocks_per_sm"] < 2]
+    few = [(name, r) for name in TWO_BLOCK_KERNELS for r in out[name] if r["blocks_per_sm"] < 2]
     if few:
         raise AssertionError(f"fewer than two blocks per SM: {few}")
     return out
@@ -766,7 +879,7 @@ def main() -> int:
         for e in ptxas_entries(log):
             print(f"build: {name}.cu ptxas: {e['entry']}: {e['registers']} registers, "
                   f"{e['spill_bytes']} bytes spilled", flush=True)
-            if name in ("grad", "sliced_t") and e["spill_bytes"]:
+            if name in TWO_BLOCK_KERNELS and e["spill_bytes"]:
                 spills.append(e["entry"])
     if spills:
         print(f"chip_smoke: ptxas spills registers in {spills}", file=sys.stderr)
@@ -779,6 +892,9 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    if "--alone" in sys.argv[1:]:  # phase 4 only, for comparing two trees in one call
+        run_alone(gen, peaks)
+        return 0
     passed = check_kernels(gen)
     rows = {r["case"]: r for r in run_main(gen, peaks) + run_backward(gen, peaks)}
     alone = run_alone(gen, peaks)

@@ -299,7 +299,7 @@ __device__ void grad_simt(const GradArgs& a, const T* __restrict__ x, const T* _
   const int n = a.n, t_m = a.t_m;
   auto at = [&](int off) { return reinterpret_cast<Acc*>(sm + off); };
   for (int i = 0; i + 1 < n; ++i)
-    kron::panel_fwd(factor<T>(a, i, b), a.p[i], a.q[i], r4(a.q[i]), at(a.fpan[i]));
+    kron::panel_fwd(factor<T>(a, i, b), a.p[i], a.q[i], 0, a.q[i], r4(a.q[i]), at(a.fpan[i]));
   for (int i = 0; i < n; ++i)
     kron::panel_t(factor<T>(a, i, b), a.p[i], a.q[i], 0, a.q[i], r4(a.p[i]), at(a.tpan[i]));
   for (int i = 0; i < n; ++i) {

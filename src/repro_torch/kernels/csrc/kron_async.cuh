@@ -1,26 +1,34 @@
-// Hopper pieces of the persistent kernels (grad.cu, sliced_t.cu): the
-// asynchronous-copy ring, the register-tiled contraction step, the
-// persistent per-thread dF accumulator and the bf16 tensor-core step.
+// Hopper pieces of the persistent kernels (chain_fwd.cu, chain_bwd.cu,
+// grad.cu, sliced_t.cu): the asynchronous copies of the next tile, the
+// register-tiled contraction step, the chain kernels' launch arguments and
+// walk, the persistent per-thread dF accumulator and the bf16 tensor-core
+// step.
 //
 // Every piece of inline PTX sits behind one small device function below
 // (cp_async16/8/4, cp_async_commit, cp_async_wait, mma_bf16_16816,
-// ldmatrix_x4_trans).  A host
-// build that defines KRON_PTX_STUB supplies scalar bodies for them instead,
-// so that the index math of the kernels can be rehearsed on a CPU.
+// ldmatrix_x4_trans).  A host build that defines KRON_PTX_STUB supplies
+// scalar bodies for them instead, so that the index math of the kernels can
+// be rehearsed on a CPU.
 //
-// The ring: a block walks its tiles in a fixed order and keeps the next
-// tiles' operands in flight with cp.async while it computes on the current
+// The copies: a block walks its tiles in a fixed order and keeps the next
+// tile's operands in flight with cp.async while it computes on the current
 // one.  Copies are chunks of 16, 8 or 4 bytes (the widest that every run,
 // offset and base pointer of the launch allows, chosen on the host); an
 // input whose runs allow no 4-byte chunk (bfloat16 at an odd offset) is
 // copied element by element with ordinary loads.
 //
 // The contraction step: acc[r][c] += sum_k A[k*lda + soff[r]] * B[k*ldb + c]
-// for RS slices r of one thread and kRQ = 4 consecutive panel columns c (one
-// 16-byte vector).  Both the forward step (A = a chain state in the (m, p,
+// for RS slices r of one thread and RQ = 4 or 8 consecutive panel columns c
+// (one or two 16-byte vectors).  Both the forward step (A = a chain state in the (m, p,
 // s) layout, B = the (p, q) panel) and the transposed step (A = a gradient
-// state in the (m, q, s) layout, B = the transposed (q, p) panel) are this
-// loop; RS is picked per step so that every thread of the block has work.
+// state in the (m, q, s) layout, flat or padded, B = the transposed (q, p)
+// panel) are this loop; RS is picked per step so that every thread of the
+// block has work.
+//
+// The chain kernels (ChainArgs, chain_args): a persistent grid walks the
+// tiles of one stage, each block every nblk-th tile in an order that keeps
+// a block on one sample and one set of Q-tile digits for long runs, so the
+// factor panels stay in shared memory between tiles.
 //
 // The dF accumulator: each thread owns a fixed set of (group, 4x4 tile)
 // items of every factor's dF for the whole tile loop and keeps their sums
@@ -35,7 +43,7 @@
 
 namespace kron {
 
-constexpr int kAsyncThreads = 256;           // threads of grad and sliced_t blocks
+constexpr int kAsyncThreads = 256;           // threads of a persistent kernel's block
 constexpr int kWarps = kAsyncThreads / 32;
 
 // ---------------------------------------------------------------------------
@@ -109,21 +117,34 @@ inline int chunk_bytes(std::initializer_list<long long> bytes) {
 }
 
 inline long long round16(long long bytes) { return (bytes + 15) / 16 * 16; }
+__host__ __device__ inline int pad4(int e) { return (e + 3) / 4 * 4; }
+__host__ __device__ inline int pad8(int e) { return (e + 7) / 8 * 8; }
+
+// Four consecutive bfloat16 (8-byte aligned) as floats.
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
+  const __nv_bfloat162 a = reinterpret_cast<const __nv_bfloat162*>(p)[0];
+  const __nv_bfloat162 b = reinterpret_cast<const __nv_bfloat162*>(p)[1];
+  v[0] = __bfloat162float(a.x);
+  v[1] = __bfloat162float(a.y);
+  v[2] = __bfloat162float(b.x);
+  v[3] = __bfloat162float(b.y);
+}
 
 // ---------------------------------------------------------------------------
 // Panels, loaded once per block
 // ---------------------------------------------------------------------------
 
-// The factor f (p, q) row-major into dst[pp * ld + c] (forward
-// orientation); columns q..ld-1 are zero.
+// Columns [q0, q0 + tq) of f (p, q) row-major into dst[pp * ld + c]
+// (forward orientation); columns tq..ld-1 are zero.
 template <typename T, typename Acc>
-__device__ void panel_fwd(const T* __restrict__ f, int p, int q, int ld, Acc* dst) {
+__device__ void panel_fwd(const T* __restrict__ f, int p, int q, int q0, int tq, int ld,
+                          Acc* dst) {
   const int total = p * ld;
   const float rld = 1.0f / ld;
   for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
     const int r = div_fast(idx, ld, rld);
     const int c = idx - r * ld;
-    dst[idx] = c < q ? to_acc(f[static_cast<long long>(r) * q + c]) : Acc(0);
+    dst[idx] = c < tq ? to_acc(f[static_cast<long long>(r) * q + q0 + c]) : Acc(0);
   }
 }
 
@@ -144,21 +165,28 @@ __device__ void panel_t(const T* __restrict__ f, int p, int q, int q0, int tq, i
 // The register-tiled contraction step
 // ---------------------------------------------------------------------------
 
-// acc[r][c] += sum_{k < nk} A[k * lda + soff[r]] * B[k * ldb + c].
-template <int RS, typename TA, typename Acc>
-__device__ __forceinline__ void contract(Acc (&acc)[RS][kRQ], const TA* __restrict__ A, int lda,
+// acc[r][c] += sum_{k < nk} A[k * lda + soff[r]] * B[k * ldb + c], for RQ
+// (4 or 8) consecutive panel columns c read as 16-byte vectors.
+template <int RS, int RQ, typename TA, typename Acc>
+__device__ __forceinline__ void contract(Acc (&acc)[RS][RQ], const TA* __restrict__ A, int lda,
                                          const int (&soff)[RS], const Acc* __restrict__ B,
                                          int ldb, int nk) {
   constexpr int kUnroll = sizeof(Acc) == 8 ? 2 : 4;  // f64 would spill at 4
 #pragma unroll(kUnroll)
   for (int k = 0; k < nk; ++k) {
-    Acc bv[kRQ];
-    load4(B + k * ldb, bv);
+    Acc bv[RQ];
+#pragma unroll
+    for (int h = 0; h < RQ / 4; ++h) {
+      Acc t[4];
+      load4(B + k * ldb + 4 * h, t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) bv[4 * h + e] = t[e];
+    }
 #pragma unroll
     for (int r = 0; r < RS; ++r) {
       const Acc av = to_acc(A[k * lda + soff[r]]);
 #pragma unroll
-      for (int c = 0; c < kRQ; ++c) acc[r][c] += av * bv[c];
+      for (int c = 0; c < RQ; ++c) acc[r][c] += av * bv[c];
     }
   }
 }
@@ -174,10 +202,10 @@ __device__ __forceinline__ int pick_rs(int rows, int s) {
 
 // One step over a state of t_m rows: for every row m, slice sl < s and
 // column block xb < nxb, v[c] = sum_k A[m*am + k*lda + sl] * B[k*ldb +
-// xb*kRQ + c] is handed to sink(m, sl, xb, v).  Lanes take neighbouring xb
-// first when xb_fast (neighbouring output vectors), else neighbouring
-// slices.  A thread's RS slices are strided by ceil(s / RS).
-template <int RS, typename TA, typename Acc, typename Sink>
+// xb*RQ + c] (c < RQ) is handed to sink(m, sl, xb, v).  Lanes take
+// neighbouring xb first when xb_fast (neighbouring output vectors), else
+// neighbouring slices.  A thread's RS slices are strided by ceil(s / RS).
+template <int RS, int RQ, typename TA, typename Acc, typename Sink>
 __device__ __forceinline__ void step_rs(int t_m, int s, int nxb, const TA* A, int am, int lda,
                                         const Acc* B, int ldb, int nk, bool xb_fast, Sink sink) {
   const int nsb = (s + RS - 1) / RS;
@@ -202,12 +230,12 @@ __device__ __forceinline__ void step_rs(int t_m, int s, int nxb, const TA* A, in
       const int sl = sb + r * nsb;
       soff[r] = sl < s ? sl : 0;  // out-of-range slices read slice 0, never stored
     }
-    Acc acc[RS][kRQ];
+    Acc acc[RS][RQ];
 #pragma unroll
     for (int r = 0; r < RS; ++r)
 #pragma unroll
-      for (int c = 0; c < kRQ; ++c) acc[r][c] = Acc(0);
-    contract<RS>(acc, A + m * am, lda, soff, B + xb * kRQ, ldb, nk);
+      for (int c = 0; c < RQ; ++c) acc[r][c] = Acc(0);
+    contract<RS, RQ>(acc, A + m * am, lda, soff, B + xb * RQ, ldb, nk);
 #pragma unroll
     for (int r = 0; r < RS; ++r) {
       const int sl = sb + r * nsb;
@@ -216,17 +244,220 @@ __device__ __forceinline__ void step_rs(int t_m, int s, int nxb, const TA* A, in
   }
 }
 
-template <typename TA, typename Acc, typename Sink>
+template <int RQ = kRQ, typename TA, typename Acc, typename Sink>
 __device__ __forceinline__ void step(int t_m, int s, int nxb, const TA* A, int am, int lda,
                                      const Acc* B, int ldb, int nk, bool xb_fast, Sink sink) {
   const int rs = pick_rs(t_m * nxb, s);
   if (rs == 4) {
-    step_rs<4>(t_m, s, nxb, A, am, lda, B, ldb, nk, xb_fast, sink);
+    step_rs<4, RQ>(t_m, s, nxb, A, am, lda, B, ldb, nk, xb_fast, sink);
   } else if (rs == 2) {
-    step_rs<2>(t_m, s, nxb, A, am, lda, B, ldb, nk, xb_fast, sink);
+    step_rs<2, RQ>(t_m, s, nxb, A, am, lda, B, ldb, nk, xb_fast, sink);
   } else {
-    step_rs<1>(t_m, s, nxb, A, am, lda, B, ldb, nk, xb_fast, sink);
+    step_rs<1, RQ>(t_m, s, nxb, A, am, lda, B, ldb, nk, xb_fast, sink);
   }
+}
+
+// The panel width (columns per thread) of a chain step: 8 for a f32
+// accumulator and panels wider than 4, else 4.  Panels are padded to a
+// multiple of 8 either way.
+template <typename Acc>
+__device__ __forceinline__ bool wide_rq(int width) {
+  return sizeof(Acc) == 4 && width > kRQ;
+}
+
+// Sink of a transposed step: G'[m, sp*p + pb*R + c] (c < R, R = 4 or 8)
+// into a row-major buffer with row stride ld (shared memory in Acc, or dX in
+// device memory in T).  p % 4 == 0 stores vectors of 4; else element by
+// element.
+template <typename D, typename Acc, int R>
+__device__ __forceinline__ void put_row(D* dst, long long ld, int p, int m, int sp, int pb,
+                                        const Acc (&v)[R]) {
+  D* o = dst + m * ld + sp * p + pb * R;
+  if (p % 4 == 0) {
+#pragma unroll
+    for (int h = 0; h < R / 4; ++h) {
+      if (pb * R + 4 * h >= p) continue;
+      const Acc t[4] = {v[4 * h], v[4 * h + 1], v[4 * h + 2], v[4 * h + 3]};
+      store4(o + 4 * h, t);
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < R; ++c)
+      if (pb * R + c < p) store(o + c, v[c]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The persistent chain kernels (chain_fwd.cu, chain_bwd.cu)
+// ---------------------------------------------------------------------------
+
+enum ChainKind { kChainFwd = 0, kChainBwd = 1 };
+
+// One launch of a chain kernel.  The walk: tile t = ((b * q_tiles + jq) *
+// m_tiles + mt) * k_tiles + kt (forward; the transposed chain has no jq
+// and loops over the Q-tiles of each tile itself), block j taking tiles j,
+// j + nblk, ... in order, so that the tiles of a block share their sample
+// and Q-tile digits for as long as the walk allows and the factor panels
+// are reloaded only when those change.
+struct ChainArgs {
+  const void* f[kMaxFactors];  // factor i: (B, p_i, q_i), application order
+  int n;
+  int p[kMaxFactors], q[kMaxFactors], tq[kMaxFactors], nq[kMaxFactors];
+  int s[kMaxFactors];          // slices of state i inside the tile
+  int sst[kMaxFactors];        // s_i | 1: slice stride of forward state i
+  int c[kMaxFactors + 1];      // columns of state i inside the tile
+  float rp[kMaxFactors];
+  long long ostride[kMaxFactors];  // prod_{l<i} q_l * s_out: output radix
+  long long B, M, K, s_out, out_cols, m_tiles, k_tiles, q_tiles, tiles;
+  int t_m, t_k, ts_out, runs, nblk;  // runs = c_n / ts_out = prod(tq)
+  int vec;                     // chunk bytes of the copies (0: element-wise)
+  int nch;                     // chunks per copied row (forward) or run (transposed)
+  float rnch, rruns;
+  // Shared memory, byte offsets from the base.
+  int slot[2];                 // raw x slab (forward, one) or dY blocks (transposed, two)
+  int buf[2];                  // chain states in turn
+  int pan[kMaxFactors];        // factor panels of the current sample and digits
+  int table;                   // final-index offsets (forward) or dY run offsets
+  int acc;                     // transposed, Q tiled: the (t_m, t_k) sum of dX
+  long long smem;              // bytes
+};
+
+// Host side: fill the arguments of one launch of the given kind.  Returns
+// cudaSuccess or cudaErrorInvalidValue for a tile the kernel cannot take.
+// The shared-memory layout must match repro_torch.kernels.emit.
+// block_smem_bytes(kind="chain_fwd" / "chain_bwd").  `io` is x (forward) or
+// dY (transposed): its address sets the copies' chunk width.
+//   fwd: x (B, M, K) -> y (B, M, prod(Q) * K/prod(P)); tqs tile Q.
+//   bwd: dY (B, M, prod(Q) * K/prod(P)) -> dX (B, M, K); tqs tile Q.
+inline int chain_args(ChainArgs* a, int kind, int dtype, const void* io, const void* const* fs,
+                      const int* ps, const int* qs, const int* tqs, int n, long long B,
+                      long long M, long long K, int t_m, int t_k, int nblk) {
+  if (n < 1 || n > kMaxFactors || t_m < 1 || t_k < 1 || nblk < 1) return cudaErrorInvalidValue;
+  if (dtype < 0 || dtype > 2 || M % t_m || K % t_k) return cudaErrorInvalidValue;
+  const int isz = dtype == 0 ? 4 : dtype == 1 ? 2 : 8;
+  const int acc = dtype == 2 ? 8 : 4;
+  long long pprod = 1, qprod = 1;
+  for (int i = 0; i < n; ++i) {
+    if (ps[i] < 1 || qs[i] < 1 || tqs[i] < 1 || qs[i] % tqs[i]) return cudaErrorInvalidValue;
+    pprod *= ps[i];
+    qprod *= qs[i];
+  }
+  if (t_k % pprod) return cudaErrorInvalidValue;
+  a->n = n;
+  a->B = B;
+  a->M = M;
+  a->K = K;
+  a->s_out = K / pprod;
+  a->out_cols = qprod * a->s_out;
+  if (a->out_cols > INT_MAX) return cudaErrorInvalidValue;  // offsets tables hold ints
+  a->t_m = t_m;
+  a->t_k = t_k;
+  a->ts_out = static_cast<int>(t_k / pprod);
+  a->m_tiles = M / t_m;
+  a->k_tiles = K / t_k;
+  a->q_tiles = 1;
+  a->nblk = nblk;
+  long long cols = t_k, qstride = 1;
+  a->c[0] = t_k;
+  for (int i = 0; i < n; ++i) {
+    a->f[i] = fs[i];
+    a->p[i] = ps[i];
+    a->q[i] = qs[i];
+    a->tq[i] = tqs[i];
+    a->nq[i] = qs[i] / tqs[i];
+    a->rp[i] = 1.0f / ps[i];
+    a->q_tiles *= a->nq[i];
+    a->ostride[i] = qstride * a->s_out;
+    qstride *= qs[i];
+    const long long s = cols / ps[i];
+    a->s[i] = static_cast<int>(s);
+    a->sst[i] = static_cast<int>(s | 1);
+    cols = s * tqs[i];
+    a->c[i + 1] = static_cast<int>(cols);
+  }
+  const int cn = a->c[n];
+  a->runs = cn / a->ts_out;
+  a->rruns = 1.0f / a->runs;
+  a->tiles = B * a->m_tiles * a->k_tiles * (kind == kChainFwd ? a->q_tiles : 1);
+  long long off = 0;
+  auto region = [&](long long bytes) {
+    const int at = static_cast<int>(off);
+    off += round16(bytes);
+    return at;
+  };
+  if (kind == kChainFwd) {
+    // The slab's rows of t_k at row * K + kt * t_k.
+    a->vec = chunk_bytes({K * isz, static_cast<long long>(t_k) * isz, reinterpret_cast<long long>(io)});
+    a->nch = t_k / (a->vec ? a->vec / isz : 1);
+    a->slot[0] = a->slot[1] = region(static_cast<long long>(t_m) * t_k * isz);
+    long long size[2] = {0, 0};
+    for (int i = 0; i < n; ++i) {  // state i: (t_m, p_i, sst_i)
+      const long long st = round16(static_cast<long long>(t_m) * ps[i] * a->sst[i] * acc);
+      if (st > size[i % 2]) size[i % 2] = st;
+    }
+    a->buf[0] = static_cast<int>(off);
+    a->buf[1] = static_cast<int>(off + size[0]);
+    off += size[0] + size[1];
+    for (int i = 0; i < n; ++i)
+      a->pan[i] = region(static_cast<long long>(ps[i]) * pad8(tqs[i]) * acc);
+    a->table = region(4LL * a->s[n - 1]);
+    a->acc = 0;
+  } else {
+    // dY runs of ts_out at row * out_cols + kt * ts_out + sum_l ql_l * ostride_l.
+    a->vec = chunk_bytes({a->out_cols * isz, static_cast<long long>(a->ts_out) * isz,
+                          a->s_out * isz, reinterpret_cast<long long>(io)});
+    a->nch = a->ts_out / (a->vec ? a->vec / isz : 1);
+    a->slot[0] = region(static_cast<long long>(t_m) * cn * isz);
+    a->slot[1] = region(static_cast<long long>(t_m) * cn * isz);
+    long long size[2] = {0, 0};
+    for (int j = 0; j + 1 < n; ++j) {  // step j writes G_{n-1-j}: (t_m, c_{n-1-j}) flat
+      const long long st = round16(static_cast<long long>(t_m) * a->c[n - 1 - j] * acc);
+      if (st > size[j % 2]) size[j % 2] = st;
+    }
+    a->buf[0] = static_cast<int>(off);
+    a->buf[1] = static_cast<int>(off + size[0]);
+    off += size[0] + size[1];
+    for (int i = 0; i < n; ++i)
+      a->pan[i] = region(static_cast<long long>(tqs[i]) * pad8(ps[i]) * acc);
+    a->table = region(4LL * a->runs);
+    a->acc = a->q_tiles > 1 ? region(static_cast<long long>(t_m) * t_k * acc) : 0;
+  }
+  a->rnch = 1.0f / a->nch;
+  a->smem = off;
+  if (off > static_cast<long long>(kMaxSmemBytes)) return cudaErrorInvalidValue;
+  if (nblk > INT_MAX) return cudaErrorInvalidConfiguration;
+  return cudaSuccess;
+}
+
+// Mixed-radix Q-tile digits (factor 0 minor) of a composite Q-tile index,
+// and the output offset they select: sum_i qd_i * tq_i * ostride_i.
+__device__ __forceinline__ long long chain_digits(const ChainArgs& a, long long jq,
+                                                  int (&qd)[kMaxFactors]) {
+  long long off = 0;
+  for (int i = 0; i < a.n; ++i) {
+    qd[i] = static_cast<int>(jq % a.nq[i]);
+    jq /= a.nq[i];
+    off += static_cast<long long>(qd[i]) * a.tq[i] * a.ostride[i];
+  }
+  return off;
+}
+
+// Offset, inside a row of the (B, M, Q_{n-1}..Q_0, S) view, of the `nd`
+// Q-tile-local digits packed in r (factor 0 minor, radices tq_0 ..):
+// sum_l ql_l * ostride_l.
+__device__ __forceinline__ int chain_run_offset(const ChainArgs& a, int r, int nd) {
+  long long off = 0;
+  for (int l = 0; l < nd; ++l) {
+    const int nr = r / a.tq[l];
+    off += static_cast<long long>(r - nr * a.tq[l]) * a.ostride[l];
+    r = nr;
+  }
+  return static_cast<int>(off);
+}
+
+template <typename T>
+__device__ __forceinline__ const T* chain_factor(const ChainArgs& a, int i, long long b) {
+  return static_cast<const T*>(a.f[i]) + b * a.p[i] * static_cast<long long>(a.q[i]);
 }
 
 // ---------------------------------------------------------------------------

@@ -1,15 +1,17 @@
-// Block tiles of a FastKron chain: the device code shared by chain_fwd.cu,
-// sliced.cu and chain_bwd.cu, the helpers grad.cu and sliced_t.cu take from
-// it (kron_async.cuh), and the host code that fills a launch's arguments.
+// Block tiles of a FastKron chain for sliced.cu (one block per tile, one
+// factor), the helpers every kernel shares (to_acc, store, load4/store4,
+// div_fast) and the host code that fills a sliced launch's arguments.  The
+// persistent kernels (chain_fwd.cu, chain_bwd.cu, grad.cu, sliced_t.cu)
+// build on kron_async.cuh instead.
 //
 // A block owns one batch sample, t_m rows and a t_k column slab of x (t_k a
 // multiple of prod(P)), and keeps every chain state of that tile in shared
 // memory.  State i of the forward chain has c_i columns (c_0 = t_k,
 // c_{i+1} = tq_i * s_i with s_i = c_i / p_i).
 //
-// Forward (chain_block): the block also owns one Q-tile digit per factor.
-// It loads the slab once, applies every factor, and writes each output
-// element straight to its final FastKron index:
+// chain_block: the block also owns one Q-tile digit per factor.  It loads
+// the slab once, applies every factor, and writes each output element
+// straight to its final FastKron index:
 //
 //   state i lives in shared memory as (m, p, s): element A[m, s*p_i + pp]
 //   sits at m*p_i*sstr_i + pp*sstr_i + s.  Keeping the contraction index pp
@@ -22,18 +24,6 @@
 //   addresses) times kRQ = 4 consecutive columns of the factor panel, which
 //   is padded with zeros to a multiple of 4 columns and read as one 16-byte
 //   vector per row.
-//
-// Transposed (chain_bwd_block): the block owns one dX tile and loops over
-// the Q-tile digits itself, summing the partial dX of each in shared memory
-// in a fixed order (no atomics).  It gathers the dY block of the digit from
-// the (B, M, Q_{n-1}..Q_0, S) view, the inverse of the forward's final-index
-// store, and applies the transposes, last-applied factor first:
-//
-//   G[m, q*s_i + s] flat, row-major (q major): a warp's reads run along s.
-//   step i:  G'[m, s*p_i + pp] = sum_q G[m, q*s_i + s] * F_i[pp, q]
-//   The factor panel is stored transposed, (tq_i, p_i) zero-padded to a
-//   multiple of 4 columns, so a thread's kRQ = 4 consecutive pp are one
-//   16-byte vector; neighbouring threads take neighbouring pp groups.
 //
 // Global loads keep kLoadUnroll loads in flight per thread.  Index math
 // divides through float reciprocals (div_fast).  Intermediates stay in the
@@ -54,8 +44,6 @@ constexpr int kRS = 4;          // slices per thread
 constexpr int kRQ = 4;          // factor-panel columns per thread (one vector)
 constexpr int kLoadUnroll = 8;  // global loads in flight per thread
 constexpr size_t kMaxSmemBytes = 232448;  // 227 KB: one Hopper block's limit
-
-enum Kind { kFwd = 0, kBwd = 1 };
 
 struct TileArgs {
   const void* f[kMaxFactors];  // factor i: (B, p_i, q_i), application order
@@ -80,7 +68,6 @@ struct TileArgs {
   // Shared memory, in elements of Acc, each region rounded to 4 elements
   // (16-byte aligned panels and vectors).
   int buf0, buf1, panel;       // chain-state ping-pong buffers and the panel
-  int acc;                     // bwd: the Q-tile sum of dX (0 when Q is whole)
   long long smem;              // total elements
 };
 
@@ -174,43 +161,6 @@ __device__ void load_slab(const TileArgs& a, const T* __restrict__ xs, Acc* dst)
   }
 }
 
-// The dY block of Q-tile digits qd for output tile column slab kt, gathered
-// from the (B, M, Q_{n-1}..Q_0, S) view into the flat tile state c_n: tile
-// column (ql_{n-1}, ..., ql_0, s_local), row-major.  dyr points at the
-// tile's first row.
-template <typename T, typename Acc>
-__device__ void gather_dy(const TileArgs& a, const T* __restrict__ dyr, long long kt,
-                          const int (&qd)[kMaxFactors], Acc* dst) {
-  const int cn = a.c[a.n];
-  const float rcn = 1.0f / cn;
-  const int total = a.t_m * cn;
-  const long long base_col = kt * a.ts_out;
-  for (int base = threadIdx.x; base < total; base += kLoadUnroll * blockDim.x) {
-    T v[kLoadUnroll];
-#pragma unroll
-    for (int u = 0; u < kLoadUnroll; ++u) {
-      const int idx = base + u * blockDim.x;
-      if (idx < total) {
-        const int m = div_fast(idx, cn, rcn);
-        const int col = idx - m * cn;
-        int rem = div_fast(col, a.ts_out, a.rts_out);
-        long long off = base_col + (col - rem * a.ts_out);
-        for (int l = 0; l < a.n; ++l) {
-          const int nr = div_fast(rem, a.tq[l], a.rtq[l]);
-          off += static_cast<long long>(qd[l] * a.tq[l] + rem - nr * a.tq[l]) * a.ostride[l];
-          rem = nr;
-        }
-        v[u] = dyr[m * a.out_cols + off];
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kLoadUnroll; ++u) {
-      const int idx = base + u * blockDim.x;
-      if (idx < total) dst[idx] = to_acc(v[u]);
-    }
-  }
-}
-
 // The (p_i, tq_i) panel of factor i of sample b for Q-tile digit qd,
 // zero-padded to a multiple of 4 columns: panel[pp * tq4 + q].
 template <typename T, typename Acc>
@@ -234,35 +184,6 @@ __device__ void load_panel(const TileArgs& a, int i, long long b, int qd, Acc* p
     for (int u = 0; u < kLoadUnroll; ++u) {
       const int idx = base + u * blockDim.x;
       if (idx < total) panel[idx] = v[u];
-    }
-  }
-}
-
-// The same panel stored transposed, (tq_i, p_i) with p padded to a
-// multiple of 4: panel[q * p4 + pp].  Reads run along the factor's rows.
-template <typename T, typename Acc>
-__device__ void load_panel_t(const TileArgs& a, int i, long long b, int qd, Acc* panel) {
-  const int p = a.p[i], tq = a.tq[i];
-  const int p4 = (p + kRQ - 1) / kRQ * kRQ;
-  const T* f = static_cast<const T*>(a.f[i]) + b * p * static_cast<long long>(a.q[i]) +
-               static_cast<long long>(qd) * tq;
-  const int total = p4 * tq;
-  for (int base = threadIdx.x; base < total; base += kLoadUnroll * blockDim.x) {
-    Acc v[kLoadUnroll];
-#pragma unroll
-    for (int u = 0; u < kLoadUnroll; ++u) {
-      const int idx = base + u * blockDim.x;
-      const int pp = div_fast(idx, tq, a.rtq[i]);
-      const int q = idx - pp * tq;
-      v[u] = idx < total && pp < p ? to_acc(f[static_cast<long long>(pp) * a.q[i] + q]) : Acc(0);
-    }
-#pragma unroll
-    for (int u = 0; u < kLoadUnroll; ++u) {
-      const int idx = base + u * blockDim.x;
-      if (idx < total) {
-        const int pp = div_fast(idx, tq, a.rtq[i]);
-        panel[(idx - pp * tq) * p4 + pp] = v[u];
-      }
     }
   }
 }
@@ -337,72 +258,6 @@ __device__ __forceinline__ void fwd_step_to_state(const TileArgs& a, int i, cons
   });
 }
 
-// Transposed step i over the flat state g = G[m, q*s_i + s] (t_m rows of
-// tq_i * s_i) and the transposed panel: calls sink(m, sp, pb, v) with
-// v[c] = G'[m, sp*p_i + pb*kRQ + c] for every valid slice sp (entries past
-// p_i are the panel's zero padding).
-template <typename Acc, typename Sink>
-__device__ __forceinline__ void t_step(const TileArgs& a, int i, const Acc* g, const Acc* panel,
-                                       Sink sink) {
-  const int p = a.p[i], tq = a.tq[i], s = a.s[i];
-  const int p4 = (p + kRQ - 1) / kRQ * kRQ;
-  const int npb = p4 / kRQ;
-  const int nsb = (s + kRS - 1) / kRS;
-  const int cin = tq * s;
-  const float rnpb = 1.0f / npb, rnsb = 1.0f / nsb;
-  const int work = a.t_m * nsb * npb;
-  for (int w = threadIdx.x; w < work; w += blockDim.x) {
-    const int t = div_fast(w, npb, rnpb);
-    const int pb = w - t * npb;
-    const int m = div_fast(t, nsb, rnsb);
-    const int sb = t - m * nsb;
-    int soff[kRS];
-#pragma unroll
-    for (int r = 0; r < kRS; ++r) {
-      const int sp = sb + r * nsb;
-      soff[r] = sp < s ? sp : 0;
-    }
-    Acc acc[kRS][kRQ];
-#pragma unroll
-    for (int r = 0; r < kRS; ++r)
-#pragma unroll
-      for (int c = 0; c < kRQ; ++c) acc[r][c] = Acc(0);
-    const Acc* grow = g + m * cin;
-    const Acc* prow = panel + pb * kRQ;
-    for (int q = 0; q < tq; ++q) {
-      Acc av[kRS], fv[kRQ];
-#pragma unroll
-      for (int r = 0; r < kRS; ++r) av[r] = grow[q * s + soff[r]];
-      load4(prow + q * p4, fv);
-#pragma unroll
-      for (int r = 0; r < kRS; ++r)
-#pragma unroll
-        for (int c = 0; c < kRQ; ++c) acc[r][c] += av[r] * fv[c];
-    }
-#pragma unroll
-    for (int r = 0; r < kRS; ++r) {
-      const int sp = sb + r * nsb;
-      if (sp < s) sink(m, sp, pb, acc[r]);
-    }
-  }
-}
-
-// Sink of a transposed step: G'[m, sp*p + pb*kRQ + c] into a row-major
-// buffer with row stride ld (shared memory in Acc, or dX in device memory
-// in T).  p % kRQ == 0 stores one vector; else element by element.
-template <typename D, typename Acc>
-__device__ __forceinline__ void put_row(D* dst, long long ld, int p, int m, int sp, int pb,
-                                        const Acc (&v)[kRQ]) {
-  D* o = dst + m * ld + sp * p + pb * kRQ;
-  if (p % kRQ == 0) {
-    store4(o, v);
-  } else {
-#pragma unroll
-    for (int c = 0; c < kRQ; ++c)
-      if (pb * kRQ + c < p) store(o + c, v[c]);
-  }
-}
-
 template <typename T, typename Acc>
 __device__ void chain_block(const TileArgs& a, const T* __restrict__ x, T* __restrict__ y,
                             Acc* smem) {
@@ -457,75 +312,16 @@ __device__ void chain_block(const TileArgs& a, const T* __restrict__ x, T* __res
   }
 }
 
-template <typename T, typename Acc>
-__device__ void chain_bwd_block(const TileArgs& a, const T* __restrict__ dy, T* __restrict__ dx,
-                                Acc* smem) {
-  long long blk = blockIdx.x;
-  const long long kt = blk % a.k_tiles;
-  blk /= a.k_tiles;
-  const long long mt = blk % a.m_tiles;
-  const long long b = blk / a.m_tiles;
-  const long long row0 = b * a.M + mt * a.t_m;
-
-  Acc* buf[2] = {smem, smem + a.buf0};
-  Acc* panel = buf[1] + a.buf1;
-  Acc* accb = panel + a.panel;  // a.acc elements: the Q-tile sum of dX
-  const bool tiled = a.q_tiles > 1;
-  const T* dyr = dy + row0 * a.out_cols;
-  T* dxt = dx + row0 * a.K + kt * a.t_k;
-
-  for (long long jq = 0; jq < a.q_tiles; ++jq) {
-    int qd[kMaxFactors];
-    q_digits(a, jq, qd);
-    gather_dy(a, dyr, kt, qd, buf[0]);
-    for (int j = 0; j < a.n; ++j) {
-      const int i = a.n - 1 - j;
-      load_panel_t<T>(a, i, b, qd[i], panel);
-      __syncthreads();  // state and panel in place
-      const Acc* g = buf[j & 1];
-      const int p = a.p[i];
-      if (i > 0) {
-        Acc* o = buf[(j + 1) & 1];
-        const int ld = a.c[i];
-        t_step(a, i, g, panel, [&](int m, int sp, int pb, const Acc(&v)[kRQ]) {
-          put_row(o, ld, p, m, sp, pb, v);
-        });
-      } else if (!tiled) {
-        t_step(a, i, g, panel, [&](int m, int sp, int pb, const Acc(&v)[kRQ]) {
-          put_row(dxt, a.K, p, m, sp, pb, v);
-        });
-      } else {
-        const bool first = jq == 0;
-        t_step(a, i, g, panel, [&](int m, int sp, int pb, const Acc(&v)[kRQ]) {
-          Acc* o = accb + m * a.t_k + sp * p + pb * kRQ;
-#pragma unroll
-          for (int c = 0; c < kRQ; ++c)
-            if (pb * kRQ + c < p) o[c] = first ? v[c] : o[c] + v[c];
-        });
-      }
-      __syncthreads();  // the next state is complete; this one is free
-    }
-  }
-  if (tiled) {
-    const float rtk = 1.0f / a.t_k;
-    for (int idx = threadIdx.x; idx < a.t_m * a.t_k; idx += blockDim.x) {
-      const int m = div_fast(idx, a.t_k, rtk);
-      store(dxt + m * a.K + (idx - m * a.t_k), accb[idx]);
-    }
-  }
-}
-
 inline long long round4(long long e) { return (e + 3) / 4 * 4; }
 
-// Host side: fill the arguments of one launch of the given kind.  Returns
-// cudaSuccess or cudaErrorInvalidValue for a tile the kernel cannot take.
-// The shared-memory regions must match
-// repro_torch.kernels.emit.block_smem_bytes for the same kind.
-//   fwd:  x (B, M, K) -> y (B, M, prod(Q) * K/prod(P)); tqs tile Q.
-//   bwd:  dY (B, M, prod(Q) * K/prod(P)) -> dX (B, M, K); tqs tile Q.
+// Host side: fill the arguments of one launch, x (B, M, K) -> y (B, M,
+// prod(Q) * K/prod(P)) with tqs tiling Q.  Returns cudaSuccess or
+// cudaErrorInvalidValue for a tile the kernel cannot take.  The
+// shared-memory regions must match repro_torch.kernels.emit.
+// block_smem_bytes(kind="fwd").
 inline int make_args(TileArgs* a, const void* const* fs, const int* ps, const int* qs,
                      const int* tqs, int n, long long B, long long M, long long K, int t_m,
-                     int t_k, int kind = kFwd) {
+                     int t_k) {
   if (n < 1 || n > kMaxFactors || t_m < 1 || t_k < 1) return cudaErrorInvalidValue;
   if (M % t_m || K % t_k) return cudaErrorInvalidValue;
   long long pprod = 1, qprod = 1;
@@ -567,35 +363,17 @@ inline int make_args(TileArgs* a, const void* const* fs, const int* ps, const in
     a->sstr[i] = static_cast<int>(s | 1);
     const long long state = round4(static_cast<long long>(t_m) * ps[i] * (s | 1));
     const long long fwd_panel = static_cast<long long>(ps[i]) * round4(tqs[i]);
-    const long long t_panel = static_cast<long long>(tqs[i]) * round4(ps[i]);
-    if (kind == kFwd) {
-      if (state > buf[i % 2]) buf[i % 2] = state;
-      if (fwd_panel > panel) panel = fwd_panel;
-    } else {
-      if (t_panel > panel) panel = t_panel;
-    }
+    if (state > buf[i % 2]) buf[i % 2] = state;
+    if (fwd_panel > panel) panel = fwd_panel;
     cols = s * tqs[i];
     a->c[i + 1] = static_cast<int>(cols);
   }
-  if (kind != kFwd) {
-    // Transposed chain states c_n, c_{n-1}, ..., c_1 alternate between the
-    // two buffers; c_0 (dX) goes to device memory or the Q-tile sum.
-    for (int k = 0; k < n; ++k) {
-      const long long st = round4(static_cast<long long>(t_m) * a->c[n - k]);
-      if (st > buf[k % 2]) buf[k % 2] = st;
-    }
-  }
-  a->acc = kind == kBwd && a->q_tiles > 1 ? static_cast<int>(round4(static_cast<long long>(t_m) * t_k)) : 0;
   a->buf0 = static_cast<int>(buf[0]);
   a->buf1 = static_cast<int>(buf[1]);
   a->panel = static_cast<int>(panel);
-  a->smem = buf[0] + buf[1] + panel + a->acc;
+  a->smem = buf[0] + buf[1] + panel;
   if (a->smem > (1 << 22)) return cudaErrorInvalidValue;
-  if (kind == kFwd) {
-    a->grid = B * a->m_tiles * a->q_tiles * a->k_tiles;
-  } else {
-    a->grid = B * a->m_tiles * a->k_tiles;
-  }
+  a->grid = B * a->m_tiles * a->q_tiles * a->k_tiles;
   return cudaSuccess;
 }
 
@@ -617,6 +395,22 @@ int launch(void (*kernel)(TileArgs, KArgs...), const TileArgs& a, void* stream, 
   return cudaGetLastError();
 }
 
+// Blocks of `kernel` that fit one SM at kThreads threads and a.smem
+// elements of Acc (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into
+// *blocks; that shared memory in bytes into *smem_bytes.
+template <typename Acc, typename... KArgs>
+int occupancy(void (*kernel)(TileArgs, KArgs...), const TileArgs& a, int* blocks,
+              long long* smem_bytes) {
+  const size_t smem = sizeof(Acc) * static_cast<size_t>(a.smem);
+  *smem_bytes = static_cast<long long>(smem);
+  if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kThreads, smem);
+}
+
 }  // namespace kron
 
 // dtype codes shared with the Python wrappers: 0 float32, 1 bfloat16, 2 float64.
@@ -630,6 +424,20 @@ int launch(void (*kernel)(TileArgs, KArgs...), const TileArgs& a, void* stream, 
       return kron::launch<float>(KERNEL<__nv_bfloat16, float>, __VA_ARGS__);   \
     case 2:                                                                    \
       return kron::launch<double>(KERNEL<double, double>, __VA_ARGS__);        \
+    default:                                                                   \
+      return cudaErrorInvalidValue;                                            \
+  }
+
+// KRON_OCCUPANCY(dtype, KERNEL, a, blocks, smem_bytes): kron::occupancy of
+// KERNEL<T, Acc> for the code's (T, Acc).
+#define KRON_OCCUPANCY(dtype, KERNEL, ...)                                     \
+  switch (dtype) {                                                             \
+    case 0:                                                                    \
+      return kron::occupancy<float>(KERNEL<float, float>, __VA_ARGS__);        \
+    case 1:                                                                    \
+      return kron::occupancy<float>(KERNEL<__nv_bfloat16, float>, __VA_ARGS__); \
+    case 2:                                                                    \
+      return kron::occupancy<double>(KERNEL<double, double>, __VA_ARGS__);     \
     default:                                                                   \
       return cudaErrorInvalidValue;                                            \
   }

@@ -42,6 +42,18 @@ int kron_sliced(int dtype, const void* x, const void* f, void* y, long long M, l
   KRON_DISPATCH(dtype, sliced_kernel, a, stream, x, y)
 }
 
+// Blocks of kron_sliced's kernel that fit one SM at these tiles, into
+// *blocks; its shared memory in bytes into *smem.
+int kron_sliced_occupancy(int dtype, long long M, long long K, int p, int q, int t_m, int t_s,
+                          int t_q, int* blocks, long long* smem) {
+  kron::TileArgs a;
+  const void* fs[1] = {nullptr};
+  const int ps[1] = {p}, qs[1] = {q}, tqs[1] = {t_q};
+  const int err = kron::make_args(&a, fs, ps, qs, tqs, 1, 1, M, K, t_m, t_s * p);
+  if (err != cudaSuccess) return err;
+  KRON_OCCUPANCY(dtype, sliced_kernel, a, blocks, smem)
+}
+
 const char* kron_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -367,29 +367,63 @@ def _divisors(n: int) -> list[int]:
 
 @dataclasses.dataclass(frozen=True)
 class ChainGeometry:
-    """A chain instruction's checked dims and the kernel's block tile."""
+    """A chain instruction's checked dims, the kernel's block tile and the
+    length of its persistent walk."""
 
     b: int
     m: int
-    k: int
+    k: int  # x's columns (forward) or dX's (transposed)
     ps: tuple[int, ...]
     qs: tuple[int, ...]
     t_qs: tuple[int, ...]
     block_m: int  # t_m': rows per block, divides the instruction's t_m
     block_k: int  # t_k': input columns per block, divides t_k
+    direction: str  # "fwd" (chain_fwd.cu) or "bwd" (chain_bwd.cu)
 
     @property
     def out_cols(self) -> int:
         return math.prod(self.qs) * (self.k // math.prod(self.ps))
 
+    @property
+    def q_tiles(self) -> int:
+        return math.prod(q // t for q, t in zip(self.qs, self.t_qs))
 
-_KINDS_SMEM = ("fwd", "bwd", "grad")
+    @property
+    def tiles(self) -> int:
+        """Tiles of the kernel's walk (``chain_walk``): (sample, Q-tile
+        digits, row tile, column tile) forward; the transposed chain loops
+        over the Q-tile digits inside each (sample, row, column) tile."""
+        per = self.b * (self.m // self.block_m) * (self.k // self.block_k)
+        return per * self.q_tiles if self.direction == "fwd" else per
+
+
+def chain_walk(block: int, nblk: int, tiles: int) -> range:
+    """The tiles block ``block`` of a persistent chain launch of ``nblk``
+    blocks takes, in order (``chain_fwd.cu``, ``chain_bwd.cu``): every
+    ``nblk``-th from its own index on, none when it has no tile."""
+    return range(block, tiles, nblk)
+
+
+def chain_tile_coords(geo: ChainGeometry, tile: int) -> tuple[int, int, int, int]:
+    """(sample, composite Q-tile digit, row tile, column tile) of tile
+    ``tile`` of ``geo``'s walk; the transposed chain's digit is always 0
+    (it loops over the digits itself).  Tiles of one (sample, digit) are
+    consecutive, so a block's panels change only at their boundaries."""
+    k_tiles, m_tiles = geo.k // geo.block_k, geo.m // geo.block_m
+    kt, rest = tile % k_tiles, tile // k_tiles
+    mt, group = rest % m_tiles, rest // m_tiles
+    q_tiles = geo.q_tiles if geo.direction == "fwd" else 1
+    return group // q_tiles, group % q_tiles, mt, kt
+
+
+_KINDS_SMEM = ("fwd", "chain_fwd", "chain_bwd", "grad")
 # Shared memory of one SM (228 KB); each resident block also holds 1 KB for
-# the runtime.  A block of the persistent kernels (grad.cu, sliced_t.cu) that
-# leaves room for a second one takes at most SM_SMEM_BYTES / 2 - 1 KB.
+# the runtime.  A block of the persistent kernels (chain_fwd.cu, chain_bwd.cu,
+# grad.cu, sliced_t.cu) that leaves room for a second one takes at most
+# SM_SMEM_BYTES / 2 - 1 KB.
 SM_SMEM_BYTES = 233472
 TWO_BLOCK_SMEM_BYTES = SM_SMEM_BYTES // 2 - 1024  # 115,712
-ASYNC_THREADS = 256  # kron::kAsyncThreads: threads of a grad / sliced_t block
+ASYNC_THREADS = 256  # kron::kAsyncThreads: threads of a persistent kernel's block
 _WARPS = ASYNC_THREADS // 32
 
 
@@ -465,6 +499,31 @@ def _grad_smem_bytes(t_m, t_k, ps, qs, acc_bytes, in_bytes) -> int:
     return slot + u + gn + g[0] + g[1] + fpan + tpan + dfp
 
 
+def _chain_smem_bytes(kind, t_m, t_k, ps, t_qs, acc_bytes, in_bytes, q_tiled) -> int:
+    """chain_fwd.cu's / chain_bwd.cu's shared memory (``kron::chain_args``),
+    in bytes, every region rounded to 16 bytes."""
+    n = len(ps)
+    s, c = [], [t_k]
+    for p, tq in zip(ps, t_qs):
+        s.append(c[-1] // p)
+        c.append(s[-1] * tq)
+    size = [0, 0]
+    if kind == "chain_fwd":
+        slots = _r16(t_m * t_k * in_bytes)
+        for i, p in enumerate(ps):  # state i: (t_m, p_i, s_i | 1)
+            size[i % 2] = max(size[i % 2], _r16(t_m * p * (s[i] | 1) * acc_bytes))
+        panels = sum(_r16(p * _r8(tq) * acc_bytes) for p, tq in zip(ps, t_qs))
+        table, acc = _r16(4 * s[-1]), 0
+    else:
+        slots = 2 * _r16(t_m * c[n] * in_bytes)
+        for j in range(n - 1):  # step j writes the flat G_{n-1-j}
+            size[j % 2] = max(size[j % 2], _r16(t_m * c[n - 1 - j] * acc_bytes))
+        panels = sum(_r16(tq * _r8(p) * acc_bytes) for p, tq in zip(ps, t_qs))
+        table = _r16(4 * (c[n] // (t_k // math.prod(ps))))
+        acc = _r16(t_m * t_k * acc_bytes) if q_tiled else 0
+    return slots + size[0] + size[1] + panels + table + acc
+
+
 def block_smem_bytes(
     t_m: int,
     t_k: int,
@@ -476,45 +535,46 @@ def block_smem_bytes(
     q_tiled: bool = False,
     in_bytes: int | None = None,
 ) -> int:
-    """Shared memory of one block of a chain kernel, in bytes.
+    """Shared memory of one block of a chain kernel, in bytes; ``in_bytes``
+    is the input dtype's size (default ``acc_bytes``).
 
-    ``kind="fwd"`` (chain_fwd.cu, sliced.cu; ``kron::make_args``, in the
-    accumulator type, every region rounded to 4 elements): the two
-    chain-state buffers (even and odd states, each ``(t_m, p_i, s_i | 1)``)
-    and the largest ``(p_i, t_q_i)`` factor panel, columns padded to a
-    multiple of 4.  ``kind="bwd"`` (chain_bwd.cu): the two buffers of the
-    flat transposed states ``c_n .. c_1`` (``c_0 = t_k``, ``c_{i+1} = t_q_i
-    * c_i / p_i``), the largest transposed ``(t_q_i, p_i)`` panel, rows
-    padded to 4, and, when Q is tiled (``q_tiled``), the ``(t_m, t_k)`` sum
-    of dX.  ``kind="grad"`` (grad.cu; ``t_qs`` must be the whole Q;
-    ``in_bytes`` is the input dtype's size, default ``acc_bytes``): see
+    ``kind="fwd"`` (sliced.cu; ``kron::make_args``, in the accumulator type,
+    every region rounded to 4 elements): the two chain-state buffers (even
+    and odd states, each ``(t_m, p_i, s_i | 1)``) and the largest ``(p_i,
+    t_q_i)`` factor panel, columns padded to a multiple of 4.
+
+    ``kind="chain_fwd"`` (chain_fwd.cu; every region rounded to 16 bytes):
+    the slot of the raw ``(t_m, t_k)`` x slab in the input dtype; the two
+    buffers of the chain states ``0 .. n-1`` in turn, each ``(t_m, p_i, s_i |
+    1)`` in the accumulator type; every factor's ``(p_i, t_q_i)`` panel,
+    columns padded to 8; the final-index table, one int per slice of the
+    last state.
+
+    ``kind="chain_bwd"`` (chain_bwd.cu): two slots of the flat dY block
+    ``(t_m, c_n)`` in the input dtype (``c_0 = t_k``, ``c_{i+1} = t_q_i *
+    c_i / p_i``); the two buffers of the flat states ``c_{n-1} .. c_1`` in
+    turn; every factor's transposed ``(t_q_i, p_i)`` panel, rows padded to
+    8; the dY run table, one int per run of ``t_k / prod(ps)`` elements;
+    and, when Q is tiled (``q_tiled``), the ``(t_m, t_k)`` sum of dX.
+
+    ``kind="grad"`` (grad.cu; ``t_qs`` must be the whole Q): see
     ``_grad_smem_bytes``."""
     if kind not in _KINDS_SMEM:
         raise ValueError(f"unknown kernel kind {kind!r}")
+    ib = acc_bytes if in_bytes is None else in_bytes
     if kind == "grad":
-        return _grad_smem_bytes(
-            t_m, t_k, tuple(ps), tuple(t_qs), acc_bytes,
-            acc_bytes if in_bytes is None else in_bytes,
-        )
+        return _grad_smem_bytes(t_m, t_k, tuple(ps), tuple(t_qs), acc_bytes, ib)
+    if kind != "fwd":
+        return _chain_smem_bytes(kind, t_m, t_k, tuple(ps), tuple(t_qs), acc_bytes, ib, q_tiled)
     bufs = [0, 0]
     panel = 0
-    states = [t_k]
     cols = t_k
     for i, (p, tq) in enumerate(zip(ps, t_qs)):
         s = cols // p
-        if kind == "fwd":
-            bufs[i % 2] = max(bufs[i % 2], _r4(t_m * p * (s | 1)))
-            panel = max(panel, p * _r4(tq))
-        else:
-            panel = max(panel, tq * _r4(p))
+        bufs[i % 2] = max(bufs[i % 2], _r4(t_m * p * (s | 1)))
+        panel = max(panel, p * _r4(tq))
         cols = s * tq
-        states.append(cols)
-    n = len(states) - 1
-    if kind == "bwd":
-        for k in range(n):
-            bufs[k % 2] = max(bufs[k % 2], _r4(t_m * states[n - k]))
-    acc = _r4(t_m * t_k) if kind == "bwd" and q_tiled else 0
-    return acc_bytes * (bufs[0] + bufs[1] + panel + acc)
+    return acc_bytes * (bufs[0] + bufs[1] + panel)
 
 
 def block_tile(
@@ -531,20 +591,23 @@ def block_tile(
     """The block tile ``(t_m', t_k')`` of a chain kernel of the given kind
     (``block_smem_bytes``): ``t_m'`` divides ``t_m``, ``t_k'`` is a multiple
     of ``prod(ps)`` dividing ``t_k`` (tiles never split a contraction, so the
-    choice changes no result).  The largest ``t_m' * t_k'`` wins, ties to
-    the wider slab, among the tiles that fit a share of the SM's shared
-    memory; when none does, among those that fit one block at all.  The
-    share is half of one block's 227 KB for the chain kernels (``fwd``,
-    ``bwd``).  For the stage backward (``grad``) it is what leaves room for
-    a second block on the SM (``TWO_BLOCK_SMEM_BYTES``), and among those
-    tiles the ones whose dY runs fill a 32-byte sector (``t_k' / prod(ps) *
-    in_bytes >= 32``) come first.  Whether two blocks are resident also
-    depends on registers: the launch takes the blocks per SM from the
-    occupancy query, not from this rule.  Raises ``VmemOverflowError`` when
-    not even ``t_m'=1, t_k'=prod(ps)`` fits."""
+    choice changes no result).  This rule owns the kernels' block tiles; the
+    plan's ``(t_m, t_k)`` only bounds them.  The largest ``t_m' * t_k'``
+    wins, ties to the wider slab, among the tiles that fit a share of the
+    SM's shared memory; when none does, among those that fit one block at
+    all.  The share is half of one block's 227 KB for the sliced kernel
+    (``fwd``).  For the persistent kernels (``chain_fwd``, ``chain_bwd``,
+    ``grad``) it is what leaves room for a second block on the SM
+    (``TWO_BLOCK_SMEM_BYTES``), and among those tiles the ones whose runs of
+    the ``(M, Q_{n-1}..Q_0, S)`` view fill a 32-byte sector (``t_k' /
+    prod(ps) * in_bytes >= 32``) come first.  Whether two blocks are
+    resident also depends on registers: the launch takes the blocks per SM
+    from the occupancy query, not from this rule.  Raises
+    ``VmemOverflowError`` when not even ``t_m'=1, t_k'=prod(ps)`` fits."""
     pprod = math.prod(ps)
     ib = acc_bytes if in_bytes is None else in_bytes
-    share = TWO_BLOCK_SMEM_BYTES if kind == "grad" else SMEM_BYTES // 2
+    persistent = kind != "fwd"
+    share = TWO_BLOCK_SMEM_BYTES if persistent else SMEM_BYTES // 2
     fits = []
     for d in _divisors(t_k // pprod):
         tk = d * pprod
@@ -553,7 +616,7 @@ def block_tile(
                 tm, tk, ps, t_qs, acc_bytes, kind=kind, q_tiled=q_tiled, in_bytes=ib
             )
             if nbytes <= SMEM_BYTES:
-                sector = kind == "grad" and d * ib >= 32
+                sector = persistent and d * ib >= 32
                 fits.append((nbytes <= share, sector, tm * tk, tk, tm))
     if not fits:
         need = block_smem_bytes(
@@ -579,23 +642,25 @@ def chain_geometry(
     acc_bytes: int = 4,
     vmem_budget_elems: int = SMEM_BUDGET_ELEMS,
     direction: str = "fwd",
+    in_bytes: int | None = None,
 ) -> ChainGeometry:
     """Check a chain's tiles as ``chain_pallas`` does, then pick the
-    kernel's block tile.  ``direction="fwd"``: ``x_shape`` is x's ``(B, M,
-    K)``; ``"bwd"``: it is dY's ``(B, M, prod(Q) * S)`` and ``k`` is dX's
-    column count.  Raises ``LoweringError`` on shapes or tiles the kernel
-    cannot take and ``VmemOverflowError`` when the planned tile exceeds the
-    budget (``fused_growth`` forward, ``transposed_growth`` backward) or no
-    block tile fits shared memory.  Memoized: a call's geometry depends on
-    shapes and tiles only, and working it out costs more host time than a
-    small launch."""
+    kernel's block tile for inputs of ``in_bytes`` (default ``acc_bytes``).
+    ``direction="fwd"``: ``x_shape`` is x's ``(B, M, K)``; ``"bwd"``: it is
+    dY's ``(B, M, prod(Q) * S)`` and ``k`` is dX's column count.  Raises
+    ``LoweringError`` on shapes or tiles the kernel cannot take and
+    ``VmemOverflowError`` when the planned tile exceeds the budget
+    (``fused_growth`` forward, ``transposed_growth`` backward) or no block
+    tile fits shared memory.  Memoized: a call's geometry depends on shapes
+    and tiles only, and working it out costs more host time than a small
+    launch."""
     if direction not in ("fwd", "bwd"):
         raise LoweringError(f"unknown direction {direction!r}")
     return _chain_geometry(
         tuple(int(d) for d in x_shape),
         tuple(tuple(int(d) for d in f) for f in f_shapes),
         t_b, t_m, t_k, None if t_qs is None else tuple(t_qs), acc_bytes,
-        vmem_budget_elems, direction,
+        vmem_budget_elems, direction, acc_bytes if in_bytes is None else in_bytes,
     )
 
 
@@ -610,6 +675,7 @@ def _chain_geometry(
     acc_bytes: int,
     vmem_budget_elems: int,
     direction: str,
+    in_bytes: int,
 ) -> ChainGeometry:
     b, m, cols = x_shape
     n = len(f_shapes)
@@ -654,10 +720,10 @@ def _chain_geometry(
     if n > _MAX_FACTORS:
         raise LoweringError(f"a stage chains at most {_MAX_FACTORS} factors, got {n}")
     block_m, block_k = block_tile(
-        t_m, t_k, ps, t_qs, acc_bytes,
-        kind=direction, q_tiled=direction == "bwd" and t_qs != qs,
+        t_m, t_k, ps, t_qs, acc_bytes, kind=f"chain_{direction}",
+        q_tiled=direction == "bwd" and t_qs != qs, in_bytes=in_bytes,
     )
-    return ChainGeometry(b, m, k, ps, qs, t_qs, block_m, block_k)
+    return ChainGeometry(b, m, k, ps, qs, t_qs, block_m, block_k, direction)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -807,8 +873,8 @@ def check_launch(name: str, err: int) -> None:
 _LL, _I, _VP = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
 _IP, _VPP = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p)
 # kron_chain_fwd / kron_chain_bwd(dtype, in, out, fs, ps, qs, tqs, n, B, M,
-# K, t_m, t_k, stream).
-_CHAIN_ARGS = (_I, _VP, _VP, _VPP, _IP, _IP, _IP, _I, _LL, _LL, _LL, _I, _I, _VP)
+# K, t_m, t_k, nblk, stream).
+_CHAIN_ARGS = (_I, _VP, _VP, _VPP, _IP, _IP, _IP, _I, _LL, _LL, _LL, _I, _I, _I, _VP)
 # kron_grad(dtype, x, dy, dx, part, df, fs, ps, qs, n, B, M, K, t_m, t_k,
 # nblk, stream).
 _GRAD_ARGS = (_I, _VP, _VP, _VP, _VP, _VP, _VPP, _IP, _IP, _I, _LL, _LL, _LL, _I, _I, _I, _VP)
@@ -824,12 +890,18 @@ def _ptrs(tensors: Sequence[torch.Tensor]):
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
-def _chain_launch(name, inp, out, factors, geo, code):
+def _chain_launch(inp, out, factors, geo, code):
+    """One launch of the chain kernel of ``geo.direction`` on a persistent
+    grid: as many blocks as the card holds at once (``grad_blocks`` from the
+    occupancy query), never more than the walk has tiles."""
+    name = f"chain_{geo.direction}"
+    per_sm, _ = chain_occupancy(geo, code, inp.device)
+    nblk = grad_blocks(sm_count(inp.device), per_sm, geo.tiles, 1)
     with torch.cuda.device(inp.device):
         err = kernel_fn(name, _CHAIN_ARGS)(
             code, inp.data_ptr(), out.data_ptr(), _ptrs(factors), _ints(geo.ps),
             _ints(geo.qs), _ints(geo.t_qs), len(factors), geo.b, geo.m, geo.k,
-            geo.block_m, geo.block_k, torch.cuda.current_stream().cuda_stream,
+            geo.block_m, geo.block_k, nblk, torch.cuda.current_stream().cuda_stream,
         )
     check_launch(name, err)
 
@@ -850,21 +922,22 @@ def chain_cuda(
     (B=1 for an unbatched stage).  Returns the ``(B, M, prod(Q) * K/prod(P))``
     chain output in x's dtype, accumulated in ``acc_dtype`` through the whole
     chain.  The tiles are checked as ``chain_pallas`` checks them; the block
-    tile is ``block_tile``'s.  Raises on CPU tensors: their path is
-    ``chain_reference``.
+    tile is ``block_tile``'s, the persistent grid from the occupancy query.
+    Raises on CPU tensors: their path is ``chain_reference``.
     """
     global chain_launches
     acc = _resolve_acc(acc_dtype, x.dtype)
     geo = chain_geometry(
         x.shape, [f.shape for f in factors], t_b=t_b, t_m=t_m, t_k=t_k,
         t_qs=t_qs, acc_bytes=acc.itemsize, vmem_budget_elems=vmem_budget_elems,
+        in_bytes=x.element_size(),
     )
     require_cuda("chain_cuda", x, *factors)
     code = kernel_dtype_code(x, factors, acc)
     y = torch.empty((geo.b, geo.m, geo.out_cols), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    _chain_launch("chain_fwd", x, y, factors, geo, code)
+    _chain_launch(x, y, factors, geo, code)
     chain_launches += 1
     return y
 
@@ -900,7 +973,8 @@ def chain_bwd_cuda(
     the transposes applied last-applied factor first, the partial dX of the
     Q-tiles (``t_qs``) summed in ``acc_dtype`` inside the kernel.  ``t_k`` is
     in dX's columns.  The tiles are checked as ``chain_pallas(direction=
-    "bwd")`` checks them.  Raises on CPU tensors: their path is
+    "bwd")`` checks them; the block tile is ``block_tile``'s, the persistent
+    grid from the occupancy query.  Raises on CPU tensors: their path is
     ``chain_bwd_reference``.
     """
     global chain_bwd_launches
@@ -908,14 +982,14 @@ def chain_bwd_cuda(
     geo = chain_geometry(
         dy.shape, [f.shape for f in factors], t_b=t_b, t_m=t_m, t_k=t_k,
         t_qs=t_qs, acc_bytes=acc.itemsize, vmem_budget_elems=vmem_budget_elems,
-        direction="bwd",
+        direction="bwd", in_bytes=dy.element_size(),
     )
     require_cuda("chain_bwd_cuda", dy, *factors)
     code = kernel_dtype_code(dy, factors, acc)
     dx = torch.empty((geo.b, geo.m, geo.k), dtype=dy.dtype, device=dy.device)
     if dx.numel() == 0:
         return dx
-    _chain_launch("chain_bwd", dy, dx, factors, geo, code)
+    _chain_launch(dy, dx, factors, geo, code)
     chain_bwd_launches += 1
     return dx
 
@@ -934,11 +1008,11 @@ def chain_bwd_reference(
 
 
 def grad_blocks(sms: int, per_sm: int, tiles: int, b: int) -> int:
-    """Blocks per batch sample of a persistent launch (grad.cu, sliced_t.cu
-    with ``b=1``): as many as the card holds at once (``sms`` SMs times the
-    ``per_sm`` blocks the occupancy query reports), shared among the ``b``
-    samples, never more than a sample has tiles and at least one.  Each
-    block of the stage backward writes one dF partial."""
+    """Blocks per batch sample of a persistent launch (grad.cu; the chain
+    kernels and sliced_t.cu with ``b=1``): as many as the card holds at once
+    (``sms`` SMs times the ``per_sm`` blocks the occupancy query reports),
+    shared among the ``b`` samples, never more than a sample has tiles and
+    at least one.  Each block of the stage backward writes one dF partial."""
     return max(1, min(tiles, sms * per_sm // b))
 
 
@@ -983,6 +1057,40 @@ def grad_occupancy(x: torch.Tensor, dy: torch.Tensor, geo: GradGeometry, code: i
     return _grad_occupancy(
         code, x.data_ptr() % 16, dy.data_ptr() % 16, geo.ps, geo.qs, geo.m, geo.k,
         geo.block_m, geo.block_k, x.device,
+    )
+
+
+# kron_chain_fwd_occupancy / kron_chain_bwd_occupancy(dtype, ps, qs, tqs, n,
+# M, K, t_m, t_k, &blocks, &smem).
+_CHAIN_OCC_ARGS = (_I, _IP, _IP, _IP, _I, _LL, _LL, _I, _I)
+
+
+@functools.lru_cache(maxsize=256)
+def _chain_occupancy(direction, code, ps, qs, t_qs, m, k, t_m, t_k, device):
+    name = f"chain_{direction}"
+    with torch.cuda.device(device):
+        per_sm, smem = occupancy(
+            name, _CHAIN_OCC_ARGS, code, _ints(ps), _ints(qs), _ints(t_qs), len(ps), m, k,
+            t_m, t_k,
+        )
+    in_bytes, acc_bytes = CODE_BYTES[code]
+    model = block_smem_bytes(
+        t_m, t_k, ps, t_qs, acc_bytes, kind=name, q_tiled=t_qs != qs, in_bytes=in_bytes,
+    )
+    if smem != model:
+        raise RuntimeError(f"{name}.cu lays out {smem} bytes of shared memory, the model {model}")
+    return per_sm, smem
+
+
+def chain_occupancy(geo: ChainGeometry, code: int, device: torch.device) -> tuple[int, int]:
+    """(blocks per SM, shared-memory bytes) of the chain kernel of
+    ``geo.direction`` at ``geo``'s block tile, from the kernel's occupancy
+    query (``kron_chain_fwd_occupancy`` / ``kron_chain_bwd_occupancy``);
+    memoized.  Raises when the kernel's layout and ``block_smem_bytes``
+    disagree."""
+    return _chain_occupancy(
+        geo.direction, code, geo.ps, geo.qs, geo.t_qs, geo.m, geo.k, geo.block_m,
+        geo.block_k, device,
     )
 
 
@@ -1136,7 +1244,7 @@ def run_stage(
         acc = _resolve_acc(instr.acc_dtype, y.dtype)
         chain_geometry(
             y3.shape, [f.shape for f in fs3], acc_bytes=acc.itemsize,
-            direction=instr.direction, **tiles,
+            direction=instr.direction, in_bytes=y.element_size(), **tiles,
         )
         twin = chain_reference if fwd else chain_bwd_reference
         out = twin(y3, *fs3, acc_dtype=instr.acc_dtype)
@@ -1248,10 +1356,13 @@ __all__ = [
     "grad_cuda",
     "grad_reference",
     "chain_geometry",
+    "chain_walk",
+    "chain_tile_coords",
     "grad_geometry",
     "grad_live_elems",
     "grad_blocks",
     "grad_occupancy",
+    "chain_occupancy",
     "block_tile",
     "block_smem_bytes",
     "fused_growth",

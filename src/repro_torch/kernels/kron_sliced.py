@@ -21,12 +21,15 @@ from ..runtime.guard import LoweringError, VmemOverflowError
 from . import _build
 from .emit import (
     ASYNC_THREADS,
+    CODE_BYTES,
     SMEM_BYTES,
     TWO_BLOCK_SMEM_BYTES,
     _divisors,
     acc_dtype_for,
+    block_smem_bytes,
     block_tile,
     kernel_dtype_code,
+    occupancy,
     require_cuda,
     sliced_apply,
 )
@@ -111,6 +114,23 @@ def sliced_tiles(
     )
 
 
+# kron_sliced_occupancy(dtype, M, K, p, q, t_m, t_s, t_q, &blocks, &smem)
+_OCC_ARGS = (ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong) + (ctypes.c_int,) * 5
+
+
+@functools.lru_cache(maxsize=256)
+def sliced_occupancy(code, m, s, p, q, t_m, t_s, t_q, device):
+    """(blocks per SM, shared-memory bytes) of ``csrc/sliced.cu``'s kernel at
+    these tiles, from its occupancy query; memoized.  Raises when the
+    kernel's layout and ``block_smem_bytes`` disagree."""
+    with torch.cuda.device(device):
+        per_sm, smem = occupancy("sliced", _OCC_ARGS, code, m, s * p, p, q, t_m, t_s, t_q)
+    model = block_smem_bytes(t_m, t_s * p, (p,), (t_q,), CODE_BYTES[code][1])
+    if smem != model:
+        raise RuntimeError(f"sliced.cu lays out {smem} bytes of shared memory, the model {model}")
+    return per_sm, smem
+
+
 def _sliced_fn():
     fn = _build.library("sliced").kron_sliced
     if fn.argtypes is None:
@@ -166,6 +186,7 @@ def sliced_multiply_reference(x: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
 __all__ = [
     "sliced_multiply_cuda",
     "sliced_multiply_reference",
+    "sliced_occupancy",
     "sliced_t_smem_bytes",
     "sliced_tiles",
 ]

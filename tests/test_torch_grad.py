@@ -422,25 +422,26 @@ def test_grad_tile_checks_match_grad_pallas(x_shape, dy_shape, pqs, tiles):
                      vmem_budget_elems=BUDGET, **tiles)
 
 
-@pytest.mark.parametrize("kind", ["bwd", "grad"])
+@pytest.mark.parametrize(
+    "kind", [pytest.param("chain_bwd", id="bwd"), "grad", "chain_fwd"])
 @pytest.mark.parametrize(
     "t_m,t_k,ps,qs",
     [(4, 8192, (32, 32), (32, 32)), (2, 4864, (64,), (128,)), (2, 3380, (65,), (20,)),
      (1, 8192, (16, 16), (16, 16))],
 )
 def test_backward_block_tiles_are_the_largest_that_fit(t_m, t_k, ps, qs, kind):
-    # The chain kernels prefer tiles within half of one block's 227 KB; the
-    # stage backward prefers tiles that leave room for a second block on the
-    # SM, then dY runs that fill a 32-byte sector; then the largest tile,
+    # The persistent kernels (the chains and the stage backward) prefer
+    # tiles that leave room for a second block on the SM, then runs of the
+    # (M, Q.., S) view that fill a 32-byte sector; then the largest tile,
     # ties to the wider slab.
     tm, tk = TE.block_tile(t_m, t_k, ps, qs, 4, kind=kind)
     pprod = math.prod(ps)
     assert t_k % tk == 0 and tk % pprod == 0 and t_m % tm == 0
-    share = TE.TWO_BLOCK_SMEM_BYTES if kind == "grad" else TE.SMEM_BYTES // 2
+    share = TE.TWO_BLOCK_SMEM_BYTES
 
     def key(m, k):
         nbytes = TE.block_smem_bytes(m, k, ps, qs, 4, kind=kind)
-        return (nbytes <= share, kind == "grad" and k // pprod * 4 >= 32, m * k, k)
+        return (nbytes <= share, k // pprod * 4 >= 32, m * k, k)
 
     assert TE.block_smem_bytes(tm, tk, ps, qs, 4, kind=kind) <= TE.SMEM_BYTES
     for d in range(1, t_k // pprod + 1):
@@ -452,13 +453,16 @@ def test_backward_block_tiles_are_the_largest_that_fit(t_m, t_k, ps, qs, kind):
 
 
 def test_backward_smem_models_count_every_region():
-    # One (32, 32) stage at t_m=1, t_k=4096 in f32, by hand: transposed
-    # states of 4096 columns in each buffer and the (32, 32) panel (Q-tiles
-    # (16, 32): states of 2048 columns and the (t_m, t_k) sum of dX).
-    assert TE.block_smem_bytes(1, 4096, (32, 32), (32, 32), 4, kind="bwd") == 4 * (
-        4096 + 4096 + 1024)
-    assert TE.block_smem_bytes(1, 4096, (32, 32), (16, 32), 4, kind="bwd", q_tiled=True) == 4 * (
-        2048 + 2048 + 32 * 32 + 4096)
+    # One (32, 32) stage at t_m=1, t_k=4096 in f32, by hand, for the
+    # transposed chain: two slots of the flat dY block (4096 columns), the
+    # flat G_1 (4096), both transposed (32, 32) panels and the table of 1024
+    # dY runs (Q-tiles (16, 32): a dY block and G_1 of 2048 columns, panels
+    # of 16 and 32 rows, 512 runs and the (t_m, t_k) sum of dX).
+    assert TE.block_smem_bytes(1, 4096, (32, 32), (32, 32), 4, kind="chain_bwd") == 4 * (
+        2 * 4096 + 4096 + 2 * 1024 + 1024)
+    assert TE.block_smem_bytes(1, 4096, (32, 32), (16, 32), 4, kind="chain_bwd",
+                               q_tiled=True) == 4 * (
+        2 * 2048 + 2048 + 16 * 32 + 32 * 32 + 512 + 4096)
     # The stage backward, in bytes: the slot of the raw x slab (4096; an f32
     # multi-factor stage copies dY straight into G_2); the forward states
     # u_0, u_1 (32 rows of 128 slices at stride 129); the gradient states
