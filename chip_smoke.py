@@ -11,18 +11,16 @@ port's main path — ``KronOp(ps, qs)(x, factors)`` on CUDA tensors and
 went through the kernels.  Phases, one line each:
 
   1. build / device: nvcc time and libraries, each kernel's ptxas registers
-     and spills (the persistent kernels chain_fwd, chain_bwd, grad and
-     sliced_t must not spill); the card's name and power limit.
+     and spills (no kernel may spill); the card's name and power limit.
   2. check: each of the five kernels against its plain twin at stated
      tolerances (relative to max|ref|: 1e-5 f32, 1e-2 bf16, 1e-12 f64; the
      stage backward's dF against its twin run in f64 at 1e-4 f32, 2e-2
      bf16), and one small f32 KronOp, value and gradients, against
-     ``x @ kron_matrix(factors)``.  The chain kernels, the stage backward
-     and the transposed sliced multiply also run cases that reach each
-     branch of their code (many tiles per block, walks crossing samples and
-     Q-tile digits, tensor cores, odd slices, copies too short for 16
-     bytes); every transposed chain and stage backward runs twice and is
-     asserted bitwise equal.
+     ``x @ kron_matrix(factors)``.  Every kernel also runs cases that reach
+     each branch of its code (many tiles per block, walks crossing samples
+     and Q-tile digits, tensor cores, odd slices, copies too short for 16
+     bytes, misaligned bases); every sliced multiply, transposed chain and
+     stage backward runs twice and is asserted bitwise equal.
   3. main: five full-size KronOp calls (fig9, gp16, ffn, compress,
      fig9-unfused) and five full-size backward passes (fig9-grad, fig9-dx,
      gp16-grad, ffn-grad, fig9-unfused-grad): launches per call (asserted),
@@ -31,11 +29,14 @@ went through the kernels.  Phases, one line each:
      of one PyTorch yardstick (``torch.einsum``, or ``torch.autograd.grad``
      through it), beside the card's bound for the same function.
   4. alone: one launch of every kernel at its main cases' shapes, timed by
-     itself (chain_fwd: each stage of fig9, gp16 and ffn; chain_bwd: fig9-dx;
-     grad: fig9-grad and ffn-grad; sliced and sliced_t: one fig9-unfused
-     launch), beside its per-launch bound, the blocks per SM from the
-     occupancy query (at least two for the persistent kernels, or the run
-     fails) and one PyTorch call computing the same function.
+     itself (chain_fwd: each stage of fig9, gp16 and ffn; chain_bwd:
+     fig9-dx; grad: fig9-grad and ffn-grad; sliced: one fig9-unfused launch
+     and ffn's two stages through plan=None in bf16; sliced_t: one
+     fig9-unfused-grad launch), beside its per-launch bound, the blocks per
+     SM from the occupancy query (at least two, or the run fails) and one
+     PyTorch call computing the same function.  CUDA events around each
+     call; the sliced rows add the device time alone (torch.profiler),
+     which leaves out the host time between launches.
   5. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit.
   6. last line: ``{"ok": true, "device": {...}}``.
 
@@ -109,6 +110,21 @@ def time_ms(fn) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn) -> float:
+    """Device time of one ``fn`` call: the time of every kernel, memset and
+    copy it launches, from ``torch.profiler`` over ITERS calls after WARMUP;
+    host time between launches is left out."""
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(ITERS):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages())
+    return total / ITERS / 1e3
 
 
 def randn(gen, shape, dtype):
@@ -200,12 +216,27 @@ CHAIN_CASES = [
      torch.float32, (16, 32), 1),
     ("bf16 odd runs (5,7)->(3,2)", (7, 5), (2, 3), 16, 3, torch.bfloat16, None, 1),
 ]
-# (name, M, P, Q, S, dtype)
+# (name, M, P, Q, S, dtype, element offset of x's base).  Beside the plain
+# cases, the sliced kernel's own branches: blocks that walk many tiles each;
+# a Q-tiled panel (256 x 256) whose walk crosses Q-tiles; bf16 on the tensor
+# cores ("mma") with P and Q not multiples of 16; a bf16 factor too large for
+# them; odd S (bf16 runs too short for 4-byte copies and stores); an x base
+# that is not 16-byte aligned.  Each sliced launch runs twice, asserted
+# bitwise equal.
 SLICED_CASES = [
-    ("f32 32x32", 64, 32, 32, 2048, torch.float32),
-    ("bf16 64x128", 64, 64, 128, 76, torch.bfloat16),
-    ("f64 40x76", 32, 40, 76, 64, torch.float64),
-    ("f32 odd 65x20 M=10", 10, 65, 20, 52, torch.float32),
+    ("f32 32x32", 64, 32, 32, 2048, torch.float32, 0),
+    ("mma bf16 64x128", 64, 64, 128, 76, torch.bfloat16, 0),
+    ("f64 40x76", 32, 40, 76, 64, torch.float64, 0),
+    ("f32 odd 65x20 M=10", 10, 65, 20, 52, torch.float32, 0),
+    ("f32 32x32 many tiles per block", 2048, 32, 32, 256, torch.float32, 0),
+    ("f32 Q-tiled 256x256 crossing Q-tiles", 64, 256, 256, 64, torch.float32, 0),
+    ("mma bf16 40->76", 64, 40, 76, 64, torch.bfloat16, 0),
+    ("mma bf16 65->20", 10, 65, 20, 52, torch.bfloat16, 0),
+    ("bf16 256x256 on the CUDA cores", 16, 256, 256, 16, torch.bfloat16, 0),
+    ("mma bf16 odd S 40->76", 6, 40, 76, 39, torch.bfloat16, 0),
+    ("mma bf16 odd S odd P 65->20", 6, 65, 20, 39, torch.bfloat16, 0),
+    ("f32 x at an element offset", 16, 32, 32, 128, torch.float32, 1),
+    ("mma bf16 x at an element offset", 16, 40, 76, 64, torch.bfloat16, 1),
 ]
 # The transposed sliced multiply's own branches: Q tiled (a 256 x 256 panel
 # does not stay whole), slices not a multiple of 4, bf16 runs too short for
@@ -305,15 +336,17 @@ def check_kernels(gen) -> dict:
             record("grad", f"{name} dF{i} (vs f64)", d, r, GRAD_TOLERANCE[dtype])
         repeat("grad", name, (dx, *dfs), flat(emit.grad_cuda(x, dy, *fs, t_m=t_m, t_k=t_k)))
 
-    for name, m, p, q, s, dtype in SLICED_CASES:
-        x = randn(gen, (m, s * p), dtype)
+    for name, m, p, q, s, dtype, offset in SLICED_CASES:
+        # A contiguous view at `offset` elements into its buffer.
+        x = randn(gen, (m * s * p + offset,), dtype)[offset:].view(m, s * p)
         f = randn(gen, (p, q), dtype)
         acc_bytes = emit.acc_dtype_for(dtype).itemsize
         got = kron_sliced.sliced_multiply_cuda(x, f)
         ref = kron_sliced.sliced_multiply_reference(x, f)
         torch.cuda.synchronize()
-        tiles = kron_sliced.sliced_tiles(m, s, p, q, acc_bytes)
+        tiles = kron_sliced.sliced_tiles(m, s, p, q, acc_bytes, in_bytes=x.element_size())
         record("sliced", f"{name} tiles={tiles}", got, ref, TOLERANCE[dtype])
+        repeat("sliced", name, (got,), (kron_sliced.sliced_multiply_cuda(x, f),))
         dy = randn(gen, (m, q * s), dtype)
         got = kron_sliced_t.sliced_multiply_t_cuda(dy, f)
         ref = kron_sliced_t.sliced_multiply_t_reference(dy, f)
@@ -720,7 +753,7 @@ def distinct_stages(prog, k):
 
 
 # Kernels whose blocks must share an SM two at a time (occupancy query).
-TWO_BLOCK_KERNELS = ("chain_fwd", "chain_bwd", "grad", "sliced_t")
+TWO_BLOCK_KERNELS = ("chain_fwd", "chain_bwd", "grad", "sliced", "sliced_t")
 
 
 def run_alone(gen, peaks) -> dict:
@@ -823,23 +856,41 @@ def run_alone(gen, peaks) -> dict:
             })
             del x, dy, fs, xl, fl, yl
 
-    # sliced (fig9-unfused) and sliced_t (fig9-unfused-grad): each of their
-    # launches is (1024, 32 * 32768) x (32, 32).
+    # sliced: one fig9-unfused launch, (1024, 32 * 32768) x (32, 32) in f32
+    # (each of the 7 on the main path), and ffn's two stages through the
+    # plan=None path in bf16, (4096, 40 * 64) x (40, 76) and (4096, 64 * 76)
+    # x (64, 128), on the tensor cores.
+    for case, m, p, q, s_, dtype in (
+        ("fig9-unfused", 1024, 32, 32, 32768, torch.float32),
+        ("ffn plan=None stage 0", 4096, 40, 76, 64, torch.bfloat16),
+        ("ffn plan=None stage 1", 4096, 64, 128, 76, torch.bfloat16),
+    ):
+        x = randn(gen, (m, s_ * p), dtype)
+        f = randn(gen, (p, q), dtype)
+        acc = emit.acc_dtype_for(dtype)
+        code = emit.kernel_dtype_code(x, (f,), acc)
+        t_m, t_s, t_q = kron_sliced.sliced_tiles(m, s_, p, q, acc.itemsize,
+                                                 in_bytes=x.element_size())
+        per_sm, smem = kron_sliced.sliced_occupancy(code, m, s_, p, q, t_m, t_s, t_q, x.device)
+        call = lambda: kron_sliced.sliced_multiply_cuda(x, f)  # noqa: E731
+        ms, dev_ms = time_ms(call), device_ms(call)
+        xv = x.view(m, s_, p)
+        lib = lambda: torch.einsum("msp,pq->mqs", xv, f)  # noqa: E731
+        library_ms, library_dev_ms = time_ms(lib), device_ms(lib)
+        b_ms, b_by = bound((m * s_ * p + m * q * s_ + p * q) * x.element_size(),
+                           2 * m * s_ * p * q, peaks, dtype)
+        report("sliced", {
+            "case": case, "dtype": str(dtype).replace("torch.", ""), "p": p, "q": q,
+            "mma": kron_sliced.sliced_uses_mma(p, q, x.element_size()),
+            "tiles": [t_m, t_s, t_q], "smem_bytes": smem, "blocks_per_sm": per_sm, "ms": ms,
+            "device_ms": dev_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "library_device_ms": library_dev_ms,
+        })
+        del x, xv, f
+    # sliced_t (fig9-unfused-grad): each launch is (1024, 32 * 32768) x (32, 32).
     m, p, q, s_ = 1024, 32, 32, 32768
     f = randn(gen, (p, q), torch.float32)
     b_ms, b_by = bound((2 * m * q * s_ + p * q) * 4, 2 * m * s_ * p * q, peaks, torch.float32)
-    x = randn(gen, (m, s_ * p), torch.float32)
-    t_m, t_s, t_q = kron_sliced.sliced_tiles(m, s_, p, q, 4)
-    per_sm, smem = kron_sliced.sliced_occupancy(0, m, s_, p, q, t_m, t_s, t_q, x.device)
-    ms = time_ms(lambda: kron_sliced.sliced_multiply_cuda(x, f))
-    xv = x.view(m, s_, p)
-    library_ms = time_ms(lambda: torch.einsum("msp,pq->mqs", xv, f))
-    report("sliced", {
-        "case": "fig9-unfused", "tiles": [t_m, t_s, t_q], "smem_bytes": smem,
-        "blocks_per_sm": per_sm, "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": library_ms,
-    })
-    del x, xv
     dy = randn(gen, (m, q * s_), torch.float32)
     t_m, t_s, t_q = kron_sliced.sliced_tiles(m, s_, p, q, 4, kind="sliced_t", in_bytes=4)
     per_sm, smem = kron_sliced_t.sliced_t_occupancy(

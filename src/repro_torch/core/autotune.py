@@ -39,10 +39,10 @@ from .kron import KronProblem
 PEAK_FLOPS = 67e12
 HBM_BW = 3.35e12  # bytes/s
 SMEM_BYTES = emit_mod.SMEM_BYTES  # 227 KB: what one block may hold
-# Granularity of the kernels' work (csrc/kron_tile.cuh), in place of the
-# TPU's 128x128 MXU and (8, 128) tile: each thread owns kRQ=4 columns of the
-# factor panel and kRS=4 slices.  The contraction runs one p at a time, so
-# P needs no padding.
+# Granularity of the kernels' work (the register tiles of
+# csrc/kron_async.cuh), in place of the TPU's 128x128 MXU and (8, 128) tile:
+# each thread owns 4 (or 8) columns of the factor panel and up to 4 slices.
+# The chain kernels contract one p at a time, so P needs no padding.
 COL_ALIGN = 4
 ROW_ALIGN = 4
 

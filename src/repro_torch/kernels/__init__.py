@@ -14,8 +14,9 @@ ops.py          — sliced-multiply (and transpose) backend dispatch.
 ref.py          — plain PyTorch oracles for the tests.
 _build.py       — builds csrc/*.cu with nvcc at the first launch; ctypes.
 
-csrc/kron_tile.cuh is the block routine of chain_fwd, chain_bwd and sliced;
-csrc/kron_async.cuh holds the Hopper pieces of grad and sliced_t (the
-cp.async ring, the register-tiled step, the persistent dF accumulator, the
-bf16 mma.sync step).
+csrc/kron_async.cuh holds the Hopper pieces all five kernels share (the
+cp.async copies, the register-tiled step, the chain kernels' arguments and
+walk, the persistent dF accumulator, the bf16 mma.sync step);
+csrc/kron_tile.cuh the scalar helpers under it (conversions, vector loads
+and stores, div_fast).
 """

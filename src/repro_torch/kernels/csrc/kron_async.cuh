@@ -1,5 +1,5 @@
 // Hopper pieces of the persistent kernels (chain_fwd.cu, chain_bwd.cu,
-// grad.cu, sliced_t.cu): the asynchronous copies of the next tile, the
+// grad.cu, sliced.cu, sliced_t.cu): the asynchronous copies of the next tile, the
 // register-tiled contraction step, the chain kernels' launch arguments and
 // walk, the persistent per-thread dF accumulator and the bf16 tensor-core
 // step.

@@ -416,11 +416,10 @@ def chain_tile_coords(geo: ChainGeometry, tile: int) -> tuple[int, int, int, int
     return group // q_tiles, group % q_tiles, mt, kt
 
 
-_KINDS_SMEM = ("fwd", "chain_fwd", "chain_bwd", "grad")
+_KINDS_SMEM = ("chain_fwd", "chain_bwd", "grad")
 # Shared memory of one SM (228 KB); each resident block also holds 1 KB for
-# the runtime.  A block of the persistent kernels (chain_fwd.cu, chain_bwd.cu,
-# grad.cu, sliced_t.cu) that leaves room for a second one takes at most
-# SM_SMEM_BYTES / 2 - 1 KB.
+# the runtime.  A block of the persistent kernels (every kernel of csrc/)
+# that leaves room for a second one takes at most SM_SMEM_BYTES / 2 - 1 KB.
 SM_SMEM_BYTES = 233472
 TWO_BLOCK_SMEM_BYTES = SM_SMEM_BYTES // 2 - 1024  # 115,712
 ASYNC_THREADS = 256  # kron::kAsyncThreads: threads of a persistent kernel's block
@@ -531,24 +530,19 @@ def block_smem_bytes(
     t_qs: Sequence[int],
     acc_bytes: int,
     *,
-    kind: str = "fwd",
+    kind: str,
     q_tiled: bool = False,
     in_bytes: int | None = None,
 ) -> int:
     """Shared memory of one block of a chain kernel, in bytes; ``in_bytes``
-    is the input dtype's size (default ``acc_bytes``).
+    is the input dtype's size (default ``acc_bytes``).  Every region is
+    rounded to 16 bytes.
 
-    ``kind="fwd"`` (sliced.cu; ``kron::make_args``, in the accumulator type,
-    every region rounded to 4 elements): the two chain-state buffers (even
-    and odd states, each ``(t_m, p_i, s_i | 1)``) and the largest ``(p_i,
-    t_q_i)`` factor panel, columns padded to a multiple of 4.
-
-    ``kind="chain_fwd"`` (chain_fwd.cu; every region rounded to 16 bytes):
-    the slot of the raw ``(t_m, t_k)`` x slab in the input dtype; the two
-    buffers of the chain states ``0 .. n-1`` in turn, each ``(t_m, p_i, s_i |
-    1)`` in the accumulator type; every factor's ``(p_i, t_q_i)`` panel,
-    columns padded to 8; the final-index table, one int per slice of the
-    last state.
+    ``kind="chain_fwd"`` (chain_fwd.cu): the slot of the raw ``(t_m, t_k)``
+    x slab in the input dtype; the two buffers of the chain states ``0 ..
+    n-1`` in turn, each ``(t_m, p_i, s_i | 1)`` in the accumulator type;
+    every factor's ``(p_i, t_q_i)`` panel, columns padded to 8; the
+    final-index table, one int per slice of the last state.
 
     ``kind="chain_bwd"`` (chain_bwd.cu): two slots of the flat dY block
     ``(t_m, c_n)`` in the input dtype (``c_0 = t_k``, ``c_{i+1} = t_q_i *
@@ -558,23 +552,14 @@ def block_smem_bytes(
     and, when Q is tiled (``q_tiled``), the ``(t_m, t_k)`` sum of dX.
 
     ``kind="grad"`` (grad.cu; ``t_qs`` must be the whole Q): see
-    ``_grad_smem_bytes``."""
+    ``_grad_smem_bytes``.  The sliced kernels have their own models
+    (``kron_sliced.sliced_smem_bytes``, ``sliced_t_smem_bytes``)."""
     if kind not in _KINDS_SMEM:
         raise ValueError(f"unknown kernel kind {kind!r}")
     ib = acc_bytes if in_bytes is None else in_bytes
     if kind == "grad":
         return _grad_smem_bytes(t_m, t_k, tuple(ps), tuple(t_qs), acc_bytes, ib)
-    if kind != "fwd":
-        return _chain_smem_bytes(kind, t_m, t_k, tuple(ps), tuple(t_qs), acc_bytes, ib, q_tiled)
-    bufs = [0, 0]
-    panel = 0
-    cols = t_k
-    for i, (p, tq) in enumerate(zip(ps, t_qs)):
-        s = cols // p
-        bufs[i % 2] = max(bufs[i % 2], _r4(t_m * p * (s | 1)))
-        panel = max(panel, p * _r4(tq))
-        cols = s * tq
-    return acc_bytes * (bufs[0] + bufs[1] + panel)
+    return _chain_smem_bytes(kind, t_m, t_k, tuple(ps), tuple(t_qs), acc_bytes, ib, q_tiled)
 
 
 def block_tile(
@@ -584,7 +569,7 @@ def block_tile(
     t_qs: Sequence[int],
     acc_bytes: int,
     *,
-    kind: str = "fwd",
+    kind: str,
     q_tiled: bool = False,
     in_bytes: int | None = None,
 ) -> tuple[int, int]:
@@ -592,22 +577,17 @@ def block_tile(
     (``block_smem_bytes``): ``t_m'`` divides ``t_m``, ``t_k'`` is a multiple
     of ``prod(ps)`` dividing ``t_k`` (tiles never split a contraction, so the
     choice changes no result).  This rule owns the kernels' block tiles; the
-    plan's ``(t_m, t_k)`` only bounds them.  The largest ``t_m' * t_k'``
-    wins, ties to the wider slab, among the tiles that fit a share of the
-    SM's shared memory; when none does, among those that fit one block at
-    all.  The share is half of one block's 227 KB for the sliced kernel
-    (``fwd``).  For the persistent kernels (``chain_fwd``, ``chain_bwd``,
-    ``grad``) it is what leaves room for a second block on the SM
-    (``TWO_BLOCK_SMEM_BYTES``), and among those tiles the ones whose runs of
-    the ``(M, Q_{n-1}..Q_0, S)`` view fill a 32-byte sector (``t_k' /
-    prod(ps) * in_bytes >= 32``) come first.  Whether two blocks are
-    resident also depends on registers: the launch takes the blocks per SM
-    from the occupancy query, not from this rule.  Raises
-    ``VmemOverflowError`` when not even ``t_m'=1, t_k'=prod(ps)`` fits."""
+    plan's ``(t_m, t_k)`` only bounds them.  The tiles that leave room for a
+    second block on the SM (``TWO_BLOCK_SMEM_BYTES``) come first, then those
+    whose runs of the ``(M, Q_{n-1}..Q_0, S)`` view fill a 32-byte sector
+    (``t_k' / prod(ps) * in_bytes >= 32``), then the largest ``t_m' * t_k'``,
+    ties to the wider slab; a tile that fits only one block is taken when
+    nothing smaller fits.  Whether two blocks are resident also depends on
+    registers: the launch takes the blocks per SM from the occupancy query,
+    not from this rule.  Raises ``VmemOverflowError`` when not even
+    ``t_m'=1, t_k'=prod(ps)`` fits one block."""
     pprod = math.prod(ps)
     ib = acc_bytes if in_bytes is None else in_bytes
-    persistent = kind != "fwd"
-    share = TWO_BLOCK_SMEM_BYTES if persistent else SMEM_BYTES // 2
     fits = []
     for d in _divisors(t_k // pprod):
         tk = d * pprod
@@ -616,8 +596,7 @@ def block_tile(
                 tm, tk, ps, t_qs, acc_bytes, kind=kind, q_tiled=q_tiled, in_bytes=ib
             )
             if nbytes <= SMEM_BYTES:
-                sector = persistent and d * ib >= 32
-                fits.append((nbytes <= share, sector, tm * tk, tk, tm))
+                fits.append((nbytes <= TWO_BLOCK_SMEM_BYTES, d * ib >= 32, tm * tk, tk, tm))
     if not fits:
         need = block_smem_bytes(
             1, pprod, ps, t_qs, acc_bytes, kind=kind, q_tiled=q_tiled, in_bytes=ib

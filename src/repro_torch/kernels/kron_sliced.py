@@ -4,11 +4,14 @@ Semantics: for ``X: (M, K)`` and ``F: (P, Q)`` with ``S = K // P`` compute
 
     Y[m, q*S + s] = sum_p X[m, s*P + p] * F[p, q]
 
-``sliced_multiply_cuda`` launches ``csrc/sliced.cu`` over the grid
-``(M/t_m, S/t_s, Q/t_q)``: a block stages its ``(t_m, t_s*P)`` slab of x and
-the ``(P, t_q)`` panel of F in shared memory and writes the ``(t_m, t_q,
-t_s)`` block of the ``(M, Q, S)`` view of y, so each element lands at its
-final FastKron index.  ``sliced_multiply_reference`` is its plain twin.
+``sliced_multiply_cuda`` launches ``csrc/sliced.cu`` on a persistent grid
+(as many blocks as the card holds, from the kernel's occupancy query): each
+block walks ``(t_m, t_s)`` tiles of one ``t_q`` Q-tile after another, brings
+the ``(t_m, t_s*P)`` x slabs in through an asynchronous-copy ring and writes
+the ``(t_m, t_q, t_s)`` block of the ``(M, Q, S)`` view of y, so each element
+lands at its final FastKron index.  bf16 launches whose panel fits
+(``sliced_uses_mma``) run on the tensor cores.  ``sliced_multiply_reference``
+is its plain twin.
 """
 from __future__ import annotations
 
@@ -18,7 +21,6 @@ import functools
 import torch
 
 from ..runtime.guard import LoweringError, VmemOverflowError
-from . import _build
 from .emit import (
     ASYNC_THREADS,
     CODE_BYTES,
@@ -26,20 +28,67 @@ from .emit import (
     TWO_BLOCK_SMEM_BYTES,
     _divisors,
     acc_dtype_for,
-    block_smem_bytes,
-    block_tile,
+    check_launch,
+    grad_blocks,
     kernel_dtype_code,
+    kernel_fn,
     occupancy,
     require_cuda,
     sliced_apply,
+    sm_count,
 )
 
 # Launch counter of the sliced kernel: +1 per launch, nowhere else.
 sliced_launches = 0
 
+SLICED_STAGES = 3  # the ring slots of csrc/sliced.cu and csrc/sliced_t.cu (kStages)
+_SLICES = 4  # slices of one thread's register tile (sliced.cu's CUDA cores, sliced_t.cu)
 
-SLICED_T_STAGES = 3  # the ring slots of csrc/sliced_t.cu (kStages)
-_SLICES = 4  # slices of one thread's register tile in sliced_t.cu
+
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def sliced_smem_bytes(
+    t_m: int, t_s: int, p: int, q: int, t_q: int, in_bytes: int, acc_bytes: int,
+    mma: bool = False,
+) -> int:
+    """Shared memory of one ``csrc/sliced.cu`` block (``sliced_args``), in
+    bytes: the ring's three slots of the raw x slab, then the panel, then
+    (tensor cores) the staged output.  Each slice of a slot takes whole
+    16-byte chunks.
+
+    CUDA cores: ``ceil(P / e)`` chunks a slice (``e = 16 / in_bytes``) plus
+    one skew chunk per 4 slices; the ``(P, t_q)`` panel in the accumulator
+    dtype, rows padded to whole chunks, columns to 8.
+
+    Tensor cores (``mma``, bf16, ``t_q = Q``): ``P16 / 8 + 1`` chunks a slice
+    (P padded to 16, an odd count) for the ``t_m * t_s`` slices rounded up to
+    8; the transposed panel ``(Q16, P16 + 8)`` in bf16; the staged ``(t_q,
+    ldo)`` output in bf16, ``ldo`` the slices rounded up to an odd number of
+    chunks of 8."""
+    ns = t_m * t_s
+    if mma:
+        p16, q16 = _up(p, 16), _up(q, 16)
+        n8 = _up(ns, 8)
+        ldo = n8 if n8 % 16 else n8 + 8
+        slot = n8 * (p16 // 8 + 1) * 16
+        panel = q16 * (p16 + 8) * 2
+        stage = t_q * ldo * 2
+    else:
+        ech = 16 // in_bytes
+        cps = -(-p // ech)
+        slot = t_m * (t_s * cps + -(-t_s // _SLICES)) * 16
+        panel = cps * ech * _up(t_q, 8) * acc_bytes
+        stage = 0
+    return SLICED_STAGES * _up(slot, 16) + _up(panel, 16) + _up(stage, 16)
+
+
+def sliced_uses_mma(p: int, q: int, in_bytes: int) -> bool:
+    """sliced.cu runs a bf16 launch on the tensor cores when its whole
+    transposed panel leaves room, at the smallest tile, for a second block
+    on the SM; a larger bf16 factor stays on the CUDA cores."""
+    return in_bytes == 2 and sliced_smem_bytes(1, 1, p, q, q, 2, 4, True) <= TWO_BLOCK_SMEM_BYTES
 
 
 def sliced_t_smem_bytes(
@@ -50,11 +99,11 @@ def sliced_t_smem_bytes(
     t_s)`` dY boxes in the input dtype, and the transposed ``(t_q, P)``
     panel (P padded to 4) in the accumulator dtype, once when Q is whole,
     else one Q-tile slice in every slot."""
-    box = -(-t_m * t_q * t_s * in_bytes // 16) * 16
-    panel = -(-t_q * (-(-p // 4) * 4) * acc_bytes // 16) * 16
+    box = _up(t_m * t_q * t_s * in_bytes, 16)
+    panel = _up(t_q * _up(p, 4) * acc_bytes, 16)
     if t_q < q:
-        return SLICED_T_STAGES * (box + panel)
-    return SLICED_T_STAGES * box + panel
+        return SLICED_STAGES * (box + panel)
+    return SLICED_STAGES * box + panel
 
 
 def sliced_t_fits_threads(t_m: int, t_s: int, p: int) -> bool:
@@ -71,30 +120,36 @@ def sliced_tiles(
     """The card's tiles ``(t_m, t_s, t_q)`` for one sliced multiply
     (``kind="fwd"``, ``csrc/sliced.cu``) or its transpose
     (``kind="sliced_t"``, ``csrc/sliced_t.cu``, where Q is the contraction
-    and the Q-tiles are summed inside the block).
+    and the Q-tiles are summed inside the block), for inputs of ``in_bytes``
+    (default ``acc_bytes``).
 
-    ``fwd``: the widest Q-tile whose block fits shared memory (all of Q when
-    it does, so the Q-wide operand is read once), then ``emit.block_tile``'s
-    rule over the ``(t_m, t_s * P)`` slab.
+    ``fwd``: among the tiles whose block (``sliced_smem_bytes``, on the
+    tensor cores when ``sliced_uses_mma``) leaves room for a second block on
+    the SM, the widest Q-tile (all of Q when it fits, so the panel is loaded
+    once per block; always all of Q on the tensor cores), then output runs
+    that fill a 32-byte sector (``t_s * in_bytes >= 32``), then the largest
+    ``t_m * t_s``, ties to the longer run of slices.
 
     ``sliced_t``: among the tiles that give each of the block's threads at
     most one register tile (``sliced_t_fits_threads``) and fit one block
-    (``sliced_t_smem_bytes`` for inputs of ``in_bytes``, default
-    ``acc_bytes``), those that leave room for a second block on the SM come
-    first, then the widest Q-tile (the panel is loaded once per block when
-    it is all of Q), then the largest ``t_m * t_s``, ties to the longer run
-    of slices.
+    (``sliced_t_smem_bytes``), those that leave room for a second block on
+    the SM come first, then the widest Q-tile, then the largest ``t_m *
+    t_s``, ties to the longer run of slices.
     """
+    ib = acc_bytes if in_bytes is None else in_bytes
+    fits = []
     if kind == "fwd":
-        for t_q in reversed(_divisors(q)):
-            try:
-                t_m, t_k = block_tile(m, s * p, (p,), (t_q,), acc_bytes, kind="fwd")
-            except VmemOverflowError:
-                continue
-            return t_m, t_k // p, t_q
+        mma = sliced_uses_mma(p, q, ib)
+        for t_q in [q] if mma else _divisors(q):
+            for t_s in _divisors(s):
+                for t_m in _divisors(m):
+                    nbytes = sliced_smem_bytes(t_m, t_s, p, q, t_q, ib, acc_bytes, mma)
+                    if nbytes <= TWO_BLOCK_SMEM_BYTES:
+                        fits.append((t_q, t_s * ib >= 32, t_m * t_s, t_s, t_m))
+        if fits:
+            best = max(fits)
+            return best[4], best[3], best[0]
     elif kind == "sliced_t":
-        ib = acc_bytes if in_bytes is None else in_bytes
-        fits = []
         for t_q in _divisors(q):
             for t_s in _divisors(s):
                 for t_m in _divisors(m):
@@ -109,42 +164,39 @@ def sliced_tiles(
     else:
         raise ValueError(f"unknown sliced kernel kind {kind!r}")
     raise VmemOverflowError(
-        f"{kind} sliced multiply with P={p} does not fit one block "
+        f"{kind} sliced multiply with P={p}, Q={q} does not fit one block "
         f"even at t_m=t_s=t_q=1"
     )
 
 
-# kron_sliced_occupancy(dtype, M, K, p, q, t_m, t_s, t_q, &blocks, &smem)
-_OCC_ARGS = (ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong) + (ctypes.c_int,) * 5
+_LL, _I, _VP = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
+# kron_sliced(dtype, mma, x, f, y, M, K, p, q, t_m, t_s, t_q, nblk, stream)
+_SLICED_ARGS = (_I, _I, _VP, _VP, _VP, _LL, _LL, _I, _I, _I, _I, _I, _I, _VP)
+# kron_sliced_occupancy(dtype, mma, M, K, p, q, t_m, t_s, t_q, &blocks, &smem)
+_OCC_ARGS = (_I, _I, _LL, _LL, _I, _I, _I, _I, _I)
 
 
 @functools.lru_cache(maxsize=256)
 def sliced_occupancy(code, m, s, p, q, t_m, t_s, t_q, device):
     """(blocks per SM, shared-memory bytes) of ``csrc/sliced.cu``'s kernel at
     these tiles, from its occupancy query; memoized.  Raises when the
-    kernel's layout and ``block_smem_bytes`` disagree."""
+    kernel's layout and ``sliced_smem_bytes`` disagree."""
+    in_bytes, acc_bytes = CODE_BYTES[code]
+    mma = sliced_uses_mma(p, q, in_bytes)
     with torch.cuda.device(device):
-        per_sm, smem = occupancy("sliced", _OCC_ARGS, code, m, s * p, p, q, t_m, t_s, t_q)
-    model = block_smem_bytes(t_m, t_s * p, (p,), (t_q,), CODE_BYTES[code][1])
+        per_sm, smem = occupancy("sliced", _OCC_ARGS, code, int(mma), m, s * p, p, q, t_m, t_s, t_q)
+    model = sliced_smem_bytes(t_m, t_s, p, q, t_q, in_bytes, acc_bytes, mma)
     if smem != model:
         raise RuntimeError(f"sliced.cu lays out {smem} bytes of shared memory, the model {model}")
     return per_sm, smem
 
 
-def _sliced_fn():
-    fn = _build.library("sliced").kron_sliced
-    if fn.argtypes is None:
-        ll, i, vp = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
-        fn.argtypes = [i, vp, vp, vp, ll, ll, i, i, i, i, i, vp]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def sliced_multiply_cuda(x: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     """One launch of the sliced-multiply kernel: (M, K) x (P, Q) -> (M, Q*S).
 
-    Tiles come from ``sliced_tiles``.  Output in x's dtype, accumulated in
-    f32 (f64 for f64).  Raises on CPU tensors: their path is
+    Tiles come from ``sliced_tiles``, the grid from the occupancy query
+    (``emit.grad_blocks``).  Output in x's dtype, accumulated in f32 (f64
+    for f64).  Raises on CPU tensors: their path is
     ``sliced_multiply_reference``.
     """
     global sliced_launches
@@ -154,22 +206,21 @@ def sliced_multiply_cuda(x: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
         raise LoweringError(f"K={k} not divisible by P={p}")
     s = k // p
     acc = acc_dtype_for(x.dtype)
-    t_m, t_s, t_q = sliced_tiles(m, s, p, q, acc.itemsize)
+    isz = x.element_size()
+    t_m, t_s, t_q = sliced_tiles(m, s, p, q, acc.itemsize, in_bytes=isz)
     require_cuda("sliced_multiply_cuda", x, f)
     code = kernel_dtype_code(x, (f,), acc)
     y = torch.empty((m, q * s), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    fn = _sliced_fn()
+    per_sm, _ = sliced_occupancy(code, m, s, p, q, t_m, t_s, t_q, x.device)
+    nblk = grad_blocks(sm_count(x.device), per_sm, (q // t_q) * (m // t_m) * (s // t_s), 1)
     with torch.cuda.device(x.device):
-        err = fn(
-            code, x.data_ptr(), f.data_ptr(), y.data_ptr(), m, k, p, q,
-            t_m, t_s, t_q, torch.cuda.current_stream().cuda_stream,
+        err = kernel_fn("sliced", _SLICED_ARGS)(
+            code, int(sliced_uses_mma(p, q, isz)), x.data_ptr(), f.data_ptr(), y.data_ptr(),
+            m, k, p, q, t_m, t_s, t_q, nblk, torch.cuda.current_stream().cuda_stream,
         )
-    if err:
-        raise RuntimeError(
-            f"sliced launch failed: {_build.error_string(_build.library('sliced'), err)}"
-        )
+    check_launch("sliced", err)
     sliced_launches += 1
     return y
 
@@ -187,6 +238,8 @@ __all__ = [
     "sliced_multiply_cuda",
     "sliced_multiply_reference",
     "sliced_occupancy",
+    "sliced_smem_bytes",
     "sliced_t_smem_bytes",
     "sliced_tiles",
+    "sliced_uses_mma",
 ]

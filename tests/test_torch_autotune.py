@@ -144,12 +144,14 @@ def test_smoke_stages_fit_one_block(m, ps, qs, dtype_bytes):
     for ins in prog.instrs:
         t_qs = ins.t_qs or ins.qs
         # The smallest block tile fits: the kernel can always launch.
-        assert TE.block_smem_bytes(1, ins.pprod, ins.ps, t_qs, 4) <= TE.SMEM_BYTES
+        assert TE.block_smem_bytes(1, ins.pprod, ins.ps, t_qs, 4,
+                                   kind="chain_fwd") <= TE.SMEM_BYTES
         geo = TE.chain_geometry(
             (1, m, k), [(1, p, q) for p, q in zip(ins.ps, ins.qs)],
             t_m=ins.t_m, t_k=ins.t_k, t_qs=ins.t_qs, acc_bytes=4,
         )
-        assert TE.block_smem_bytes(geo.block_m, geo.block_k, ins.ps, t_qs, 4) <= TE.SMEM_BYTES
+        assert TE.block_smem_bytes(geo.block_m, geo.block_k, ins.ps, t_qs, 4,
+                                   kind="chain_fwd") <= TE.SMEM_BYTES
         k = k // ins.pprod * ins.qprod
 
 

@@ -3,7 +3,6 @@ repro.kernels.emit: IR fields, growth models, emitted programs on the CPU
 (the chain kernel's plain twin) against both JAX backends, and the chain
 kernel wrapper's tile checks against chain_pallas's."""
 import dataclasses
-import math
 
 import jax
 import jax.numpy as jnp
@@ -200,43 +199,64 @@ def test_chain_tile_checks_match_chain_pallas(x_shape, pqs, tiles):
 
 
 @pytest.mark.parametrize(
-    "t_m,t_k,ps,t_qs",
-    [(4, 8192, (32, 32), (32, 32)), (16, 256, (64,), (128,)), (2, 3380, (65,), (20,)),
-     (8, 65536, (16, 16), (16, 16))],
+    "m,s,p,q,in_bytes",
+    [(1024, 32768, 32, 32, 4), (4096, 76, 64, 128, 2), (10, 52, 65, 20, 4),
+     (16, 64, 256, 256, 4)],
 )
-def test_block_tile_is_the_largest_that_fits_half_a_block(t_m, t_k, ps, t_qs):
-    tm, tk = TE.block_tile(t_m, t_k, ps, t_qs, 4)
-    pprod = math.prod(ps)
-    assert t_k % tk == 0 and tk % pprod == 0 and t_m % tm == 0
-    assert TE.block_smem_bytes(tm, tk, ps, t_qs, 4) <= TE.SMEM_BYTES // 2
-    for d in range(1, t_k // pprod + 1):
-        for m in range(1, t_m + 1):
-            if (t_k // pprod) % d or t_m % m or m * d * pprod <= tm * tk:
-                continue
-            assert TE.block_smem_bytes(m, d * pprod, ps, t_qs, 4) > TE.SMEM_BYTES // 2
+def test_block_tile_is_the_largest_that_fits_half_a_block(m, s, p, q, in_bytes):
+    # The sliced kernel's tile rule: among the tiles whose block leaves room
+    # for a second one on the SM, the widest Q-tile, then output runs that
+    # fill a 32-byte sector, then the largest t_m * t_s, ties to longer runs.
+    tm, ts, tq = kron_sliced.sliced_tiles(m, s, p, q, 4, in_bytes=in_bytes)
+    assert m % tm == 0 and s % ts == 0 and q % tq == 0
+    mma = kron_sliced.sliced_uses_mma(p, q, in_bytes)
+
+    def key(t_m, t_s, t_q):
+        return (t_q, t_s * in_bytes >= 32, t_m * t_s, t_s)
+
+    assert kron_sliced.sliced_smem_bytes(tm, ts, p, q, tq, in_bytes, 4, mma) <= (
+        TE.TWO_BLOCK_SMEM_BYTES)
+    for t_q in [q] if mma else [d for d in range(1, q + 1) if q % d == 0]:
+        for t_s in (d for d in range(1, s + 1) if s % d == 0):
+            for t_m in (d for d in range(1, m + 1) if m % d == 0):
+                if (t_m, t_s, t_q) == (tm, ts, tq):
+                    continue
+                nbytes = kron_sliced.sliced_smem_bytes(t_m, t_s, p, q, t_q, in_bytes, 4, mma)
+                if nbytes <= TE.TWO_BLOCK_SMEM_BYTES:
+                    assert key(t_m, t_s, t_q) < key(tm, ts, tq)
 
 
 def test_block_tile_overflow_raises_typed_error():
-    # A chain whose smallest tile cannot fit one block.
+    # A factor whose panel alone exceeds the two-block share at any tile.
     with pytest.raises(TG.VmemOverflowError):
-        TE.block_tile(1, 256 * 256, (256, 256), (256, 256), 8)
-    # When only a tile above half a block fits, it is still taken.
-    tm, tk = TE.block_tile(1, 128 * 128, (128, 128), (128, 128), 4)
-    assert (tm, tk) == (1, 128 * 128)
-    assert TE.SMEM_BYTES // 2 < TE.block_smem_bytes(1, 128 * 128, (128, 128), (128, 128), 4) <= TE.SMEM_BYTES
+        kron_sliced.sliced_tiles(4, 8, 2048, 8, 8)
+    # The chain kernels' tile rule takes no default kernel: the sliced
+    # routine's model is gone.
+    with pytest.raises(TypeError):
+        TE.block_tile(1, 1024, (32, 32), (32, 32), 4)
+    with pytest.raises(ValueError, match="kind"):
+        TE.block_smem_bytes(1, 1024, (32, 32), (32, 32), 4, kind="fwd")
 
 
-def test_sliced_reference_and_dispatch_match_jax():
+@pytest.mark.parametrize(
+    "dtype,m,p,q,tol",
+    [pytest.param(None, 6, 12, 5, 1e-9, id="f64"),
+     pytest.param("bfloat16", 8, 40, 76, 1e-2, id="bf16-40x76")],
+)
+def test_sliced_reference_and_dispatch_match_jax(dtype, m, p, q, tol):
     from repro.kernels import ops as JO
 
-    x, (f,) = make_inputs(14, 6, (12,), (5,))
-    x = np.concatenate([x] * 3, axis=1)  # K = 36, S = 3
-    for backend in ("xla", "pallas"):
-        want = JO.sliced_multiply(to_jax(x), to_jax(f), backend=backend)
-        assert_close(ops.sliced_multiply(to_torch(x), to_torch(f)), want, 1e-9)
-        assert_close(kron_sliced.sliced_multiply_reference(to_torch(x), to_torch(f)), want, 1e-9)
-    tiles = kron_sliced.sliced_tiles(4096, 76, 64, 128, 4)
-    assert TE.block_smem_bytes(tiles[0], tiles[1] * 64, (64,), (tiles[2],), 4) <= TE.SMEM_BYTES
+    x, (f,) = make_inputs(14, m, (p,), (q,))
+    x = np.concatenate([x] * 3, axis=1)  # K = 3P, S = 3
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if dtype else (None, None)
+    xj, fj, xt, ft = to_jax(x, jdt), to_jax(f, jdt), to_torch(x, tdt), to_torch(f, tdt)
+    for backend in ("xla", "pallas"):  # pallas: sliced_multiply_pallas in interpret mode
+        want = JO.sliced_multiply(xj, fj, backend=backend)
+        assert_close(ops.sliced_multiply(xt, ft), want, tol)
+        assert_close(kron_sliced.sliced_multiply_reference(xt, ft), want, tol)
+    tiles = kron_sliced.sliced_tiles(4096, 76, 64, 128, 4, in_bytes=2)
+    assert kron_sliced.sliced_smem_bytes(
+        *tiles[:2], 64, 128, tiles[2], 2, 4, mma=True) <= TE.TWO_BLOCK_SMEM_BYTES
     assert 4096 % tiles[0] == 0 and 76 % tiles[1] == 0 and 128 % tiles[2] == 0
 
 
