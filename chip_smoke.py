@@ -4,6 +4,10 @@
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --alone    # phases 1 and 4 only (A/B of two trees)
 
+It refuses to run (exit 1) with ``FASTKRON_CHAOS`` or ``FASTKRON_NUMERICS``
+set: the first injects faults into the kernels' path, the second adds host
+checks to every call.
+
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
 holds each kernel against its plain PyTorch twin on the card, then drives the
 port's main path — ``KronOp(ps, qs)(x, factors)`` on CUDA tensors and
@@ -23,11 +27,20 @@ went through the kernels.  Phases, one line each:
      stage backward runs twice and is asserted bitwise equal.
   3. main: five full-size KronOp calls (fig9, gp16, ffn, compress,
      fig9-unfused) and five full-size backward passes (fig9-grad, fig9-dx,
-     gp16-grad, ffn-grad, fig9-unfused-grad): launches per call (asserted),
+     gp16-grad, ffn-grad, fig9-unfused-grad); the per-sample batched path
+     (gp16-batched and gp16-batched-grad: B=4 GP tasks at gp16's shape;
+     precond-64x128 and precond-40x76: ``kron_precond_op`` over 36 layers)
+     and ``torch.func.vmap`` (gp16-vmap over x and factors, bitwise equal
+     to the per-sample call; fig9-vmap-x over x alone, B=2 folded into
+     rows, bitwise equal to the flat call): launches per call (asserted),
      error against the plain twins, the backward run twice and asserted
-     bitwise equal, and CUDA-event times of the call, of its plain twins and
+     bitwise equal, the peak device memory (``kernel_peak_mem_gib``: inputs,
+     forward and first backward; ``peak_mem_gib``: with the checks against
+     the twins too), and CUDA-event times of the call, of its plain twins and
      of one PyTorch yardstick (``torch.einsum``, or ``torch.autograd.grad``
-     through it), beside the card's bound for the same function.
+     through it), beside the card's bound for the same function.  Phases
+     2-4 also assert that ``guard.health_report()`` records no rung
+     fallback and no ``bwd_per_factor`` event.
   4. alone: one launch of every kernel at its main cases' shapes, timed by
      itself (chain_fwd: each stage of fig9, gp16 and ffn; chain_bwd:
      fig9-dx; grad: fig9-grad and ffn-grad; sliced: one fig9-unfused launch
@@ -37,8 +50,18 @@ went through the kernels.  Phases, one line each:
      PyTorch call computing the same function.  CUDA events around each
      call; the sliced rows add the device time alone (torch.profiler),
      which leaves out the host time between launches.
-  5. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit.
-  6. last line: ``{"ok": true, "device": {...}}``.
+  5. ladder: the forward degradation ladder under ``chaos.inject``, at
+     fig9 and gp16-batched: ``stage_execute`` puts a call on rung 1 (the
+     per-factor kernels: ``sliced`` for fig9, chain-of-one ``chain_fwd``
+     launches for gp16-batched, held bitwise to the planned result since
+     the same kernel computes both); with ``per_factor`` injected too the
+     call raises the per-factor rung's error, since on the card the ladder
+     ends at the kernels (the plain twins never stand in for them), and so
+     does a float16 call, a dtype the kernels do not take; the launch
+     counters show which kernels ran, one GuardWarning per key,
+     ``DEFAULT_PATIENCE`` degraded calls pin the key.
+  6. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit.
+  7. last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero.  Needs one CUDA card; imports nothing of JAX.
 """
@@ -46,6 +69,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -238,6 +262,14 @@ SLICED_CASES = [
     ("f32 x at an element offset", 16, 32, 32, 128, torch.float32, 1),
     ("mma bf16 x at an element offset", 16, 40, 76, 64, torch.bfloat16, 1),
 ]
+# ops.sliced_multiply(_t)'s tiles= limit, (name, M, P, Q, S, dtype, tiles):
+# a Q-tile limit below Q keeps a bf16 factor that fits the tensor cores on
+# the CUDA cores; an f32 limit below the free choice on every axis.
+SLICED_LIMIT_CASES = [
+    ("bf16 40->76 tiles=(4,16,38) on the CUDA cores", 64, 40, 76, 64, torch.bfloat16,
+     (4, 16, 38)),
+    ("f32 32x32 tiles=(2,32,16)", 64, 32, 32, 256, torch.float32, (2, 32, 16)),
+]
 # The transposed sliced multiply's own branches: Q tiled (a 256 x 256 panel
 # does not stay whole), slices not a multiple of 4, bf16 runs too short for
 # asynchronous copies (odd S: element-wise loads).
@@ -268,7 +300,7 @@ GRAD_CASES = [
 
 def check_kernels(gen) -> dict:
     from repro_torch.core import KronOp, kron_matrix
-    from repro_torch.kernels import emit, kron_sliced, kron_sliced_t
+    from repro_torch.kernels import emit, kron_sliced, kron_sliced_t, ops
 
     passed = {name: 0 for name in KERNELS}
     failures = []
@@ -366,6 +398,24 @@ def check_kernels(gen) -> dict:
             in_bytes=dy.element_size())
         record("sliced_t", f"{name} tiles={tiles}", got, ref, TOLERANCE[dtype])
 
+    for name, m, p, q, s, dtype, tiles in SLICED_LIMIT_CASES:
+        x = randn(gen, (m, s * p), dtype)
+        f = randn(gen, (p, q), dtype)
+        dy = randn(gen, (m, q * s), dtype)
+        acc_bytes = emit.acc_dtype_for(dtype).itemsize
+        for kernel, kind, call, ref in (
+            ("sliced", "fwd", lambda: ops.sliced_multiply(x, f, tiles=tiles),
+             lambda: kron_sliced.sliced_multiply_reference(x, f)),
+            ("sliced_t", "sliced_t", lambda: ops.sliced_multiply_t(dy, f, tiles=tiles),
+             lambda: kron_sliced_t.sliced_multiply_t_reference(dy, f)),
+        ):
+            got = call()
+            torch.cuda.synchronize()
+            used = kron_sliced.sliced_tiles(m, s, p, q, acc_bytes, kind=kind,
+                                            in_bytes=x.element_size(), limit=tiles)
+            mma = kernel == "sliced" and kron_sliced.sliced_mma(p, q, used[2], x.element_size())
+            record(kernel, f"{name} tiles={used} mma={mma}", got, ref(), TOLERANCE[dtype])
+
     # One small KronOp against the dense oracle x @ (F^1 (x) ... (x) F^N):
     # its value, and its x and factor gradients against torch.autograd.
     ps, qs = (4, 8, 4), (8, 4, 8)
@@ -422,6 +472,23 @@ def expect(**counts) -> dict:
     return {name: counts.get(name, 0) for name, _, _ in _counter_sites()}
 
 
+def assert_clean(phase: str) -> None:
+    """No call of the phase left the kernels: the guard records no rung
+    fallback and no ``bwd_per_factor`` event (the launch counters hold the
+    per-factor fallbacks at 0 case by case)."""
+    from repro_torch.core import engine
+    from repro_torch.runtime import guard
+
+    report = guard.health_report()
+    bad = {k: h for k, h in report["ops"].items() if h["degraded_calls"] or h["errors"]}
+    events = {k: n for k, n in report["events"].items() if k.startswith("bwd_per_factor")}
+    if bad or events or engine.bwd_per_factor_fallbacks:
+        raise AssertionError(
+            f"{phase}: fallbacks {bad}, events {events}, "
+            f"bwd_per_factor_fallbacks {engine.bwd_per_factor_fallbacks}")
+    print(f"{phase}: no rung fallback, no bwd_per_factor event", flush=True)
+
+
 # (name, M, ps, qs, dtype, plan) -- plan "auto" or None (unfused baseline)
 MAIN_CASES = [
     # Paper Figure 9 shape (benchmarks/fig9.py): x and y are 4 GiB each.
@@ -439,7 +506,8 @@ MAIN_CASES = [
 
 
 def plain_twin(op, x, fs):
-    """The op's forward through the kernels' plain twins on the card."""
+    """The op's forward through the kernels' plain twins on the card; x
+    ``(B, M, K)`` with per-sample factors runs the batched twins."""
     from repro_torch.core.engine import _lowered
     from repro_torch.kernels import emit, kron_sliced
 
@@ -448,24 +516,29 @@ def plain_twin(op, x, fs):
         for f in reversed(fs):
             y = kron_sliced.sliced_multiply_reference(y, f)
         return y
+    batched = fs[0].ndim == 3
     rev = tuple(reversed(fs))
-    y = x
-    for ins in _lowered(op.plan, op.ps, op.qs).instrs:
-        sf = tuple(rev[i] for i in ins.factor_ids)
+    y = x if batched else x[None]
+    for ins in _lowered(op.plan, op.ps, op.qs, batched).instrs:
+        sf = tuple(rev[i] if batched else rev[i][None] for i in ins.factor_ids)
         if ins.kind == emit.PREKRON:
             sf = (emit.prekron_product(sf),)
-        y = emit.chain_reference(y[None], *(f[None] for f in sf), acc_dtype=ins.acc_dtype)[0]
-    return y
+        y = emit.chain_reference(y, *sf, acc_dtype=ins.acc_dtype)
+    return y if batched else y[0]
 
 
 def einsum_call(x, fs):
-    """One torch.einsum computing x @ (F^1 (x) ... (x) F^N)."""
+    """One torch.einsum computing x @ (F^1 (x) ... (x) F^N); per sample
+    for x ``(B, M, K)`` and ``(B, P_i, Q_i)`` factors."""
     n = len(fs)
     letters = "abcdefghijklmnop"
     ins, outs = letters[:n], letters[n:2 * n]
-    spec = "z" + ins + "," + ",".join(i + o for i, o in zip(ins, outs)) + "->z" + outs
-    xv = x.reshape(x.shape[0], *(int(f.shape[0]) for f in fs))
-    return torch.einsum(spec, xv, *fs).reshape(x.shape[0], -1)
+    lead = "yz" if fs[0].ndim == 3 else "z"
+    fb = lead[:-1]
+    spec = (lead + ins + "," + ",".join(fb + i + o for i, o in zip(ins, outs))
+            + "->" + lead + outs)
+    xv = x.reshape(*x.shape[:-1], *(int(f.shape[-2]) for f in fs))
+    return torch.einsum(spec, xv, *fs).reshape(*x.shape[:-1], -1)
 
 
 def run_main(gen, peaks) -> list[dict]:
@@ -615,6 +688,7 @@ def run_backward(gen, peaks) -> list[dict]:
         grads = backward()
         torch.cuda.synchronize()
         launches = read_counters()
+        kernel_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         n = len(ps)
         if op.plan is None:
             n_stages = n
@@ -672,6 +746,7 @@ def run_backward(gen, peaks) -> list[dict]:
             "grads": "x and factors" if factors else "x", "launches": launches,
             "max_abs_err": max(errs), "dx_rel_err": rels[0], "df_rel_err": max(rels[1:], default=0.0),
             "tol": tol, "bitwise_repeat": bitwise, "peak_mem_gib": peak_gib,
+            "kernel_peak_mem_gib": kernel_peak_gib,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -683,6 +758,252 @@ def run_backward(gen, peaks) -> list[dict]:
         rows.append(row)
         del x, fs, ct, y, op, xd, fd
         torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 3, continued: the per-sample batched path and torch.func.vmap
+# ---------------------------------------------------------------------------
+
+# (name, B, M, ps, qs): per-sample factors, f32, at the sources' full widths.
+BATCHED_CASES = [
+    # BatchedKronKernel.op's MVM (GP hyperparameter learning) over B=4
+    # independent GP tasks at gp16's shape (paper Table 4 row 26): x is
+    # (4, 16, 16^6), 4.3 GB in and 4.3 GB out.
+    ("gp16-batched", 4, 16, (16,) * 6, (16,) * 6),
+    # Shampoo's precondition (kron_precond_op) for the factor parameters of
+    # qwen3-4b's kron_ffn up projection, (64, 128) and (40, 76), stacked over
+    # its 36 layers: x (36, 1, p*q), factors (36, p, p) and (36, q, q).
+    ("precond-64x128", 36, 1, (64, 128), (64, 128)),
+    ("precond-40x76", 36, 1, (40, 76), (40, 76)),
+]
+# The backward of gp16-batched: x and factor gradients.
+BATCHED_GRAD_CASE = ("gp16-batched-grad", 4, 16, (16,) * 6, (16,) * 6)
+# (B, M, ps, qs) of the vmap cases: over x and factors at gp16-batched's
+# shape; over x alone at fig9's shape, B=2 folded into 2048 rows.
+VMAP_CASES = {
+    "gp16-vmap": (4, 16, (16,) * 6, (16,) * 6),
+    "fig9-vmap-x": (2, 1024, (32,) * 4, (32,) * 4),
+}
+
+
+def n_stages(op, batched: bool) -> int:
+    from repro_torch.core.engine import _lowered
+
+    return len(_lowered(op.plan, op.ps, op.qs, batched).instrs)
+
+
+def timed_row(name, describe, call, plain, library, want, check, nbytes, flops, dtype,
+              peaks) -> dict:
+    """One forward row: ``call`` once between counter resets (launches
+    against ``want()``, ``check(y)`` for shapes and bitwise comparisons, its
+    extra columns; ``describe()`` the plan it ran), the error against
+    ``plain()`` (in y's shape), then CUDA-event times of the call, the plain
+    twins and the one-call yardstick ``library``."""
+    reset_counters()
+    y = call()
+    torch.cuda.synchronize()
+    launches = read_counters()
+    if launches != want():
+        raise AssertionError(f"{name}: launches {launches}, expected {want()}")
+    extra = check(y)
+    ref = plain()
+    torch.cuda.synchronize()
+    err, rel = compare(y, ref)
+    del y, ref
+    torch.cuda.empty_cache()
+    tol = TOLERANCE[dtype]
+    ms = time_ms(call)
+    plain_ms = time_ms(plain)
+    library_ms = time_ms(library)
+    torch.cuda.empty_cache()
+    b_ms, b_by = bound(nbytes, flops, peaks, dtype)
+    row = {
+        "case": name, "describe": describe(), "dtype": str(dtype).replace("torch.", ""),
+        "launches": launches, "max_abs_err": err, "rel_err": rel, "tol": tol, **extra,
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "flops": flops, "bytes": nbytes,
+    }
+    print("main " + json.dumps(row), flush=True)
+    if rel > tol:
+        raise AssertionError(f"{name}: rel err {rel:.3e} > {tol:g}")
+    return row
+
+
+def run_batched(gen, peaks) -> list[dict]:
+    """The per-sample batched forward: ``KronOp(ps, qs, batch=B,
+    shared_factors=False)`` and ``kron_precond_op``."""
+    from repro_torch.core import KronOp, KronProblem
+    from repro_torch.core.engine import kron_precond_op
+
+    rows = []
+    for name, b, m, ps, qs in BATCHED_CASES:
+        dtype = torch.float32
+        x = randn(gen, (b, m, math.prod(ps)), dtype)
+        fs = [randn(gen, (b, p, q), dtype) for p, q in zip(ps, qs)]
+        if name.startswith("precond"):
+            op = kron_precond_op(ps[0], ps[1], b)
+        else:
+            op = KronOp(ps, qs, batch=b, shared_factors=False)
+
+        def check(y, op=op, x=x):
+            if tuple(y.shape) != op.out_shape(x.shape):
+                raise AssertionError(f"{name}: output shape {tuple(y.shape)}")
+            return {"b": b, "m": m, "ps": list(ps), "qs": list(qs), "t_b": op.plan.t_b}
+
+        fsize = b * sum(p * q for p, q in zip(ps, qs))
+        rows.append(timed_row(
+            name, op.describe, lambda op=op, x=x, fs=fs: op(x, fs),
+            lambda op=op, x=x, fs=fs: plain_twin(op, x, fs),
+            lambda x=x, fs=fs: einsum_call(x, fs),
+            lambda op=op: expect(chain_fwd=n_stages(op, True)), check,
+            (b * m * (math.prod(ps) + math.prod(qs)) + fsize) * 4,
+            b * KronProblem(m, ps, qs).flops, dtype, peaks,
+        ))
+        del x, fs, op
+        torch.cuda.empty_cache()
+    return rows
+
+
+def run_batched_backward(gen, peaks) -> list[dict]:
+    """gp16-batched-grad: ``torch.autograd.grad`` through the per-sample
+    call, x and factor gradients, with a runtime cotangent."""
+    from repro_torch.core import KronOp, KronProblem
+
+    name, b, m, ps, qs = BATCHED_GRAD_CASE
+    dtype = torch.float32
+    torch.cuda.reset_peak_memory_stats()
+    k, k_out = math.prod(ps), math.prod(qs)
+    x = randn(gen, (b, m, k), dtype).requires_grad_()
+    fs = [randn(gen, (b, p, q), dtype).requires_grad_() for p, q in zip(ps, qs)]
+    ct = randn(gen, (b, m, k_out), dtype)
+    op = KronOp(ps, qs, batch=b, shared_factors=False)
+    y = op(x, fs)
+    wrt = [x, *fs]
+
+    def backward():
+        return torch.autograd.grad(y, wrt, ct, retain_graph=True)
+
+    # The main path's run: counts set to 0 just before, read just after.
+    reset_counters()
+    grads = backward()
+    torch.cuda.synchronize()
+    launches = read_counters()
+    kernel_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = n_stages(op, True)
+    want = expect(chain_fwd=n - 1, grad=n, grad_reduce=n)
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches}, expected {want}")
+    again = backward()
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, c) for a, c in zip(grads, again))
+    del again
+    if not bitwise:
+        raise AssertionError(f"{name}: two backward runs differ")
+    xd, fd = x.detach(), [f.detach() for f in fs]
+    errs, dx_rels, df_rels = [], [], []
+    with torch.no_grad():
+        for i in range(b):  # each sample against the plain twins of its own problem
+            fi = [f[i] for f in fd]
+            rdx, _ = plain_bwd(op, xd[i], fi, ct[i], False)
+            err, rel = compare(grads[0][i], rdx)
+            del rdx
+            errs.append(err)
+            dx_rels.append(rel)
+            for d, r in zip(grads[1:], plain_dfs_f64(op, xd[i], fi, ct[i])):
+                err, rel = compare(d[i], r)
+                errs.append(err)
+                df_rels.append(rel)
+    del grads
+    torch.cuda.empty_cache()
+    tol = GRAD_TOLERANCE[dtype]
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = time_ms(backward)
+    with torch.no_grad():
+        plain_ms = time_ms(lambda: [plain_bwd(op, xd[i], [f[i] for f in fd], ct[i], True)
+                                    for i in range(b)])
+    y_lib = einsum_call(x, fs)
+    library_ms = time_ms(lambda: torch.autograd.grad(y_lib, wrt, ct, retain_graph=True))
+    del y_lib
+    torch.cuda.empty_cache()
+    fsize = b * sum(p * q for p, q in zip(ps, qs))
+    nbytes = (b * m * k_out + 2 * b * m * k + 2 * fsize) * 4
+    flops = 2 * b * KronProblem(m, ps, qs).flops
+    b_ms, b_by = bound(nbytes, flops, peaks, dtype)
+    row = {
+        "case": name, "describe": op.describe(), "dtype": "float32", "b": b, "m": m,
+        "ps": list(ps), "qs": list(qs), "stages": n, "t_b": op.plan.t_b,
+        "grads": "x and factors", "launches": launches, "max_abs_err": max(errs),
+        "dx_rel_err": max(dx_rels), "df_rel_err": max(df_rels), "tol": tol,
+        "bitwise_repeat": bitwise, "peak_mem_gib": peak_gib,
+        "kernel_peak_mem_gib": kernel_peak_gib, "ms": ms, "plain_ms": plain_ms,
+        "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+        "bytes": nbytes,
+    }
+    print("main " + json.dumps(row), flush=True)
+    if max(dx_rels + df_rels) > tol:
+        raise AssertionError(f"{name}: rel err {max(dx_rels + df_rels):.3e} > {tol:g}")
+    del x, fs, ct, y, op, xd, fd
+    torch.cuda.empty_cache()
+    return [row]
+
+
+def run_vmap(gen, peaks) -> list[dict]:
+    """``torch.func.vmap`` through the autograd.Function's vmap rules:
+    gp16-vmap maps x and the factors (the per-sample plan, bitwise equal to
+    the per-sample op's call); fig9-vmap-x maps x alone, B=2 folded into
+    2048 rows (bitwise equal to the flat call, planned for 2048 rows)."""
+    from repro_torch.core import KronOp, KronProblem
+    from repro_torch.core.engine import _lowered, _resolve_plan
+
+    rows = []
+    dtype = torch.float32
+    b, m, ps, qs = VMAP_CASES["gp16-vmap"]
+    k = math.prod(ps)
+    x = randn(gen, (b, m, k), dtype)
+    fs = [randn(gen, (b, p, q), dtype) for p, q in zip(ps, qs)]
+    per = KronOp(ps, qs, batch=b, shared_factors=False)
+    fn = torch.func.vmap(KronOp(ps, qs))
+
+    def check_per(y):
+        if not torch.equal(y, per(x, fs)):
+            raise AssertionError("gp16-vmap: differs from the per-sample call")
+        return {"b": b, "m": m, "ps": list(ps), "qs": list(qs), "bitwise_vs_direct": True}
+
+    fsize = b * sum(p * q for p, q in zip(ps, qs))
+    rows.append(timed_row(
+        "gp16-vmap", lambda: "vmap(KronOp) over x and factors :: " + per.describe(),
+        lambda: fn(x, fs), lambda: plain_twin(per, x, fs), lambda: einsum_call(x, fs),
+        lambda: expect(chain_fwd=n_stages(per, True)), check_per,
+        (2 * b * m * k + fsize) * 4, b * KronProblem(m, ps, qs).flops, dtype, peaks,
+    ))
+    del x, fs, per, fn
+    torch.cuda.empty_cache()
+
+    b, m, ps, qs = VMAP_CASES["fig9-vmap-x"]
+    k = math.prod(ps)
+    x = randn(gen, (b, m, k), dtype)
+    fs = [randn(gen, (p, q), dtype) for p, q in zip(ps, qs)]
+    op, flat = KronOp(ps, qs), KronOp(ps, qs)
+    fn = torch.func.vmap(lambda xi: op(xi, fs))
+    xf = x.view(b * m, k)
+
+    def check_flat(y):
+        if not torch.equal(y.view(b * m, -1), flat(xf, fs)):
+            raise AssertionError("fig9-vmap-x: differs from the flat call")
+        return {"b": b, "m": m, "ps": list(ps), "qs": list(qs), "bitwise_vs_direct": True}
+
+    folded = _lowered(_resolve_plan(b * m, ps, qs, 4, False), ps, qs)
+    rows.append(timed_row(
+        "fig9-vmap-x", lambda: "vmap(KronOp) over x, B folded into rows :: " + folded.describe(),
+        lambda: fn(x), lambda: plain_twin(flat, xf, fs).view(b, m, -1),
+        lambda: einsum_call(xf, fs),
+        lambda: expect(chain_fwd=len(folded.instrs)), check_flat,
+        (2 * b * m * k + sum(p * q for p, q in zip(ps, qs))) * 4,
+        KronProblem(b * m, ps, qs).flops, dtype, peaks,
+    ))
+    del x, fs, op, flat, fn, xf
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -911,7 +1232,147 @@ def run_alone(gen, peaks) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the forward degradation ladder under chaos
+# ---------------------------------------------------------------------------
+
+# (name, B or None, M, ps, qs, rung-1 launches): the per-factor rung runs
+# the sliced kernel for 2-D factors and chain-of-one chain_fwd launches for
+# per-sample ones.
+LADDER_CASES = [
+    ("fig9", None, 1024, (32,) * 4, (32,) * 4, {"sliced": 4}),
+    ("gp16-batched", 4, 16, (16,) * 6, (16,) * 6, {"chain_fwd": 6}),
+]
+
+
+def run_ladder(gen) -> list[dict]:
+    """Each case planned, then under ``chaos.inject("stage_execute:times=1")``
+    (rung 1, per-factor kernels), held against the planned result (bitwise
+    where the same kernel computes both); with ``per_factor`` injected too
+    the call raises ``VmemOverflowError`` with no launch: the ladder on the
+    card has no rung below the kernels.  ``DEFAULT_PATIENCE`` degraded
+    calls pin the key to rung 1, which the next call (no chaos) starts at.
+    One GuardWarning per key; a float16 call raises ``LoweringError``, also
+    with no launch.  ``reset_health()`` and an empty chaos layer end the
+    phase."""
+    import warnings
+
+    from repro_torch.core import KronOp
+    from repro_torch.runtime import chaos, guard
+
+    guard.reset_health()
+    rows = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for name, b, m, ps, qs, rung1 in LADDER_CASES:
+            lead = () if b is None else (b,)
+            x = randn(gen, (*lead, m, math.prod(ps)), torch.float32)
+            fs = [randn(gen, (*lead, p, q), torch.float32) for p, q in zip(ps, qs)]
+            op = KronOp(ps, qs) if b is None else KronOp(ps, qs, batch=b, shared_factors=False)
+            planned_n = n_stages(op, b is not None)
+            runs = {}
+            for rung, spec, want in (
+                ("planned", None, expect(chain_fwd=planned_n)),
+                ("per-factor", "stage_execute:times=1", expect(**rung1)),
+            ):
+                reset_counters()
+                if spec is None:
+                    y = op(x, fs)
+                else:
+                    with chaos.inject(spec):
+                        y = op(x, fs)
+                torch.cuda.synchronize()
+                launches = read_counters()
+                if launches != want:
+                    raise AssertionError(f"ladder {name} {rung}: launches {launches}, want {want}")
+                runs[rung] = (y, launches)
+            ref = runs["planned"][0]
+            row = {"case": name, "describe": op.describe()}
+            y, launches = runs["per-factor"]
+            err, rel = compare(y, ref)
+            bitwise = torch.equal(y, ref)
+            row["per-factor"] = {"launches": {k: v for k, v in launches.items() if v},
+                                 "max_abs_err": err, "rel_err": rel, "bitwise": bitwise}
+            if rel > TOLERANCE[torch.float32]:
+                raise AssertionError(f"ladder {name} per-factor: rel err {rel:.3e}")
+            if b is not None and not bitwise:
+                raise AssertionError(f"ladder {name}: chain_fwd rungs differ bitwise")
+            # Both rungs fail: the call raises; no plain twin runs on the card.
+            reset_counters()
+            try:
+                with chaos.inject("stage_execute:times=1,per_factor"):
+                    op(x, fs)
+            except guard.VmemOverflowError as e:
+                row["both-rungs-fail"] = f"raised {type(e).__name__}"
+            else:
+                raise AssertionError(f"ladder {name}: both rungs failed but the call returned")
+            torch.cuda.synchronize()
+            if read_counters() != expect():
+                raise AssertionError(f"ladder {name}: launches after both rungs failed")
+            key = ("kron", op.ps, op.qs, "cuda", b is not None)
+            h = guard.health(key)
+            for _ in range(guard.DEFAULT_PATIENCE - 1):
+                with chaos.inject("stage_execute:times=1"):
+                    op(x, fs)
+            if not (h.pinned and h.rung == 1):
+                raise AssertionError(f"ladder {name}: not pinned after patience: {h.summary()}")
+            reset_counters()
+            y = op(x, fs)  # pinned: starts at rung 1, no chaos active
+            torch.cuda.synchronize()
+            launches = read_counters()
+            if launches != expect(**rung1) or not torch.equal(y, runs["per-factor"][0]):
+                raise AssertionError(f"ladder {name}: pinned call {launches}")
+            row["pinned"] = {"rung": h.rung, "calls": h.calls, "degraded_calls": h.degraded_calls,
+                             "errors": dict(h.errors), "per_factor_ms": time_ms(lambda: op(x, fs))}
+            row["health"] = guard.health_report()["ops"][repr(key)]
+            print("ladder " + json.dumps(row), flush=True)
+            rows.append(row)
+            del x, fs, op, runs, ref, y
+            torch.cuda.empty_cache()
+        # A dtype the kernels do not take raises on the card, every time.
+        op = KronOp((16, 16), (16, 16))
+        x = randn(gen, (64, 256), torch.float32).half()
+        fs = [randn(gen, (16, 16), torch.float32).half() for _ in range(2)]
+        reset_counters()
+        for _ in range(guard.DEFAULT_PATIENCE + 1):
+            try:
+                op(x, fs)
+            except guard.LoweringError:
+                pass
+            else:
+                raise AssertionError("ladder float16: the call returned")
+        torch.cuda.synchronize()
+        h = guard.health(("kron", op.ps, op.qs, "cuda", False))
+        if read_counters() != expect() or h.pinned or h.degraded_calls:
+            raise AssertionError(f"ladder float16: {read_counters()} {h.summary()}")
+        rows.append({"case": "float16", "raised": "LoweringError", "health": h.summary()})
+        print("ladder " + json.dumps(rows[-1]), flush=True)
+    per_key = {}
+    for w in caught:
+        if issubclass(w.category, guard.GuardWarning):
+            msg = str(w.message)
+            tag = "pinned" if "pinned" in msg else msg.split(" — ")[-1].split(" (")[0]
+            per_key.setdefault(msg.split(" failed")[0].split(" degraded")[0], []).append(tag)
+    print("ladder warnings " + json.dumps(per_key), flush=True)
+    # One warning per key: each case degrades, then pins; float16 only fails.
+    want = [["degrading to rung 1", "pinned"]] * len(LADDER_CASES) + [["degrading to rung 1"]]
+    if sorted(sorted(tags) for tags in per_key.values()) != sorted(want):
+        raise AssertionError(f"ladder: GuardWarnings {per_key}")
+    guard.reset_health()
+    if chaos.active() or guard.health_report()["ops"]:
+        raise AssertionError("ladder: chaos or health state left behind")
+    return rows
+
+
+# One injects faults into the kernels' path, the other adds host checks.
+REFUSED_ENV = ("FASTKRON_CHAOS", "FASTKRON_NUMERICS")
+
+
 def main() -> int:
+    set_env = [var for var in REFUSED_ENV if var in os.environ]
+    if set_env:
+        print(f"chip_smoke: refusing to run with {set_env} set", file=sys.stderr)
+        return 1
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
@@ -946,9 +1407,23 @@ def main() -> int:
     if "--alone" in sys.argv[1:]:  # phase 4 only, for comparing two trees in one call
         run_alone(gen, peaks)
         return 0
+    assert_clean("start")
     passed = check_kernels(gen)
-    rows = {r["case"]: r for r in run_main(gen, peaks) + run_backward(gen, peaks)}
+    assert_clean("check")
+    rows = {r["case"]: r for r in (
+        run_main(gen, peaks) + run_backward(gen, peaks) + run_batched(gen, peaks)
+        + run_batched_backward(gen, peaks) + run_vmap(gen, peaks))}
+    assert_clean("main")
+    print("main: per-sample batched against B single calls in this run: " + json.dumps({
+        "gp16-batched / (4 x gp16)": rows["gp16-batched"]["ms"] / (4 * rows["gp16"]["ms"]),
+        "gp16-batched-grad / (4 x gp16-grad)":
+            rows["gp16-batched-grad"]["ms"] / (4 * rows["gp16-grad"]["ms"]),
+        "gp16-vmap / gp16-batched": rows["gp16-vmap"]["ms"] / rows["gp16-batched"]["ms"],
+        "fig9-vmap-x / (2 x fig9)": rows["fig9-vmap-x"]["ms"] / (2 * rows["fig9"]["ms"]),
+    }), flush=True)
     alone = run_alone(gen, peaks)
+    assert_clean("alone")
+    run_ladder(gen)
 
     def kernel_row(name):
         source, replaces, case = KERNELS[name]

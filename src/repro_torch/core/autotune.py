@@ -19,8 +19,11 @@ Plan construction decides, per the paper + the beyond-paper extensions:
     tiles tuned for the transposed shapes and M-tiles clamped so both
     backward kernels fit one block at the forward stage's ``t_k``.
 
-``lower`` turns a plan into the executor's ``StageProgram``.  Measured tuning
-(``tune="measure"``) and the on-disk plan cache come with a later slice.
+``make_batched_plan`` plans ``B`` independent problems: shared factors fold
+B into the rows; per-sample factors keep the single-problem plan at the
+sample tile ``t_b=1``.  ``lower`` turns a plan
+into the executor's ``StageProgram``.  Measured tuning (``tune="measure"``)
+and the on-disk plan cache come with a later slice (``MEASURED_SLICE``).
 """
 from __future__ import annotations
 
@@ -31,7 +34,14 @@ from typing import Sequence
 
 from ..kernels import emit as emit_mod
 from ..kernels.emit import SMEM_BUDGET_ELEMS, StageInstr, StageProgram, fused_growth
+from ..runtime.guard import PlanError
 from .kron import KronProblem
+
+# What ``tune="measure"`` and ``cache_path=`` raise until the port has them.
+MEASURED_SLICE = (
+    "the measured planner and the plan cache are a later slice of the port: "
+    "ROADMAP.md queue 1, 'Planner, measured half'"
+)
 
 # H100 SXM hardware model (NVIDIA data sheet, dense rates).  The kernels run
 # every dtype's arithmetic on the CUDA cores in f32 (f64 for f64), so a bf16
@@ -388,6 +398,95 @@ def make_plan(
 
 
 # ---------------------------------------------------------------------------
+# Batched plans
+# ---------------------------------------------------------------------------
+
+
+def make_batched_plan(
+    prob: KronProblem,
+    batch: int,
+    *,
+    shared_factors: bool = True,
+    dtype_bytes: int = 4,
+    enable_fusion: bool = True,
+    enable_prekron: bool = False,
+    prekron_max_p: int = 16,
+    prekron_max_dim: int = 256,
+    vmem_budget_elems: int = SMEM_BUDGET_ELEMS,
+    tune: str = "analytic",
+    cache_path: str | None = None,
+    acc_dtype: str | None = None,
+) -> KronPlan:
+    """Plan for ``batch`` independent copies of ``prob`` in one launch.
+
+    ``shared_factors=True`` (one factor set, batched x): the batch folds into
+    M, so this is ``make_plan`` on the ``(batch * M, ps, qs)`` problem.
+
+    ``shared_factors=False`` (per-sample factors): the single-problem plan
+    at the sample tile ``t_b=1``.  The card's chain kernels walk one sample
+    per tile on a persistent grid whose blocks already cross samples, so no
+    kernel packs ``t_b`` samples into a tile; the reference's trade of the
+    M-tile for sample tiles is TPU-specific.  ``enable_prekron=True`` lets
+    the planner emit pre-kronization stages (the executor forms each
+    sample's product).
+
+    The reference's mesh mode (``g_k > 1``) belongs to the port's mesh
+    slice.  ``tune="measure"`` and ``cache_path`` raise
+    ``NotImplementedError`` (``MEASURED_SLICE``); any other tune mode
+    raises ``PlanError``.
+    """
+    if batch <= 0:
+        raise ValueError(f"batch must be positive, got {batch}")
+    if tune == "measure" or cache_path is not None:
+        raise NotImplementedError(MEASURED_SLICE)
+    if tune != "analytic":
+        raise PlanError(f"unknown tune mode {tune!r}")
+    kw = dict(
+        dtype_bytes=dtype_bytes, enable_fusion=enable_fusion,
+        enable_prekron=enable_prekron, prekron_max_p=prekron_max_p,
+        prekron_max_dim=prekron_max_dim, vmem_budget_elems=vmem_budget_elems,
+        acc_dtype=acc_dtype,
+    )
+    if shared_factors:
+        return make_plan(KronProblem(batch * prob.m, prob.ps, prob.qs), **kw)
+    base = make_plan(prob, **kw)
+    return KronPlan(base.stages, base.bwd_stages, 1)
+
+
+def plan_cache_key(
+    prob: KronProblem,
+    dtype_bytes: int,
+    backend: str,
+    *,
+    enable_fusion: bool = True,
+    enable_prekron: bool = True,
+    prekron_max_p: int = 16,
+    prekron_max_dim: int = 256,
+    vmem_budget_elems: int = SMEM_BUDGET_ELEMS,
+    batch: int = 0,
+    shared_factors: bool = True,
+    acc_dtype: str | None = None,
+) -> str:
+    """The key a plan-cache entry is stored under, in the reference's
+    format (``repro.core.autotune.plan_cache_key``): every plan-shaping
+    input, ``;B=<batch>;shared=<0|1>`` for a batched plan (``batch > 0``)
+    and ``;acc=`` when an accumulation dtype is set.  The cache itself comes
+    with ``MEASURED_SLICE``."""
+    ps = ",".join(map(str, prob.ps))
+    qs = ",".join(map(str, prob.qs))
+    key = (
+        f"m={prob.m};ps={ps};qs={qs};dtype={dtype_bytes};backend={backend}"
+        f";fuse={int(enable_fusion)};prekron={int(enable_prekron)}"
+        f";pmax={prekron_max_p};pdim={prekron_max_dim};vmem={vmem_budget_elems}"
+    )
+    if batch > 0:
+        key += f";B={batch};shared={int(shared_factors)}"
+    if acc_dtype is not None:
+        key += f";acc={acc_dtype}"
+    return key
+
+
+# ---------------------------------------------------------------------------
 # Plan JSON (the format repro.core.autotune.plan_to_json writes)
 # ---------------------------------------------------------------------------
 
@@ -449,6 +548,8 @@ __all__ = [
     "mirror_bwd_stages",
     "lower",
     "make_plan",
+    "make_batched_plan",
+    "plan_cache_key",
     "plan_to_json",
     "plan_from_json",
     "PEAK_FLOPS",

@@ -10,7 +10,12 @@ kron_sliced.py  — one sliced multiply: ``sliced_multiply_cuda``
                   (csrc/sliced.cu) and ``sliced_multiply_reference``.
 kron_sliced_t.py — its transpose: ``sliced_multiply_t_cuda``
                   (csrc/sliced_t.cu) and ``sliced_multiply_t_reference``.
-ops.py          — sliced-multiply (and transpose) backend dispatch.
+ops.py          — sliced-multiply (and transpose) backend dispatch, with
+                  the reference's ``tiles=`` limit, and the six deprecated
+                  ``fused_kron*`` one-instruction shims over emit.
+kron_fused.py   — DEPRECATED shims: the reference's fused forward entry
+                  points, over emit (no kernel of their own).
+kron_fused_t.py — DEPRECATED shims: its transposed/backward entry points.
 ref.py          — plain PyTorch oracles for the tests.
 _build.py       — builds csrc/*.cu with nvcc at the first launch; ctypes.
 

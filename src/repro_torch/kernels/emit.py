@@ -15,9 +15,14 @@ The port of ``repro.kernels.emit``:
   kernel: the forward chain (``chain_cuda``, ``csrc/chain_fwd.cu``), the
   transposed chain (``chain_bwd_cuda``, ``csrc/chain_bwd.cu``) or the stage
   backward (``grad_cuda``, ``csrc/grad.cu``, plus its dF reduction launch).
-  On CPU tensors they run the kernels' plain twins ``chain_reference``,
-  ``chain_bwd_reference`` and ``grad_reference``.  There is no fallback
-  between the two: the tensors' device decides.
+  On CPU tensors, or with ``backend="torch"`` on either device, they run
+  the kernels' plain twins ``chain_reference``, ``chain_bwd_reference`` and
+  ``grad_reference``.  There is no fallback between the two: the backend
+  (by default the tensors' device) decides.  The guard layer's hooks sit at
+  the reference's points: the ``stage_execute`` and ``pallas_lowering``
+  chaos sites, ``check_finite`` on ``run_stage_grad``'s dx and
+  ``run_program``'s output, and the ``stage``, ``stage_grad`` and
+  ``program`` telemetry spans.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from typing import Sequence
 
 import torch
 
+from ..runtime import chaos, guard, telemetry
 from ..runtime.guard import LoweringError, VmemOverflowError
 from . import _build
 
@@ -61,10 +67,11 @@ _KERNEL_DTYPES = {  # (input dtype, acc dtype) -> code in csrc/kron_tile.cuh
 
 
 def resolve_backend(backend: str, x: torch.Tensor) -> str:
-    """``"auto"`` picks by the tensor's device: ``"cuda"`` for a CUDA tensor,
-    ``"torch"`` (the plain twins) for a CPU one.  An explicit backend must
-    match the device: ``"cuda"`` on a CPU tensor and ``"torch"`` on a CUDA
-    tensor raise ``ValueError``."""
+    """``"auto"`` picks by the tensor's device: ``"cuda"`` (the kernels) for
+    a CUDA tensor, ``"torch"`` (the plain twins) for a CPU one.
+    ``"torch"`` runs the twins on either device, as the reference's explicit
+    ``"xla"`` runs anywhere; ``"cuda"`` needs CUDA tensors and raises
+    ``ValueError`` on CPU ones."""
     if backend == "auto":
         return "cuda" if x.is_cuda else "torch"
     if backend == "cuda":
@@ -72,11 +79,6 @@ def resolve_backend(backend: str, x: torch.Tensor) -> str:
             raise ValueError(f"backend='cuda' needs CUDA tensors, got {x.device}")
         return backend
     if backend == "torch":
-        if x.is_cuda:
-            raise ValueError(
-                "backend='torch' runs the plain PyTorch twins, which take CPU "
-                f"tensors; got {x.device}"
-            )
         return backend
     raise ValueError(f"unknown backend {backend!r}: 'auto', 'cuda' or 'torch'")
 
@@ -1199,35 +1201,41 @@ def run_stage(
 
     ``stage_factors`` are the stage's factors in application order — 2-D
     when ``instr.t_b is None``, per-sample 3-D otherwise — on ``y``'s device.
-    CUDA tensors launch the chain kernel of the direction once; CPU tensors
-    run its plain twin after the same tile checks, so a plan that cannot run
-    on the card fails on the CPU too.  Raises ``VmemOverflowError`` /
+    The ``cuda`` backend (CUDA tensors by default) launches the chain kernel
+    of the direction once; the ``torch`` backend (CPU tensors by default)
+    runs its plain twin after the same tile checks, so a plan that cannot
+    run on the card fails on the CPU too.  Raises ``VmemOverflowError`` /
     ``LoweringError`` on tiles the kernel cannot take.
     """
-    fs, t_qs = _effective(instr, tuple(stage_factors))
-    _same_device(y, fs)
-    b = resolve_backend(backend, y)
-    y3, *fs3 = _as_batched(instr, y, *fs)
-    tiles = dict(
-        t_b=instr.t_b or 1, t_m=instr.t_m, t_k=instr.t_k, t_qs=t_qs,
-        vmem_budget_elems=vmem_budget_elems,
-    )
-    fwd = instr.direction == "fwd"
-    if b == "cuda":
-        kernel = chain_cuda if fwd else chain_bwd_cuda
-        out = kernel(
-            y3.contiguous(), *(f.contiguous() for f in fs3),
-            acc_dtype=instr.acc_dtype, **tiles,
+    chaos.maybe_fail("stage_execute")
+    # One truthiness check when telemetry is off: span() returns a shared
+    # no-op that enters no profiler range.
+    with telemetry.span("stage", kind=instr.kind, direction=instr.direction):
+        fs, t_qs = _effective(instr, tuple(stage_factors))
+        _same_device(y, fs)
+        b = resolve_backend(backend, y)
+        y3, *fs3 = _as_batched(instr, y, *fs)
+        tiles = dict(
+            t_b=instr.t_b or 1, t_m=instr.t_m, t_k=instr.t_k, t_qs=t_qs,
+            vmem_budget_elems=vmem_budget_elems,
         )
-    else:
-        acc = _resolve_acc(instr.acc_dtype, y.dtype)
-        chain_geometry(
-            y3.shape, [f.shape for f in fs3], acc_bytes=acc.itemsize,
-            direction=instr.direction, in_bytes=y.element_size(), **tiles,
-        )
-        twin = chain_reference if fwd else chain_bwd_reference
-        out = twin(y3, *fs3, acc_dtype=instr.acc_dtype)
-    return out if instr.t_b is not None else out[0]
+        fwd = instr.direction == "fwd"
+        if b == "cuda":
+            chaos.maybe_fail("pallas_lowering")
+            kernel = chain_cuda if fwd else chain_bwd_cuda
+            out = kernel(
+                y3.contiguous(), *(f.contiguous() for f in fs3),
+                acc_dtype=instr.acc_dtype, **tiles,
+            )
+        else:
+            acc = _resolve_acc(instr.acc_dtype, y.dtype)
+            chain_geometry(
+                y3.shape, [f.shape for f in fs3], acc_bytes=acc.itemsize,
+                direction=instr.direction, in_bytes=y.element_size(), **tiles,
+            )
+            twin = chain_reference if fwd else chain_bwd_reference
+            out = twin(y3, *fs3, acc_dtype=instr.acc_dtype)
+        return out if instr.t_b is not None else out[0]
 
 
 def run_stage_grad(
@@ -1245,33 +1253,37 @@ def run_stage_grad(
     the FORWARD instruction (its transpose is implied; its ``t_qs`` does not
     apply, the stage backward takes Q whole).  Factor grads are returned in
     application order, accumulated in the stage's acc dtype (callers cast).
-    CUDA tensors launch the stage backward kernel (``grad_cuda``); CPU
-    tensors run ``grad_reference`` after the same checks.  Raises
+    The ``cuda`` backend launches the stage backward kernel
+    (``grad_cuda``); the ``torch`` backend runs ``grad_reference`` after the
+    same checks.  dx passes ``guard.check_finite``.  Raises
     ``VmemOverflowError`` when the stage's live set cannot fit one block.
     """
-    fs = tuple(stage_factors)
-    _same_device(u, (g, *fs))
-    b = resolve_backend(backend, u)
-    u3, g3, *fs3 = _as_batched(instr, u, g, *fs)
-    tiles = dict(
-        t_b=instr.t_b or 1, t_m=instr.t_m, t_k=instr.t_k,
-        vmem_budget_elems=vmem_budget_elems,
-    )
-    if b == "cuda":
-        dx, dfs = grad_cuda(
-            u3.contiguous(), g3.contiguous(), *(f.contiguous() for f in fs3),
-            acc_dtype=instr.acc_dtype, **tiles,
+    chaos.maybe_fail("stage_execute")
+    with telemetry.span("stage_grad", kind=instr.kind):
+        fs = tuple(stage_factors)
+        _same_device(u, (g, *fs))
+        b = resolve_backend(backend, u)
+        u3, g3, *fs3 = _as_batched(instr, u, g, *fs)
+        tiles = dict(
+            t_b=instr.t_b or 1, t_m=instr.t_m, t_k=instr.t_k,
+            vmem_budget_elems=vmem_budget_elems,
         )
-    else:
-        acc = _resolve_acc(instr.acc_dtype, g.dtype)
-        grad_geometry(
-            u3.shape, g3.shape, [f.shape for f in fs3], acc_bytes=acc.itemsize,
-            in_bytes=u.element_size(), **tiles,
-        )
-        dx, dfs = grad_reference(u3, g3, *fs3, acc_dtype=instr.acc_dtype)
-    if instr.t_b is None:
-        return dx[0], tuple(d[0] for d in dfs)
-    return dx, dfs
+        if b == "cuda":
+            chaos.maybe_fail("pallas_lowering")
+            dx, dfs = grad_cuda(
+                u3.contiguous(), g3.contiguous(), *(f.contiguous() for f in fs3),
+                acc_dtype=instr.acc_dtype, **tiles,
+            )
+        else:
+            acc = _resolve_acc(instr.acc_dtype, g.dtype)
+            grad_geometry(
+                u3.shape, g3.shape, [f.shape for f in fs3], acc_bytes=acc.itemsize,
+                in_bytes=u.element_size(), **tiles,
+            )
+            dx, dfs = grad_reference(u3, g3, *fs3, acc_dtype=instr.acc_dtype)
+        if instr.t_b is None:
+            dx, dfs = dx[0], tuple(d[0] for d in dfs)
+        return guard.check_finite(dx, "run_stage_grad"), dfs
 
 
 def run_program(
@@ -1295,12 +1307,15 @@ def run_program(
             f"program expects {prog.n_factors} factors, got {len(factors)}"
         )
     rev = tuple(reversed(factors))
-    y = x
-    for instr in prog.instrs:
-        y = run_stage(
-            y, tuple(rev[i] for i in instr.factor_ids), instr, backend=backend
-        )
-    return y
+    with telemetry.span("program", stages=len(prog.instrs)):
+        y = x
+        for instr in prog.instrs:
+            y = run_stage(
+                y, tuple(rev[i] for i in instr.factor_ids), instr, backend=backend
+            )
+    # Non-finite guard on the program's output: the value downstream layers
+    # consume, after every stage's acc_dtype downcast.
+    return guard.check_finite(y, "run_program")
 
 
 def emit(prog: StageProgram, *, backend: str = "auto"):

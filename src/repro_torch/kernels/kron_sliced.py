@@ -91,6 +91,26 @@ def sliced_uses_mma(p: int, q: int, in_bytes: int) -> bool:
     return in_bytes == 2 and sliced_smem_bytes(1, 1, p, q, q, 2, 4, True) <= TWO_BLOCK_SMEM_BYTES
 
 
+def sliced_mma(p: int, q: int, t_q: int, in_bytes: int) -> bool:
+    """Whether a sliced.cu launch at Q-tile ``t_q`` runs on the tensor
+    cores: ``sliced_uses_mma`` and Q whole (the mma path loads the whole
+    transposed panel)."""
+    return t_q == q and sliced_uses_mma(p, q, in_bytes)
+
+
+def check_tiles(m: int, s: int, q: int, tiles) -> tuple[int, int, int]:
+    """A caller's ``tiles=(t_m, t_s, t_q)`` limit, as the reference's
+    ``ops.sliced_multiply(tiles=)`` takes it: each entry clamped to its
+    dim (``None`` for ``t_s`` or ``t_q``: no limit).  Raises
+    ``LoweringError`` (a ``ValueError``, the reference's class) when a
+    tile does not divide its dim."""
+    t_m, t_s, t_q = tiles
+    t_m, t_s, t_q = min(int(t_m), m), min(int(t_s or s), s), min(int(t_q or q), q)
+    if t_m < 1 or t_s < 1 or t_q < 1 or m % t_m or s % t_s or q % t_q:
+        raise LoweringError(f"tiles must divide dims: {(m, s, q)} vs {(t_m, t_s, t_q)}")
+    return t_m, t_s, t_q
+
+
 def sliced_t_smem_bytes(
     t_m: int, t_s: int, p: int, q: int, t_q: int, in_bytes: int, acc_bytes: int
 ) -> int:
@@ -115,7 +135,7 @@ def sliced_t_fits_threads(t_m: int, t_s: int, p: int) -> bool:
 @functools.lru_cache(maxsize=1024)
 def sliced_tiles(
     m: int, s: int, p: int, q: int, acc_bytes: int, kind: str = "fwd",
-    in_bytes: int | None = None,
+    in_bytes: int | None = None, limit: tuple[int, int, int] | None = None,
 ) -> tuple[int, int, int]:
     """The card's tiles ``(t_m, t_s, t_q)`` for one sliced multiply
     (``kind="fwd"``, ``csrc/sliced.cu``) or its transpose
@@ -135,14 +155,19 @@ def sliced_tiles(
     (``sliced_t_smem_bytes``), those that leave room for a second block on
     the SM come first, then the widest Q-tile, then the largest ``t_m *
     t_s``, ties to the longer run of slices.
+
+    ``limit=(t_m, t_s, t_q)`` (from ``check_tiles``: each divides its dim)
+    bounds the tile: every entry divides the limit's.  A Q-tile limit below
+    Q keeps a bf16 launch off the tensor cores (``sliced_mma``).
     """
     ib = acc_bytes if in_bytes is None else in_bytes
+    lim_m, lim_s, lim_q = limit if limit is not None else (m, s, q)
     fits = []
     if kind == "fwd":
-        mma = sliced_uses_mma(p, q, ib)
-        for t_q in [q] if mma else _divisors(q):
-            for t_s in _divisors(s):
-                for t_m in _divisors(m):
+        mma = sliced_mma(p, q, lim_q, ib)
+        for t_q in [q] if mma else _divisors(lim_q):
+            for t_s in _divisors(lim_s):
+                for t_m in _divisors(lim_m):
                     nbytes = sliced_smem_bytes(t_m, t_s, p, q, t_q, ib, acc_bytes, mma)
                     if nbytes <= TWO_BLOCK_SMEM_BYTES:
                         fits.append((t_q, t_s * ib >= 32, t_m * t_s, t_s, t_m))
@@ -150,9 +175,9 @@ def sliced_tiles(
             best = max(fits)
             return best[4], best[3], best[0]
     elif kind == "sliced_t":
-        for t_q in _divisors(q):
-            for t_s in _divisors(s):
-                for t_m in _divisors(m):
+        for t_q in _divisors(lim_q):
+            for t_s in _divisors(lim_s):
+                for t_m in _divisors(lim_m):
                     if not sliced_t_fits_threads(t_m, t_s, p):
                         continue
                     nbytes = sliced_t_smem_bytes(t_m, t_s, p, q, t_q, ib, acc_bytes)
@@ -182,7 +207,7 @@ def sliced_occupancy(code, m, s, p, q, t_m, t_s, t_q, device):
     these tiles, from its occupancy query; memoized.  Raises when the
     kernel's layout and ``sliced_smem_bytes`` disagree."""
     in_bytes, acc_bytes = CODE_BYTES[code]
-    mma = sliced_uses_mma(p, q, in_bytes)
+    mma = sliced_mma(p, q, t_q, in_bytes)
     with torch.cuda.device(device):
         per_sm, smem = occupancy("sliced", _OCC_ARGS, code, int(mma), m, s * p, p, q, t_m, t_s, t_q)
     model = sliced_smem_bytes(t_m, t_s, p, q, t_q, in_bytes, acc_bytes, mma)
@@ -191,10 +216,13 @@ def sliced_occupancy(code, m, s, p, q, t_m, t_s, t_q, device):
     return per_sm, smem
 
 
-def sliced_multiply_cuda(x: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+def sliced_multiply_cuda(
+    x: torch.Tensor, f: torch.Tensor, *, tiles: tuple | None = None
+) -> torch.Tensor:
     """One launch of the sliced-multiply kernel: (M, K) x (P, Q) -> (M, Q*S).
 
-    Tiles come from ``sliced_tiles``, the grid from the occupancy query
+    Tiles come from ``sliced_tiles``, bounded by ``tiles=(t_m, t_s, t_q)``
+    when given (``check_tiles``), the grid from the occupancy query
     (``emit.grad_blocks``).  Output in x's dtype, accumulated in f32 (f64
     for f64).  Raises on CPU tensors: their path is
     ``sliced_multiply_reference``.
@@ -207,7 +235,8 @@ def sliced_multiply_cuda(x: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     s = k // p
     acc = acc_dtype_for(x.dtype)
     isz = x.element_size()
-    t_m, t_s, t_q = sliced_tiles(m, s, p, q, acc.itemsize, in_bytes=isz)
+    limit = None if tiles is None else check_tiles(m, s, q, tiles)
+    t_m, t_s, t_q = sliced_tiles(m, s, p, q, acc.itemsize, in_bytes=isz, limit=limit)
     require_cuda("sliced_multiply_cuda", x, f)
     code = kernel_dtype_code(x, (f,), acc)
     y = torch.empty((m, q * s), dtype=x.dtype, device=x.device)
@@ -217,7 +246,7 @@ def sliced_multiply_cuda(x: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     nblk = grad_blocks(sm_count(x.device), per_sm, (q // t_q) * (m // t_m) * (s // t_s), 1)
     with torch.cuda.device(x.device):
         err = kernel_fn("sliced", _SLICED_ARGS)(
-            code, int(sliced_uses_mma(p, q, isz)), x.data_ptr(), f.data_ptr(), y.data_ptr(),
+            code, int(sliced_mma(p, q, t_q, isz)), x.data_ptr(), f.data_ptr(), y.data_ptr(),
             m, k, p, q, t_m, t_s, t_q, nblk, torch.cuda.current_stream().cuda_stream,
         )
     check_launch("sliced", err)
@@ -242,4 +271,6 @@ __all__ = [
     "sliced_t_smem_bytes",
     "sliced_tiles",
     "sliced_uses_mma",
+    "sliced_mma",
+    "check_tiles",
 ]

@@ -36,7 +36,7 @@ from .emit import (
     sliced_apply_t,
     sm_count,
 )
-from .kron_sliced import sliced_t_smem_bytes, sliced_tiles
+from .kron_sliced import check_tiles, sliced_t_smem_bytes, sliced_tiles
 
 # Launch counter of the transposed sliced kernel: +1 per launch, nowhere else.
 sliced_t_launches = 0
@@ -71,17 +71,22 @@ def _dims(dy: torch.Tensor, f: torch.Tensor) -> tuple[int, int, int, int]:
     return m, l_cols // q, p, q
 
 
-def sliced_multiply_t_cuda(dy: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+def sliced_multiply_t_cuda(
+    dy: torch.Tensor, f: torch.Tensor, *, tiles: tuple | None = None
+) -> torch.Tensor:
     """One launch of the transposed sliced kernel: (M, Q*S) x (P, Q) ->
     (M, S*P).  Tiles come from ``kron_sliced.sliced_tiles(kind="sliced_t")``,
-    the grid from the occupancy query (``emit.grad_blocks``).  Output in dy's
+    bounded by ``tiles=(t_m, t_s, t_q)`` when given, the grid from the occupancy query (``emit.grad_blocks``).  Output in dy's
     dtype, accumulated in f32 (f64 for f64).  Raises on CPU tensors: their
     path is ``sliced_multiply_t_reference``."""
     global sliced_t_launches
     m, s, p, q = _dims(dy, f)
     acc = acc_dtype_for(dy.dtype)
     isz = dy.element_size()
-    t_m, t_s, t_q = sliced_tiles(m, s, p, q, acc.itemsize, kind="sliced_t", in_bytes=isz)
+    limit = None if tiles is None else check_tiles(m, s, q, tiles)
+    t_m, t_s, t_q = sliced_tiles(
+        m, s, p, q, acc.itemsize, kind="sliced_t", in_bytes=isz, limit=limit
+    )
     require_cuda("sliced_multiply_t_cuda", dy, f)
     code = kernel_dtype_code(dy, (f,), acc)
     dx = torch.empty((m, s * p), dtype=dy.dtype, device=dy.device)

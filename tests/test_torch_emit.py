@@ -162,6 +162,13 @@ def test_chain_cuda_on_cpu_tensors_raises():
         ops.sliced_multiply(torch.zeros(2, 16), torch.zeros(4, 4), backend="cuda")
 
 
+class _OnCuda:
+    """Stands in for a CUDA tensor: resolve_backend reads only these."""
+
+    is_cuda = True
+    device = "cuda:0"
+
+
 def test_resolve_backend_device_rule():
     cpu = torch.zeros(1)
     assert TE.resolve_backend("auto", cpu) == "torch"
@@ -169,6 +176,28 @@ def test_resolve_backend_device_rule():
     for bad in ("cuda", "xla", "pallas"):
         with pytest.raises(ValueError):
             TE.resolve_backend(bad, cpu)
+    # "torch" runs the plain twins on either device; "auto" follows it.
+    assert TE.resolve_backend("torch", _OnCuda()) == "torch"
+    assert TE.resolve_backend("auto", _OnCuda()) == "cuda"
+    assert TE.resolve_backend("cuda", _OnCuda()) == "cuda"
+
+
+@pytest.mark.cuda
+def test_torch_backend_runs_the_twins_on_cuda_tensors():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the plain twins on CUDA tensors")
+    from repro_torch.core import KronOp
+
+    x, fs = make_inputs(19, 8, (8, 8), (8, 8))
+    xc = to_torch(x).cuda()
+    fc = [to_torch(f).cuda() for f in fs]
+    before = TE.chain_launches
+    got = KronOp((8, 8), (8, 8), backend="torch")(xc, fc)
+    assert TE.chain_launches == before and got.is_cuda
+    want = KronOp((8, 8), (8, 8))(to_torch(x), [to_torch(f) for f in fs])
+    assert_close(got.cpu(), want.numpy(), 1e-12)
+    assert_close(ops.sliced_multiply(xc, fc[0], backend="torch").cpu(),
+                 ops.sliced_multiply(to_torch(x), to_torch(fs[0])).numpy(), 1e-12)
 
 
 BUDGET = 4096

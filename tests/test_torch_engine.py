@@ -111,8 +111,13 @@ def test_no_grad_inputs_give_no_graph():
 
 
 def test_rejects_what_the_slice_leaves_out_and_bad_inputs():
+    # Per-sample factors run since the batched slice; the measured planner
+    # and the plan cache are what the port still leaves out.
+    assert KronOp((4,), (4,), batch=2, shared_factors=False).shared_factors is False
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        KronOp((4,), (4,), batch=2, shared_factors=False)
+        KronOp((4,), (4,), tune="measure")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        KronOp((4,), (4,), cache_path="plans.json")
     with pytest.raises(ValueError):
         KronOp((4, 4), (4,))
     with pytest.raises(ValueError):

@@ -126,3 +126,55 @@ def test_sliced_tiles_raise_when_nothing_fits():
         kron_sliced.sliced_tiles(4, 8, 2048, 8, 8)
     with pytest.raises(ValueError, match="kind"):
         kron_sliced.sliced_tiles(4, 8, 32, 32, 4, kind="chain_fwd")
+
+
+# ---------------------------------------------------------------------------
+# The reference's tiles= keyword: an upper limit on the block tile
+# ---------------------------------------------------------------------------
+
+LIMIT_CASES = [  # (m, s, p, q, in_bytes, limit)
+    (4096, 76, 64, 128, 2, (2, 38, 128)),   # ffn stage 1 bf16: stays on the tensor cores
+    (4096, 76, 64, 128, 2, (2, 38, 64)),    # a Q-tile limit below Q: the CUDA cores
+    (1024, 32768, 32, 32, 4, (8, 64, 16)),  # fig9 f32
+    (10, 52, 65, 20, 4, (5, 13, 10)),       # compress, odd
+]
+
+
+@pytest.mark.parametrize("m,s,p,q,in_bytes,limit", LIMIT_CASES)
+def test_sliced_tiles_stay_inside_a_limit(m, s, p, q, in_bytes, limit):
+    for kind in ("fwd", "sliced_t"):
+        t_m, t_s, t_q = kron_sliced.sliced_tiles(
+            m, s, p, q, 4, kind=kind, in_bytes=in_bytes, limit=limit)
+        assert limit[0] % t_m == 0 and limit[1] % t_s == 0 and limit[2] % t_q == 0
+        free = kron_sliced.sliced_tiles(m, s, p, q, 4, kind=kind, in_bytes=in_bytes)
+        if all(f <= lim and lim % f == 0 for f, lim in zip(free, limit)):
+            assert (t_m, t_s, t_q) == free  # a limit the free choice meets changes nothing
+    mma = kron_sliced.sliced_mma(p, q, t_q, in_bytes)
+    assert mma == (kron_sliced.sliced_uses_mma(p, q, in_bytes) and limit[2] == q)
+
+
+def test_sliced_multiply_tiles_limit_and_reject_as_the_reference():
+    import jax
+    import numpy as np
+
+    from _torch_parity import assert_close, make_inputs, to_jax, to_torch
+    from repro.kernels import ops as JO
+    from repro_torch.kernels import ops
+
+    jax.config.update("jax_enable_x64", True)  # as every parity file sets it
+    x, (f,) = make_inputs(70, 4, (6,), (5,))
+    x = np.concatenate([x] * 4, axis=1)  # S = 4
+    xt, ft, xj, fj = to_torch(x), to_torch(f), to_jax(x), to_jax(f)
+    dy = np.random.default_rng(70).standard_normal((4, 5 * 4))
+    for tiles in [(2, None, None), (4, 2, 5), (8, 4, None)]:
+        want = JO.sliced_multiply(xj, fj, backend="pallas", tiles=tiles)
+        assert_close(ops.sliced_multiply(xt, ft, tiles=tiles), want, 1e-12)
+        want = JO.sliced_multiply_t(to_jax(dy), fj, backend="pallas", tiles=tiles)
+        assert_close(ops.sliced_multiply_t(to_torch(dy), ft, tiles=tiles), want, 1e-12)
+    for bad in [(3, None, None), (2, 3, None), (2, None, 2)]:
+        with pytest.raises(ValueError, match="tiles must divide"):
+            JO.sliced_multiply(xj, fj, backend="pallas", tiles=bad)
+        with pytest.raises(TG.LoweringError, match="tiles must divide"):
+            ops.sliced_multiply(xt, ft, tiles=bad)
+        with pytest.raises(TG.LoweringError, match="tiles must divide"):
+            ops.sliced_multiply_t(to_torch(dy), ft, tiles=bad)
