@@ -4,9 +4,11 @@
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --alone    # phases 1 and 4 only (A/B of two trees)
 
-It refuses to run (exit 1) with ``FASTKRON_CHAOS`` or ``FASTKRON_NUMERICS``
-set: the first injects faults into the kernels' path, the second adds host
-checks to every call.
+It refuses to run (exit 1) with ``FASTKRON_CHAOS``, ``FASTKRON_NUMERICS`` or
+``FASTKRON_PLAN_CACHE`` set: the first injects faults into the kernels'
+path, the second adds host checks to every call, the third would point the
+measured planner at a cache the smoke does not own (it writes its plans
+into a temporary directory, never into ``~/.cache``).
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
 holds each kernel against its plain PyTorch twin on the card, then drives the
@@ -60,8 +62,29 @@ went through the kernels.  Phases, one line each:
      does a float16 call, a dtype the kernels do not take; the launch
      counters show which kernels ran, one GuardWarning per key,
      ``DEFAULT_PATIENCE`` degraded calls pin the key.
-  6. a ``{"kernels": [...]}`` JSON line, then the card's name and power limit.
-  7. last line: ``{"ok": true, "device": {...}}``.
+  6. measure: ``KronOp(..., tune="measure", cache_path=<temporary dir>)``
+     on fig9, gp16, ffn (bf16) and gp16-batched: each distinct candidate's
+     time, the winner, the analytic plan's time in the same run, the cache
+     key (with the card's name); a second construction hits the cache
+     (``plan_cache.hit``, no launch); the winner's forward and backward
+     against the plain twins; then the pre-kronization pair
+     (``enable_prekron`` True and False) on gp16 and gp16-batched.
+  7. profile: ``KronOp.profile`` on fig9, gp16 and ffn: per stage the
+     measured ms, the measured and predicted shares, the drift, the flags.
+  8. ffn-block: qwen3-4b's FFN with ``kron_ffn=True, kron_factors=2`` (w1,
+     w3 (64,40)->(128,76), w2 the reverse; three ``KronLinear`` modules) on
+     4096 bf16 tokens: one module's forward (chain_fwd 2), the block's
+     forward (chain_fwd 6) and backward into the parameters (grad 6,
+     chain_fwd 3), against ``backend="torch"`` at 1e-2 / 2e-2; the dense
+     SwiGLU block as a yardstick.
+  9. gp-epoch: ``gp_train_epoch`` on six 16-point RBF factors (K=16^6,
+     M=16, 10 CG iterations, f32; chain_fwd 3 per MVM, 11 MVMs) against
+     ``backend="shuffle"`` at 1e-4, and ``gp_train_epoch_batched`` at B=4,
+     every sample against its own shuffle epoch.
+     Phases 6-9 assert an empty guard report after them.
+  10. a ``{"kernels": [...]}`` JSON line (launches of phases 3 and 6-9),
+      then the card's name and power limit.
+  11. last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero.  Needs one CUDA card; imports nothing of JAX.
 """
@@ -74,6 +97,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -149,6 +173,31 @@ def device_ms(fn) -> float:
         torch.cuda.synchronize()
     total = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages())
     return total / ITERS / 1e3
+
+
+# The port's kernels, by the names torch.profiler gives their launches.
+PORT_KERNEL_NAMES = ("chain_fwd_kernel", "chain_bwd_kernel", "grad_kernel", "grad_mma_kernel",
+                     "grad_reduce_kernel", "sliced_kernel", "sliced_t_kernel")
+
+
+def device_split(fn) -> tuple[float, float]:
+    """(device ms, ms of the port's kernels) per ``fn`` call, from
+    ``torch.profiler`` over ITERS calls after WARMUP: every kernel, memset
+    and copy the call launches, and those of PORT_KERNEL_NAMES."""
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(ITERS):
+            fn()
+        torch.cuda.synchronize()
+    total = ours = 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", 0)
+        total += t
+        if any(name in e.key for name in PORT_KERNEL_NAMES):
+            ours += t
+    return total / ITERS / 1e3, ours / ITERS / 1e3
 
 
 def randn(gen, shape, dtype):
@@ -665,6 +714,29 @@ def plain_dfs_f64(op, x, fs, g) -> list:
     return total
 
 
+def hold_backward(op, x, fs, grads, ct, batched: bool):
+    """(max abs err, [dx rel err], [dF rel errs]) of ``grads`` (dx, dF...)
+    against the plain twins: dx in the same dtype, every dF in f64; per
+    sample for a per-sample op."""
+    samples = range(x.shape[0]) if batched else [None]
+    errs, dx_rels, df_rels = [], [], []
+    with torch.no_grad():
+        for i in samples:
+            pick = (lambda t: t) if i is None else (lambda t, i=i: t[i])
+            xi, gi = pick(x), pick(ct)
+            fi = [pick(f) for f in fs]
+            rdx, _ = plain_bwd(op, xi, fi, gi, False)
+            err, rel = compare(pick(grads[0]), rdx)
+            del rdx
+            errs.append(err)
+            dx_rels.append(rel)
+            for d, r in zip(grads[1:], plain_dfs_f64(op, xi, fi, gi)):
+                err, rel = compare(pick(d), r)
+                errs.append(err)
+                df_rels.append(rel)
+    return max(errs), dx_rels, df_rels
+
+
 def run_backward(gen, peaks) -> list[dict]:
     from repro_torch.core import KronOp, KronProblem
     from repro_torch.core.engine import _lowered
@@ -901,19 +973,7 @@ def run_batched_backward(gen, peaks) -> list[dict]:
     if not bitwise:
         raise AssertionError(f"{name}: two backward runs differ")
     xd, fd = x.detach(), [f.detach() for f in fs]
-    errs, dx_rels, df_rels = [], [], []
-    with torch.no_grad():
-        for i in range(b):  # each sample against the plain twins of its own problem
-            fi = [f[i] for f in fd]
-            rdx, _ = plain_bwd(op, xd[i], fi, ct[i], False)
-            err, rel = compare(grads[0][i], rdx)
-            del rdx
-            errs.append(err)
-            dx_rels.append(rel)
-            for d, r in zip(grads[1:], plain_dfs_f64(op, xd[i], fi, ct[i])):
-                err, rel = compare(d[i], r)
-                errs.append(err)
-                df_rels.append(rel)
+    max_err, dx_rels, df_rels = hold_backward(op, xd, fd, grads, ct, True)
     del grads
     torch.cuda.empty_cache()
     tol = GRAD_TOLERANCE[dtype]
@@ -933,7 +993,7 @@ def run_batched_backward(gen, peaks) -> list[dict]:
     row = {
         "case": name, "describe": op.describe(), "dtype": "float32", "b": b, "m": m,
         "ps": list(ps), "qs": list(qs), "stages": n, "t_b": op.plan.t_b,
-        "grads": "x and factors", "launches": launches, "max_abs_err": max(errs),
+        "grads": "x and factors", "launches": launches, "max_abs_err": max_err,
         "dx_rel_err": max(dx_rels), "df_rel_err": max(df_rels), "tol": tol,
         "bitwise_repeat": bitwise, "peak_mem_gib": peak_gib,
         "kernel_peak_mem_gib": kernel_peak_gib, "ms": ms, "plain_ms": plain_ms,
@@ -1364,8 +1424,448 @@ def run_ladder(gen) -> list[dict]:
     return rows
 
 
-# One injects faults into the kernels' path, the other adds host checks.
-REFUSED_ENV = ("FASTKRON_CHAOS", "FASTKRON_NUMERICS")
+# ---------------------------------------------------------------------------
+# Phases 6-9: the consumers (measured plans, profile, the FFN block, the GP)
+# ---------------------------------------------------------------------------
+
+# (name, B or None, M, ps, qs, dtype): the measured planner's cases.
+MEASURE_CASES = [
+    ("fig9", None, 1024, (32,) * 4, (32,) * 4, torch.float32),
+    ("gp16", None, 16, (16,) * 6, (16,) * 6, torch.float32),
+    ("ffn", None, 4096, (64, 40), (128, 76), torch.bfloat16),
+    ("gp16-batched", 4, 16, (16,) * 6, (16,) * 6, torch.float32),
+]
+# The pre-kronization pair: the only smoke shapes the gate can touch
+# (prekron_max_p=16 leaves fig9's 32 x 32 factors alone).
+PREKRON_CASES = [c for c in MEASURE_CASES if c[0] in ("gp16", "gp16-batched")]
+PROFILE_CASES = [c for c in MEASURE_CASES if c[0] in ("fig9", "gp16", "ffn")]
+
+
+def _telemetry_counter(name: str) -> int:
+    from repro_torch.runtime import telemetry
+
+    return telemetry.snapshot()["counters"].get(name, 0)
+
+
+def run_measure(gen, cache_dir: str) -> tuple[list[dict], dict]:
+    """``KronOp(..., tune="measure", cache_path=...)`` on each case: the
+    candidates and their times from the cache entry, the winner, the
+    analytic plan's time in the same run, the key (the card's name in its
+    ``;dev=``); a second construction hits the cache (``plan_cache.hit``
+    up, no launch); the winner's forward and backward against the plain
+    twins.  Then the pre-kronization pair.  Returns the rows and the
+    launches of the measured ops' calls."""
+    from repro_torch.core import KronOp, KronProblem, autotune
+    from repro_torch.core.engine import _lowered
+    from repro_torch.runtime import telemetry
+
+    path = os.path.join(cache_dir, "plans.json")
+    telemetry.configure(annotate=False)
+    rows, launches_total = [], expect()
+    try:
+        for name, b, m, ps, qs, dtype in MEASURE_CASES:
+            dbytes = torch.tensor([], dtype=dtype).element_size()
+            kw = {} if b is None else {"batch": b, "shared_factors": False}
+            hits, misses = _telemetry_counter("plan_cache.hit"), _telemetry_counter(
+                "plan_cache.miss")
+            t0 = time.perf_counter()
+            op = KronOp(ps, qs, m=m, tune="measure", cache_path=path, dtype_bytes=dbytes,
+                        device="cuda", **kw)
+            torch.cuda.synchronize()
+            measure_s = time.perf_counter() - t0
+            if _telemetry_counter("plan_cache.miss") != misses + 1:
+                raise AssertionError(f"measure {name}: the first construction did not measure")
+            prob = KronProblem(m, ps, qs)
+            key = autotune.plan_cache_key(
+                prob, dbytes, "auto", enable_prekron=False, device="cuda",
+                **({} if b is None else {"batch": b, "shared_factors": False}))
+            entry = autotune.load_plan_cache(path)[key]
+            if torch.cuda.get_device_name(0) not in key:
+                raise AssertionError(f"measure {name}: key {key!r} lacks the card's name")
+            analytic = (autotune.make_plan(prob, dtype_bytes=dbytes, enable_prekron=False)
+                        if b is None else autotune.make_batched_plan(
+                            prob, b, shared_factors=False, dtype_bytes=dbytes))
+            if entry["candidates"][0] != analytic.describe():
+                raise AssertionError(f"measure {name}: the analytic plan was not timed first")
+            # A second construction reads the plan back: no measurement, no launch.
+            reset_counters()
+            again = KronOp(ps, qs, m=m, tune="measure", cache_path=path, dtype_bytes=dbytes,
+                           device="cuda", **kw)
+            torch.cuda.synchronize()
+            if (_telemetry_counter("plan_cache.hit") != hits + 1
+                    or read_counters() != expect() or again.plan != op.plan):
+                raise AssertionError(f"measure {name}: the second construction did not hit")
+            # The winner's forward and backward against the plain twins.
+            lead = () if b is None else (b,)
+            x = randn(gen, (*lead, m, math.prod(ps)), dtype).requires_grad_()
+            fs = [randn(gen, (*lead, p, q), dtype).requires_grad_() for p, q in zip(ps, qs)]
+            ct = randn(gen, (*lead, m, math.prod(qs)), dtype)
+            n = len(_lowered(op.plan, op.ps, op.qs, b is not None).instrs)
+            reset_counters()
+            y = op(x, fs)
+            grads = torch.autograd.grad(y, [x, *fs], ct)
+            torch.cuda.synchronize()
+            launches = read_counters()
+            want = expect(chain_fwd=2 * n - 1, grad=n, grad_reduce=n)
+            if launches != want:
+                raise AssertionError(f"measure {name}: launches {launches}, expected {want}")
+            launches_total = {k: launches_total[k] + v for k, v in launches.items()}
+            xd, fd = x.detach(), [f.detach() for f in fs]
+            with torch.no_grad():
+                err, rel = compare(y.detach(), plain_twin(op, xd, fd))
+            del y
+            g_err, dx_rels, df_rels = hold_backward(op, xd, fd, grads, ct, b is not None)
+            del grads
+            torch.cuda.empty_cache()
+            cands = [{"plan": d, "ms": s * 1e3}
+                     for d, s in zip(entry["candidates"], entry["candidate_seconds"])]
+            # The measurement's 1 warm-up and 3 runs per candidate, checked:
+            # the winner's and the analytic plan's forward plus backward in
+            # turns (analytic, winner, winner, analytic), median of ITERS.
+            ab = {}
+            if len(cands) > 1:
+                ab_ops = {"analytic": KronOp(ps, qs, plan=analytic, **kw), "winner": op}
+                for which in ("analytic", "winner", "winner", "analytic"):
+                    ab.setdefault(which + "_ms", []).append(time_ms(
+                        lambda o=ab_ops[which]: torch.autograd.grad(
+                            o(x, fs).float().sum(), [x, *fs])))
+                del ab_ops
+            del x, fs, ct, xd, fd
+            torch.cuda.empty_cache()
+            row = {
+                "case": name, "dtype": str(dtype).replace("torch.", ""), "key": key,
+                "candidates": cands, "distinct_launch_configurations": len(cands),
+                "winner": op.plan.describe(), "winner_ms": entry["seconds"] * 1e3,
+                "analytic": analytic.describe(), "analytic_ms": cands[0]["ms"],
+                "ab_fwd_bwd": ab, "measure_s": measure_s,
+                "second_construction": "plan_cache.hit",
+                "launches": launches, "fwd_rel_err": rel, "max_abs_err": max(err, g_err),
+                "dx_rel_err": max(dx_rels), "df_rel_err": max(df_rels),
+                "tol": TOLERANCE[dtype], "grad_tol": GRAD_TOLERANCE[dtype],
+            }
+            print("measure " + json.dumps(row), flush=True)
+            if rel > TOLERANCE[dtype] or max(dx_rels + df_rels) > GRAD_TOLERANCE[dtype]:
+                raise AssertionError(f"measure {name}: errors {rel}, {dx_rels}, {df_rels}")
+            rows.append(row)
+            del op, again
+            torch.cuda.empty_cache()
+    finally:
+        telemetry.disable()
+    prekron_rows, prekron_launches = run_prekron_pair(gen)
+    rows.extend(prekron_rows)
+    return rows, {k: launches_total[k] + v for k, v in prekron_launches.items()}
+
+
+def run_prekron_pair(gen) -> tuple[list[dict], dict]:
+    """``enable_prekron=True`` against ``False`` on gp16 and gp16-batched:
+    the forward timed in turns (off, on, on, off) by CUDA events, prekron's
+    result held against the plain twins.  ``prekron_wins`` is true only
+    where every prekron time is below every time without it (a win by more
+    than the runs' spread)."""
+    from repro_torch.core import KronOp
+
+    rows, launches_total = [], expect()
+    for name, b, m, ps, qs, dtype in PREKRON_CASES:
+        lead = () if b is None else (b,)
+        kw = {} if b is None else {"batch": b, "shared_factors": False}
+        x = randn(gen, (*lead, m, math.prod(ps)), dtype)
+        fs = [randn(gen, (*lead, p, q), dtype) for p, q in zip(ps, qs)]
+        ops = {pk: KronOp(ps, qs, enable_prekron=pk, **kw) for pk in (False, True)}
+        reset_counters()
+        y = ops[True](x, fs)
+        torch.cuda.synchronize()
+        launches = read_counters()
+        if launches != expect(chain_fwd=len(ps) // 2):
+            raise AssertionError(f"{name} prekron: launches {launches}")
+        launches_total = {k: launches_total[k] + v for k, v in launches.items()}
+        err, rel = compare(y, plain_twin(ops[False], x, fs))
+        del y
+        torch.cuda.empty_cache()
+
+        def fwd(pk):
+            with torch.no_grad():
+                return ops[pk](x, fs)
+
+        # The forward only: a 256 x 256 prekron stage's backward does not fit
+        # one block of the stage backward and would take the per-factor
+        # fallback.
+        times = {pk: [] for pk in (False, True)}
+        for pk in (False, True, True, False):
+            times[pk].append(time_ms(lambda: fwd(pk)))
+        row = {"case": name + " prekron", "plans": {str(pk): op.plan.describe()
+                                                    for pk, op in ops.items()},
+               "prekron_rel_err": rel, "tol": TOLERANCE[dtype],
+               "off_ms": times[False], "on_ms": times[True],
+               "prekron_wins": max(times[True]) < min(times[False])}
+        print("measure " + json.dumps(row), flush=True)
+        if rel > TOLERANCE[dtype]:
+            raise AssertionError(f"{name} prekron: rel err {rel:.3e}")
+        rows.append(row)
+        del x, fs, ops
+        torch.cuda.empty_cache()
+    return rows, launches_total
+
+
+def run_profile(gen) -> tuple[list[dict], dict]:
+    """``KronOp.profile`` on fig9, gp16 and ffn: each stage's measured ms,
+    its measured and predicted shares, the drift and the flagged stages."""
+    from repro_torch.core import KronOp
+
+    rows, launches_total = [], expect()
+    for name, _, m, ps, qs, dtype in PROFILE_CASES:
+        x = randn(gen, (m, math.prod(ps)), dtype)
+        fs = [randn(gen, (p, q), dtype) for p, q in zip(ps, qs)]
+        op = KronOp(ps, qs)
+        reset_counters()
+        report = op.profile(x, fs, warmup=1, iters=3)
+        torch.cuda.synchronize()
+        launches = read_counters()
+        n = len(report["stages"])
+        if launches != expect(chain_fwd=4 * n):  # warmup 1 + iters 3 per stage
+            raise AssertionError(f"profile {name}: launches {launches}")
+        launches_total = {k: launches_total[k] + v for k, v in launches.items()}
+        row = {
+            "case": name, "plan": report["plan"], "launches": launches,
+            "stages": [{
+                "instr": s["instr"], "measured_ms": s["measured_s"] * 1e3,
+                "predicted_ms": s["predicted_s"] * 1e3, "share_measured": s["share_measured"],
+                "share_predicted": s["share_predicted"], "drift": s["drift"],
+                "flagged": s["drift_flagged"], "kernel": s["kernel"],
+                "peak_flops": s["peak_flops"]} for s in report["stages"]],
+            "measured_ms": report["measured_s"] * 1e3,
+            "predicted_ms": report["predicted_s"] * 1e3,
+            "measured_over_predicted": report["measured_s"] / report["predicted_s"],
+            "drift_flagged": report["drift_flagged"], "drift_threshold": report["drift_threshold"],
+        }
+        print("profile " + json.dumps(row), flush=True)
+        rows.append(row)
+        del x, fs, op
+        torch.cuda.empty_cache()
+    return rows, launches_total
+
+
+# qwen3-4b's FFN block with each projection a KronLinear (configs/qwen3_4b.py
+# with kron_ffn=True, kron_factors=2): a serving batch of 4096 tokens.
+FFN_BLOCK = {"arch": "qwen3-4b", "batch": 4, "seq": 1024, "dtype": torch.bfloat16}
+FFN_TOLERANCE, FFN_GRAD_TOLERANCE = 1e-2, 2e-2
+
+
+def run_ffn_block(gen) -> tuple[dict, dict]:
+    """``ffn_apply`` on the KronLinear FFN at full width in bf16, its
+    projections three ``KronLinear`` modules: one module's own forward
+    (chain_fwd 2), then the block's forward (chain_fwd 6) and backward into
+    the modules' parameters (grad and its reduce 6 each, chain_fwd 3
+    remats), held against the same block through ``backend="torch"`` on
+    the card; the dense SwiGLU block at the same width is timed as a
+    yardstick."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import load_kron_linear_
+    from repro_torch.core.layers import KronLinear, KronLinearSpec, kron_linear_apply
+    from repro_torch.models.ffn import ffn_apply, ffn_init
+
+    cfg = dataclasses.replace(get_config(FFN_BLOCK["arch"]), kron_ffn=True, kron_factors=2)
+    dtype = FFN_BLOCK["dtype"]
+    shape = (FFN_BLOCK["batch"], FFN_BLOCK["seq"], cfg.d_model)
+    tokens = shape[0] * shape[1]
+    # The projections as a model holds them: KronLinear modules, filled
+    # with the block's init.
+    mods = {}
+    for k, v in ffn_init(gen, cfg, dtype, device="cuda").items():
+        spec = KronLinearSpec(tuple(f.shape[0] for f in v["factors"]),
+                              tuple(f.shape[1] for f in v["factors"]))
+        mods[k] = load_kron_linear_(KronLinear(gen, spec, dtype, device="cuda", m=tokens), v)
+    params = {k: mod.params for k, mod in mods.items()}
+    leaves = [f for mod in mods.values() for f in mod.parameters()]
+    x = randn(gen, shape, dtype).requires_grad_()
+    ct = randn(gen, shape, dtype)
+    # One module's own forward (its op resolved at construction).
+    reset_counters()
+    with torch.no_grad():
+        y1 = mods["w1"](x)
+    torch.cuda.synchronize()
+    mod_launches = read_counters()
+    if mod_launches != expect(chain_fwd=2):
+        raise AssertionError(f"ffn-block KronLinear forward launches {mod_launches}")
+    _, mod_rel = compare(y1, kron_linear_apply(params["w1"], x.detach(), backend="torch"))
+    del y1
+    reset_counters()
+    y = ffn_apply(cfg, params, x)
+    torch.cuda.synchronize()
+    fwd_launches = read_counters()
+    reset_counters()
+    y.backward(ct)
+    torch.cuda.synchronize()
+    bwd_launches = read_counters()
+    if fwd_launches != expect(chain_fwd=6):
+        raise AssertionError(f"ffn-block forward launches {fwd_launches}")
+    if bwd_launches != expect(chain_fwd=3, grad=6, grad_reduce=6):
+        raise AssertionError(f"ffn-block backward launches {bwd_launches}")
+    grads = [x.grad] + [f.grad for f in leaves]
+    ref_params = {k: {"factors": tuple(f.detach().requires_grad_() for f in v["factors"])}
+                  for k, v in params.items()}
+    ref_leaves = [f for v in ref_params.values() for f in v["factors"]]
+    xr = x.detach().requires_grad_()
+    y_ref = ffn_apply(cfg, ref_params, xr, backend="torch")
+    ref_grads = torch.autograd.grad(y_ref, [xr, *ref_leaves], ct)
+    err, rel = compare(y.detach(), y_ref.detach())
+    g_errs = [compare(g, r) for g, r in zip(grads, ref_grads)]
+    del y, y_ref, ref_grads
+    torch.cuda.empty_cache()
+
+    def fwd():
+        with torch.no_grad():
+            return ffn_apply(cfg, params, x)
+
+    def fwd_bwd():
+        return torch.autograd.grad(ffn_apply(cfg, params, x), [x, *leaves], ct)
+
+    ms, fb_ms = time_ms(fwd), time_ms(fwd_bwd)
+    dev_ms, kern_ms = device_split(fwd)
+    fb_dev_ms, fb_kern_ms = device_split(fwd_bwd)
+    plain_ms = time_ms(lambda: ffn_apply(cfg, params, x.detach(), backend="torch"))
+    d, f = cfg.d_model, cfg.d_ff
+    dense = {k: randn(gen, s, dtype).mul_(s[0] ** -0.5).requires_grad_()
+             for k, s in (("w1", (d, f)), ("w3", (d, f)), ("w2", (f, d)))}
+    dcfg = dataclasses.replace(cfg, kron_ffn=False)
+    with torch.no_grad():
+        dense_ms = time_ms(lambda: ffn_apply(dcfg, dense, x))
+    dense_fb_ms = time_ms(lambda: torch.autograd.grad(
+        ffn_apply(dcfg, dense, x), [x, *dense.values()], ct))
+    kron_params = sum(t.numel() for t in leaves)
+    row = {
+        "case": "ffn-block", "arch": FFN_BLOCK["arch"], "d_model": d, "d_ff": f,
+        "tokens": shape[0] * shape[1], "dtype": "bfloat16",
+        "projections": {k: [list(t.shape) for t in v["factors"]] for k, v in params.items()},
+        "fwd_launches": {k: v for k, v in fwd_launches.items() if v},
+        "bwd_launches": {k: v for k, v in bwd_launches.items() if v},
+        "module_w1_launches": {k: v for k, v in mod_launches.items() if v},
+        "module_w1_rel_err": mod_rel,
+        "max_abs_err": max([err] + [e for e, _ in g_errs]), "fwd_rel_err": rel,
+        "grad_rel_err": max(r for _, r in g_errs), "tol": FFN_TOLERANCE,
+        "grad_tol": FFN_GRAD_TOLERANCE, "ms": ms, "fwd_bwd_ms": fb_ms,
+        "device_ms": dev_ms, "kernels_device_ms": kern_ms, "idle_share": 1 - dev_ms / ms,
+        "fwd_bwd_device_ms": fb_dev_ms, "fwd_bwd_kernels_device_ms": fb_kern_ms,
+        "fwd_bwd_idle_share": 1 - fb_dev_ms / fb_ms,
+        "plain_ms": plain_ms, "dense_ms": dense_ms, "dense_fwd_bwd_ms": dense_fb_ms,
+        "kron_params": kron_params, "dense_params": 3 * d * f,
+    }
+    print("ffn-block " + json.dumps(row), flush=True)
+    if max(rel, mod_rel) > FFN_TOLERANCE or row["grad_rel_err"] > FFN_GRAD_TOLERANCE:
+        raise AssertionError(f"ffn-block: errors {rel}, {mod_rel}, {g_errs}")
+    launches = {k: mod_launches[k] + fwd_launches[k] + bwd_launches[k] for k in fwd_launches}
+    del mods, params, leaves, x, ct, grads, dense
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+# The paper's GP epoch (§6.4; Table 4 row 26): six 16-point RBF factors,
+# the M=16 CG block, 10 CG iterations in f32; and B=4 such kernels at once.
+GP_EPOCH = {"dims": 6, "points": 16, "m": 16, "cg_iters": 10, "batch": 4}
+GP_TOLERANCE = 1e-4
+
+
+def _gp_factors(dims, points, lengthscales):
+    from repro_torch.gp import rbf_kernel_1d
+
+    grid = torch.linspace(0, 1, points, device="cuda", dtype=torch.float32)
+    return tuple(rbf_kernel_1d(grid, ls) for ls in lengthscales[:dims])
+
+
+def run_gp_epoch(gen) -> tuple[list[dict], dict]:
+    """``gp_train_epoch`` through the kernels (chain_fwd 3 per MVM, 11
+    MVMs), held against the same epoch through ``backend="shuffle"`` on the
+    card at 1e-4 relative; then ``gp_train_epoch_batched`` at B=4, each
+    sample's solution and residuals held against its own shuffle epoch
+    (``compare`` fails on a non-finite value)."""
+    from repro_torch.gp import BatchedKronKernel, KronKernel, gp_train_epoch, gp_train_epoch_batched
+
+    e = GP_EPOCH
+    k = e["points"] ** e["dims"]
+    mvms = e["cg_iters"] + 1
+    lengthscales = [0.15, 0.2, 0.25, 0.3, 0.35, 0.4]
+    kernel = KronKernel(_gp_factors(e["dims"], e["points"], lengthscales))
+    v = randn(gen, (e["m"], k), torch.float32)
+    stages = len(kernel.op.plan.stages)
+    reset_counters()
+    x, res = gp_train_epoch(kernel, v, cg_iters=e["cg_iters"])
+    torch.cuda.synchronize()
+    launches = read_counters()
+    if launches != expect(chain_fwd=stages * mvms):
+        raise AssertionError(f"gp-epoch launches {launches}")
+    xs, res_s = gp_train_epoch(kernel, v, cg_iters=e["cg_iters"], backend="shuffle")
+    _, x_rel = compare(x, xs)
+    _, r_rel = compare(res, res_s)
+    del xs
+    ms = time_ms(lambda: gp_train_epoch(kernel, v, cg_iters=e["cg_iters"]))
+    dev_ms, kern_ms = device_split(lambda: gp_train_epoch(kernel, v, cg_iters=e["cg_iters"]))
+    shuffle_ms = time_ms(lambda: gp_train_epoch(kernel, v, cg_iters=e["cg_iters"],
+                                                backend="shuffle"))
+    row = {
+        "case": "gp-epoch", "m": e["m"], "k": k, "factors": [e["points"]] * e["dims"],
+        "cg_iters": e["cg_iters"], "mvms": mvms, "plan": kernel.op.plan.describe(),
+        "launches": {n: c for n, c in launches.items() if c}, "x_rel_err": x_rel,
+        "residual_rel_err": r_rel, "tol": GP_TOLERANCE,
+        "residual_norms": [float(r) for r in res], "rhs_norms_max": float(v.norm(dim=-1).max()),
+        "ms": ms, "device_ms": dev_ms, "kernels_device_ms": kern_ms,
+        "idle_share": 1 - dev_ms / ms, "shuffle_ms": shuffle_ms,
+    }
+    print("gp-epoch " + json.dumps(row), flush=True)
+    if max(x_rel, r_rel) > GP_TOLERANCE:
+        raise AssertionError(f"gp-epoch: rel errs {x_rel}, {r_rel}")
+    del x, res, v, res_s
+    torch.cuda.empty_cache()
+    rows, total = [row], dict(launches)
+
+    # B kernels at once, each with its own lengthscales: the CG state is
+    # about 6 x 4.3 GB.
+    b = e["batch"]
+    kernels = [KronKernel(_gp_factors(e["dims"], e["points"],
+                                      [ls * (1 + 0.25 * i) for ls in lengthscales]))
+               for i in range(b)]
+    bk = BatchedKronKernel.stack(kernels)
+    vb = randn(gen, (b, e["m"], k), torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    xb, resb = gp_train_epoch_batched(bk, vb, cg_iters=e["cg_iters"])
+    torch.cuda.synchronize()
+    launches = read_counters()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    bstages = len(bk.op.plan.stages)
+    if launches != expect(chain_fwd=bstages * mvms):
+        raise AssertionError(f"gp-epoch-batched launches {launches}")
+    # Every sample against its own epoch through the shuffle algorithm.
+    x_rels, r_rels = [], []
+    for i in range(b):
+        xi, ri = gp_train_epoch(kernels[i], vb[i], cg_iters=e["cg_iters"], backend="shuffle")
+        x_rels.append(compare(xb[i], xi)[1])
+        r_rels.append(compare(resb[i], ri)[1])
+        del xi, ri
+    res_norms = [[float(r) for r in rs] for rs in resb]
+    del xb, resb
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: gp_train_epoch_batched(bk, vb, cg_iters=e["cg_iters"]))
+    row = {
+        "case": "gp-epoch-batched", "b": b, "m": e["m"], "k": k, "mvms": mvms,
+        "plan": bk.op.plan.describe(), "launches": {n: c for n, c in launches.items() if c},
+        "x_rel_err": x_rels, "residual_rel_err": r_rels, "tol": GP_TOLERANCE,
+        "residual_norms_max": [max(r) for r in res_norms],
+        "peak_mem_gib": peak, "ms": ms,
+    }
+    print("gp-epoch " + json.dumps(row), flush=True)
+    if max(x_rels + r_rels) > GP_TOLERANCE:
+        raise AssertionError(f"gp-epoch-batched: rel errs {x_rels}, {r_rels}")
+    rows.append(row)
+    total = {n: total[n] + c for n, c in launches.items()}
+    del bk, vb, kernels
+    torch.cuda.empty_cache()
+    return rows, total
+
+
+# One injects faults into the kernels' path, one adds host checks, and one
+# would point the measured planner at a cache the smoke does not own.
+REFUSED_ENV = ("FASTKRON_CHAOS", "FASTKRON_NUMERICS", "FASTKRON_PLAN_CACHE")
 
 
 def main() -> int:
@@ -1424,20 +1924,30 @@ def main() -> int:
     alone = run_alone(gen, peaks)
     assert_clean("alone")
     run_ladder(gen)
+    # The consumers, each phase's launches counted from 0.
+    with tempfile.TemporaryDirectory() as cache_dir:
+        _, measure_launches = run_measure(gen, cache_dir)
+    _, profile_launches = run_profile(gen)
+    _, ffn_launches = run_ffn_block(gen)
+    _, gp_launches = run_gp_epoch(gen)
+    assert_clean("consumers")
+    consumers = (measure_launches, profile_launches, ffn_launches, gp_launches)
 
     def kernel_row(name):
         source, replaces, case = KERNELS[name]
         r = rows[case]
         row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sum(row["launches"][name] for row in rows.values()),
+            "launches": (sum(row["launches"][name] for row in rows.values())
+                         + sum(c[name] for c in consumers)),
             "cases_passed": passed[name], "main_case": case,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         }
         if name == "grad":
-            row["reduce_launches"] = sum(row["launches"]["grad_reduce"] for row in rows.values())
+            row["reduce_launches"] = (sum(row["launches"]["grad_reduce"] for row in rows.values())
+                                      + sum(c["grad_reduce"] for c in consumers))
         if name in alone:
             row["alone"] = alone[name]
         return row

@@ -1,0 +1,16 @@
+"""qwen2.5-32b [dense] — GQA kv=8, QKV bias.  [hf:Qwen/Qwen2.5-*]"""
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2.5-32b",
+    family="dense",
+    n_layers=64,
+    d_model=5120,
+    n_heads=40,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=27648,
+    vocab=152064,
+    qkv_bias=True,
+    rope_theta=1_000_000.0,
+)

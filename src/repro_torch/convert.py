@@ -1,10 +1,19 @@
 """Carrying state across from the JAX package.
 
-FastKron has no weights: what the two packages share is the factors and the
-plan.  ``factors_from_numpy`` puts numpy factors (for example the ones a JAX
-program used, via ``np.asarray``) on a device; ``plan_from_jax_json`` reads
-the dict that ``repro.core.autotune.plan_to_json`` writes into the port's
-``KronPlan``.  Neither imports the JAX package.
+What the two packages share is the factors, the plans and the parameters
+of the layers built on them: a KronLinear's ``{"factors": ..., "bias": ...}``
+and an FFN block's ``{"w1", "w3", "w2"}``.  Each converter takes the JAX
+package's arrays as numpy (``np.asarray`` of each leaf) and puts them on a
+device; none imports the JAX package.  ``jax.random`` and
+``torch.Generator`` draw different numbers from one seed, so parity between
+the packages always goes through these converters.
+
+  * ``factors_from_numpy``: factor arrays as tensors;
+  * ``kron_linear_params_from_numpy`` / ``ffn_params_from_numpy``: the
+    parameter dicts;
+  * ``load_kron_linear_``: fill a ``KronLinear`` module's parameters;
+  * ``plan_from_jax_json``: a ``repro.core.autotune.plan_to_json`` dict as
+    the port's ``KronPlan``.
 """
 from __future__ import annotations
 
@@ -37,10 +46,69 @@ def factors_from_numpy(
     """Factor arrays (problem order) as tensors on ``device``, in ``dtype``
     (None keeps each array's own dtype)."""
     dev = _device(device)
-    return tuple(
-        torch.as_tensor(np.ascontiguousarray(a)).to(device=dev, dtype=dtype)
-        for a in arrays
-    )
+    return tuple(_tensor(a, dev, dtype) for a in arrays)
+
+
+def _as_tensor(a) -> torch.Tensor:
+    # A copy: numpy views of JAX arrays are read-only.
+    return a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
+
+
+def _tensor(a, dev: torch.device, dtype: torch.dtype | None) -> torch.Tensor:
+    return _as_tensor(a).to(device=dev, dtype=dtype)
+
+
+def kron_linear_params_from_numpy(
+    params: dict,
+    *,
+    device: str | torch.device = "cuda",
+    dtype: torch.dtype | None = None,
+) -> dict:
+    """A KronLinear parameter dict (``{"factors": (F^1, ...)}`` and an
+    optional ``"bias"``, numpy leaves) as tensors on ``device`` in
+    ``dtype`` (None keeps each array's own)."""
+    dev = _device(device)
+    out = {"factors": tuple(_tensor(f, dev, dtype) for f in params["factors"])}
+    if "bias" in params:
+        out["bias"] = _tensor(params["bias"], dev, dtype)
+    return out
+
+
+def ffn_params_from_numpy(
+    params: dict,
+    *,
+    device: str | torch.device = "cuda",
+    dtype: torch.dtype | None = None,
+) -> dict:
+    """An FFN block's ``{"w1", "w3", "w2"}`` (``repro.models.ffn.ffn_init``'s
+    layout, numpy leaves): KronLinear dicts for ``kron_ffn``, dense
+    ``(d_in, d_out)`` matrices otherwise."""
+    dev = _device(device)
+    return {
+        name: (kron_linear_params_from_numpy(p, device=dev, dtype=dtype)
+               if isinstance(p, dict) else _tensor(p, dev, dtype))
+        for name, p in params.items()
+    }
+
+
+def load_kron_linear_(module, params: dict):
+    """Copy a KronLinear parameter dict (numpy or tensor leaves) into a
+    ``core.layers.KronLinear`` module's parameters, in place, on the
+    module's device and dtype; returns the module."""
+    factors = tuple(params["factors"])
+    if len(factors) != len(module.factors):
+        raise ValueError(f"{len(factors)} factors for a module of {len(module.factors)}")
+    if ("bias" in params) != (module.bias is not None):
+        raise ValueError("bias present in one of the params and the module only")
+    with torch.no_grad():
+        for dst, src in zip(module.factors, factors):
+            src = _as_tensor(src)
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"factor shape {tuple(src.shape)} != {tuple(dst.shape)}")
+            dst.copy_(src)
+        if module.bias is not None:
+            module.bias.copy_(_as_tensor(params["bias"]))
+    return module
 
 
 def plan_from_jax_json(d: dict) -> KronPlan:
@@ -49,4 +117,10 @@ def plan_from_jax_json(d: dict) -> KronPlan:
     return plan_from_json(d)
 
 
-__all__ = ["factors_from_numpy", "plan_from_jax_json"]
+__all__ = [
+    "factors_from_numpy",
+    "kron_linear_params_from_numpy",
+    "ffn_params_from_numpy",
+    "load_kron_linear_",
+    "plan_from_jax_json",
+]

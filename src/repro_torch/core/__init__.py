@@ -27,6 +27,14 @@ from .kron import (  # noqa: F401
     pair_factors,
     sliced_multiply,
 )
+from .layers import (  # noqa: F401
+    KronLinear,
+    KronLinearSpec,
+    balanced_factorization,
+    kron_linear_apply,
+    kron_linear_init,
+    kron_linear_materialize,
+)
 
 __all__ = [
     # engine (the primary surface)
@@ -53,4 +61,11 @@ __all__ = [
     "kron_matmul_fastkron",
     "sliced_multiply",
     "pair_factors",
+    # layers
+    "KronLinearSpec",
+    "KronLinear",
+    "kron_linear_init",
+    "kron_linear_apply",
+    "kron_linear_materialize",
+    "balanced_factorization",
 ]

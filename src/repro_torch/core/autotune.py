@@ -22,31 +22,43 @@ Plan construction decides, per the paper + the beyond-paper extensions:
 ``make_batched_plan`` plans ``B`` independent problems: shared factors fold
 B into the rows; per-sample factors keep the single-problem plan at the
 sample tile ``t_b=1``.  ``lower`` turns a plan
-into the executor's ``StageProgram``.  Measured tuning (``tune="measure"``)
-and the on-disk plan cache come with a later slice (``MEASURED_SLICE``).
+into the executor's ``StageProgram``.
+
+``tune="measure"`` ranks the analytic plan and its M-tile variants by the
+time of a forward plus full backward on the device (``measure_best``: CUDA
+events on the card, ``time.perf_counter`` on the CPU) and keeps the winner
+in the on-disk plan cache (``load_plan_cache``/``save_plan_cache``), the
+reference's file and format with the device's name in every key.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import json
 import math
-from typing import Sequence
+import os
+import tempfile
+import time
+from typing import Callable, Sequence
+
+import torch
 
 from ..kernels import emit as emit_mod
+from ..kernels import kron_sliced
 from ..kernels.emit import SMEM_BUDGET_ELEMS, StageInstr, StageProgram, fused_growth
-from ..runtime.guard import PlanError
+from ..runtime import chaos, guard, telemetry
+from ..runtime.guard import LoweringError, PlanError, VmemOverflowError
 from .kron import KronProblem
 
-# What ``tune="measure"`` and ``cache_path=`` raise until the port has them.
-MEASURED_SLICE = (
-    "the measured planner and the plan cache are a later slice of the port: "
-    "ROADMAP.md queue 1, 'Planner, measured half'"
-)
-
-# H100 SXM hardware model (NVIDIA data sheet, dense rates).  The kernels run
-# every dtype's arithmetic on the CUDA cores in f32 (f64 for f64), so a bf16
-# input is costed at the f32 rate, not the tensor cores' 989 TFLOP/s.
+# H100 SXM hardware model (NVIDIA data sheet, dense rates).  The costed
+# path, the planned forward, runs ``chain_fwd``, which does every dtype's
+# arithmetic on the CUDA cores: in f32 (67 TFLOP/s, bf16 inputs included)
+# or f64 (34).  The tensor cores' rate is not modelled: no costed
+# instruction runs on them (only ``grad_mma_kernel`` and ``sliced.cu``'s
+# bf16 path do, and neither the tile model nor ``KronOp.profile`` costs
+# them).
 PEAK_FLOPS = 67e12
+PEAK_FLOPS_F64 = 34e12
 HBM_BW = 3.35e12  # bytes/s
 SMEM_BYTES = emit_mod.SMEM_BYTES  # 227 KB: what one block may hold
 # Granularity of the kernels' work (the register tiles of
@@ -84,16 +96,25 @@ def vmem_elems(cfg: TileConfig, p: int, growth: float = 1.0) -> int:
     return 2 * (x_t + f_t + y_t)
 
 
+def peak_flops(dtype_bytes: int) -> float:
+    """The CUDA cores' rate for inputs of ``dtype_bytes``: f64's for 8,
+    f32's otherwise (bf16 is accumulated in f32)."""
+    return PEAK_FLOPS_F64 if dtype_bytes == 8 else PEAK_FLOPS
+
+
 def predict_seconds(
     prob_m: int, s: int, p: int, q: int, cfg: TileConfig, dtype_bytes: int = 4
 ) -> float:
-    """Two-term analytic time model for one sliced multiply on one card."""
+    """Two-term analytic time model for one sliced multiply on one card, at
+    the CUDA cores' rate for the dtype (the chain kernels', which run the
+    planned stages whose tiles it ranks)."""
     flops = 2.0 * prob_m * s * p * q
+    peak = peak_flops(dtype_bytes)
     # Utilization of the kernel's work granularity along each axis.
     u_q = cfg.t_q / _ceil_to(cfg.t_q, COL_ALIGN)
     rows = cfg.t_m * cfg.t_s
     u_r = rows / _ceil_to(rows, ROW_ALIGN)
-    t_compute = flops / (PEAK_FLOPS * max(u_q * u_r, 1e-6))
+    t_compute = flops / (peak * max(u_q * u_r, 1e-6))
     # Memory traffic: X re-read once per Q-tile sweep; Y written once.
     x_bytes = prob_m * s * p * dtype_bytes * (q // cfg.t_q)
     y_bytes = prob_m * s * q * dtype_bytes
@@ -124,6 +145,83 @@ def tune_sliced(
     if not cands:
         return TileConfig(min(m, 8), 1, 1)
     return min(cands, key=lambda c: predict_seconds(m, s, p, q, c, dtype_bytes))
+
+
+def _on_cuda(out) -> bool:
+    """Whether ``out`` (a tensor or a sequence of them) lies on a card."""
+    if isinstance(out, torch.Tensor):
+        return out.is_cuda
+    return any(_on_cuda(o) for o in out) if isinstance(out, (tuple, list)) else False
+
+
+def time_once(fn: Callable[[], object], cuda: bool) -> tuple[float, object]:
+    """(seconds, output) of one ``fn()``: CUDA events around it on the card
+    (after the work already queued), ``time.perf_counter`` on the CPU."""
+    if cuda:
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3, out
+    t0 = time.perf_counter()
+    out = fn()
+    return time.perf_counter() - t0, out
+
+
+def measure_best(
+    fn_of_cfg: Callable[[object], Callable[[], object]],
+    cands: Sequence[object],
+    *,
+    warmup: int = 2,
+    iters: int = 5,
+    timings: list | None = None,
+) -> tuple[object, float]:
+    """Rank candidates by the time of ``fn_of_cfg(cfg)()`` on its device
+    and return ``(best, seconds)``.  Generic over the candidate type: tile
+    configs for one kernel, or whole ``KronPlan``s in
+    ``make_plan(tune="measure")``.
+
+    Each candidate runs ``warmup`` times (at least once: its output tells
+    the device), then ``iters`` rounds time one call of every candidate in
+    turn (CUDA events on the card, ``time.perf_counter`` on the CPU), and a
+    candidate's time is its fastest call.  In turns, so that nothing that
+    warms up or drifts during the sweep (first calls, clocks) lands on the
+    candidates timed first.
+
+    The first candidate that runs is the incumbent (the analytic plan in
+    ``_measured_plan``): another replaces it only if it is faster in every
+    round, a win by more than the rounds' spread; of those that are, the
+    fastest wins (ties keep the earlier).  So a plan is not chosen, and
+    cached, by noise.
+
+    A candidate that raises a capacity error (``VmemOverflowError``,
+    ``LoweringError``: tiles the kernel cannot take, the errors the ladder
+    catches) is skipped; any other error propagates, so a kernel that fails
+    to build or launch is never hidden behind another candidate.  With
+    ``timings``, each measured candidate's ``(cfg, seconds)`` is appended."""
+    runs = []
+    for cfg in cands:
+        try:
+            fn = fn_of_cfg(cfg)
+            for _ in range(max(1, warmup)):
+                out = fn()
+        except (VmemOverflowError, LoweringError):
+            continue
+        runs.append((cfg, fn, _on_cuda(out), []))
+    if not runs:
+        raise PlanError("no candidate executed successfully")
+    for _ in range(max(1, iters)):
+        for _, fn, cuda, times in runs:
+            times.append(time_once(fn, cuda)[0])
+    if timings is not None:
+        timings.extend((cfg, min(times)) for cfg, _, _, times in runs)
+    incumbent = runs[0][3]
+    winners = [r for r in runs[1:] if all(t < i for t, i in zip(r[3], incumbent))]
+    best = min(winners, key=lambda r: min(r[3])) if winners else runs[0]
+    return best[0], min(best[3])
 
 
 # ---------------------------------------------------------------------------
@@ -172,6 +270,33 @@ class KronPlan:
         return head + " -> ".join(parts)
 
 
+def _stage_dims(prob: KronProblem, st: Stage) -> tuple[list[int], list[int]]:
+    """A forward stage's (ps, qs) in application order; a prekron stage as
+    its one combined factor."""
+    ps, qs = prob.ps[::-1], prob.qs[::-1]
+    sps = [ps[i] for i in st.factor_ids]
+    sqs = [qs[i] for i in st.factor_ids]
+    if st.prekron:
+        return [math.prod(sps)], [math.prod(sqs)]
+    return sps, sqs
+
+
+def _bwd_t_m(prob: KronProblem, st: Stage, t_m: int, vmem_budget_elems: int) -> int:
+    """The largest divisor of ``t_m`` at which both backward forms of the
+    forward stage ``st`` fit the per-block budget at its ``t_k``: the
+    transposed chain (``t_m * t_k * transposed_growth``) and the stage
+    backward's live set (``t_m * emit.grad_live_elems``); 1 when none does
+    (the stage then takes the per-factor fallback)."""
+    sps, sqs = _stage_dims(prob, st)
+    t_k = st.tiles.t_s * math.prod(sps)
+    t_qs = st.t_qs if st.t_qs is not None and len(st.t_qs) == len(sps) else None
+    per_row = max(
+        t_k * emit_mod.transposed_growth(sps, sqs, t_qs),
+        emit_mod.grad_live_elems(t_k, sps, sqs),
+    )
+    return max((d for d in _divisors(t_m) if d * per_row <= vmem_budget_elems), default=1)
+
+
 def mirror_bwd_stages(
     prob: KronProblem,
     stages: Sequence[Stage],
@@ -183,37 +308,18 @@ def mirror_bwd_stages(
     order, tiles tuned for the transposed contraction (P and Q swap roles).
 
     The backward runs the forward stage's ``t_k`` with the tuned M-tile, so
-    ``t_m`` is clamped to the largest divisor of the tuned one at which both
-    backward forms fit the per-block budget there: the transposed chain
-    (``t_m * t_k * transposed_growth``) and the stage backward's live set
-    (``t_m * emit.grad_live_elems``); 1 when none does (the stage then
-    takes the per-factor fallback)."""
-    ps = list(reversed(prob.ps))
-    qs = list(reversed(prob.qs))
+    ``t_m`` is clamped by ``_bwd_t_m``."""
     k = prob.k
     outs = []
     for st in stages:
-        sps = [ps[i] for i in st.factor_ids]
-        sqs = [qs[i] for i in st.factor_ids]
-        if st.prekron:
-            sps, sqs = [math.prod(sps)], [math.prod(sqs)]
-        pprod, qprod = math.prod(sps), math.prod(sqs)
-        k = k // pprod * qprod
+        sps, sqs = _stage_dims(prob, st)
+        k = k // math.prod(sps) * math.prod(sqs)
         outs.append((st, sps, sqs, k))
     bwd = []
     for st, sps, sqs, k_out in reversed(outs):
         pprod, qprod = math.prod(sps), math.prod(sqs)
         tiles = tune_sliced(prob.m, k_out // qprod, qprod, pprod, dtype_bytes=dtype_bytes)
-        t_k = st.tiles.t_s * pprod
-        t_qs = st.t_qs if st.t_qs is not None and len(st.t_qs) == len(sps) else None
-        per_row = max(
-            t_k * emit_mod.transposed_growth(sps, sqs, t_qs),
-            emit_mod.grad_live_elems(t_k, sps, sqs),
-        )
-        t_m = max(
-            (d for d in _divisors(tiles.t_m) if d * per_row <= vmem_budget_elems),
-            default=1,
-        )
+        t_m = _bwd_t_m(prob, st, tiles.t_m, vmem_budget_elems)
         if t_m != tiles.t_m:
             tiles = TileConfig(t_m, tiles.t_s, tiles.t_q)
         bwd.append(Stage(st.factor_ids, st.prekron, tiles, st.t_qs, st.acc_dtype))
@@ -250,13 +356,16 @@ def lower(
         if t_qs is None and (st.prekron or len(st.factor_ids) == 1):
             # Single-multiply stages (one factor, or a prekron product): the
             # stage's tuned Q-tile is tiles.t_q, injected only when full-Q
-            # growth overflows the per-block budget.
+            # growth overflows the per-block budget, or when the whole
+            # (P, Q) panel does (a 16 x 16 pair's 256 x 256 product: the
+            # chain kernel holds its stage's panels in shared memory).
             eff_p = math.prod(sps)
             eff_q = math.prod(sqs)
             t_k = st.tiles.t_s * eff_p
             full = st.tiles.t_m * t_k * max(1.0, eff_q / eff_p)
+            budget = emit_mod.SMEM_BUDGET_ELEMS
             if (
-                (plan.t_b if batched else 1) * full > emit_mod.SMEM_BUDGET_ELEMS
+                ((plan.t_b if batched else 1) * full > budget or eff_p * eff_q > budget)
                 and 1 < st.tiles.t_q < eff_q
                 and eff_q % st.tiles.t_q == 0
             ):
@@ -287,7 +396,11 @@ def make_plan(
     prekron_max_p: int = 16,
     prekron_max_dim: int = 256,
     vmem_budget_elems: int = SMEM_BUDGET_ELEMS,
+    tune: str = "analytic",
+    backend: str = "auto",
+    cache_path: str | None = None,
     acc_dtype: str | None = None,
+    device: str | torch.device | None = None,
 ) -> KronPlan:
     """Greedy analytic plan over the reversed factor list (application order).
 
@@ -301,7 +414,23 @@ def make_plan(
     ``vmem_budget_elems`` defaults to one H100 block's shared memory in f32
     elements (``SMEM_BUDGET_ELEMS``).  ``acc_dtype`` stamps every stage's
     accumulation dtype; None keeps the promote-against-f32 default.
+
+    ``tune="measure"`` ranks the analytic plan and its M-tile variants by
+    the time of their forward plus full backward through ``KronOp`` on
+    ``device`` (default the card; ``"cpu"`` times the plain twins) and
+    keeps the winner in the plan cache at ``cache_path`` (default
+    ``default_cache_path()``); ``backend`` is the ops' backend.
     """
+    if tune == "measure":
+        return _measured_plan(
+            prob, dtype_bytes=dtype_bytes, backend=backend, cache_path=cache_path,
+            device=device, vmem_budget_elems=vmem_budget_elems,
+            enable_fusion=enable_fusion, enable_prekron=enable_prekron,
+            prekron_max_p=prekron_max_p, prekron_max_dim=prekron_max_dim,
+            acc_dtype=acc_dtype,
+        )
+    if tune != "analytic":
+        raise PlanError(f"unknown tune mode {tune!r}")
     ps = list(reversed(prob.ps))
     qs = list(reversed(prob.qs))
     n = len(ps)
@@ -414,8 +543,10 @@ def make_batched_plan(
     prekron_max_dim: int = 256,
     vmem_budget_elems: int = SMEM_BUDGET_ELEMS,
     tune: str = "analytic",
+    backend: str = "auto",
     cache_path: str | None = None,
     acc_dtype: str | None = None,
+    device: str | torch.device | None = None,
 ) -> KronPlan:
     """Plan for ``batch`` independent copies of ``prob`` in one launch.
 
@@ -430,17 +561,15 @@ def make_batched_plan(
     the planner emit pre-kronization stages (the executor forms each
     sample's product).
 
-    The reference's mesh mode (``g_k > 1``) belongs to the port's mesh
-    slice.  ``tune="measure"`` and ``cache_path`` raise
-    ``NotImplementedError`` (``MEASURED_SLICE``); any other tune mode
-    raises ``PlanError``.
+    ``tune="measure"`` ranks candidates as ``make_plan`` does: the shared
+    mode measures the folded ``(batch * M)``-row problem, the per-sample
+    mode the per-sample plan on ``(B, M, K)`` inputs (its M-tile variants;
+    no ``t_b`` variants, since no kernel reads ``t_b``).  The reference's
+    mesh mode (``g_k > 1``) belongs to the port's mesh slice.  An unknown
+    tune mode raises ``PlanError``.
     """
     if batch <= 0:
         raise ValueError(f"batch must be positive, got {batch}")
-    if tune == "measure" or cache_path is not None:
-        raise NotImplementedError(MEASURED_SLICE)
-    if tune != "analytic":
-        raise PlanError(f"unknown tune mode {tune!r}")
     kw = dict(
         dtype_bytes=dtype_bytes, enable_fusion=enable_fusion,
         enable_prekron=enable_prekron, prekron_max_p=prekron_max_p,
@@ -448,7 +577,16 @@ def make_batched_plan(
         acc_dtype=acc_dtype,
     )
     if shared_factors:
-        return make_plan(KronProblem(batch * prob.m, prob.ps, prob.qs), **kw)
+        return make_plan(
+            KronProblem(batch * prob.m, prob.ps, prob.qs), tune=tune, backend=backend,
+            cache_path=cache_path, device=device, **kw,
+        )
+    if tune == "measure":
+        return _measured_plan(
+            prob, batch=batch, backend=backend, cache_path=cache_path, device=device, **kw
+        )
+    if tune != "analytic":
+        raise PlanError(f"unknown tune mode {tune!r}")
     base = make_plan(prob, **kw)
     return KronPlan(base.stages, base.bwd_stages, 1)
 
@@ -466,12 +604,16 @@ def plan_cache_key(
     batch: int = 0,
     shared_factors: bool = True,
     acc_dtype: str | None = None,
+    device: str | torch.device | None = None,
 ) -> str:
     """The key a plan-cache entry is stored under, in the reference's
     format (``repro.core.autotune.plan_cache_key``): every plan-shaping
     input, ``;B=<batch>;shared=<0|1>`` for a batched plan (``batch > 0``)
-    and ``;acc=`` when an accumulation dtype is set.  The cache itself comes
-    with ``MEASURED_SLICE``."""
+    and ``;acc=`` when an accumulation dtype is set; then, appended as those
+    are, ``;dev=<the card's name>`` (``;dev=cpu``) for the device the plan
+    was measured on (``device_tag``), so a file shared with the reference,
+    or with another device, never gives this device a plan it did not
+    measure.  ``device=None`` is the card."""
     ps = ",".join(map(str, prob.ps))
     qs = ",".join(map(str, prob.qs))
     key = (
@@ -483,7 +625,307 @@ def plan_cache_key(
         key += f";B={batch};shared={int(shared_factors)}"
     if acc_dtype is not None:
         key += f";acc={acc_dtype}"
-    return key
+    return key + f";dev={device_tag(device)}"
+
+
+def measure_device(device: str | torch.device | None) -> torch.device:
+    """The device measured tuning runs on: ``device``, default the card.
+    Asking for CUDA without a card raises instead of measuring on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "measured tuning on the card needs CUDA, which is not available "
+                "here; pass device='cpu' to measure the plain PyTorch path"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def device_tag(device: str | torch.device | None) -> str:
+    """``;dev=`` of a plan-cache key: the card's name, or ``cpu``."""
+    dev = measure_device(device)
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else dev.type
+
+
+# ---------------------------------------------------------------------------
+# Measured tuning + the on-disk plan cache
+# ---------------------------------------------------------------------------
+
+PLAN_CACHE_VERSION = 1
+PLAN_CACHE_SAVE_RETRIES = 3
+_DTYPES = {2: torch.bfloat16, 4: torch.float32, 8: torch.float64}
+
+
+def default_cache_path() -> str:
+    """``$FASTKRON_PLAN_CACHE``, else ``~/.cache/fastkron/plans.json``: the
+    reference's file, whose keys the port's ``;dev=`` keeps apart."""
+    return os.environ.get(
+        "FASTKRON_PLAN_CACHE",
+        os.path.join(os.path.expanduser("~"), ".cache", "fastkron", "plans.json"),
+    )
+
+
+def load_plan_cache(path: str) -> dict:
+    """The cache's entries, best effort: a corrupt, truncated or
+    wrong-schema file degrades to an empty cache, never an exception (the
+    next save rewrites it whole), with one ``GuardWarning`` per path and a
+    ``plan_cache_rebuild`` health event.  A missing file or another
+    version is a normal condition and stays quiet."""
+    try:
+        chaos.maybe_fail("plan_cache_load")
+        with open(path) as f:
+            data = json.load(f)
+    except FileNotFoundError:
+        return {}
+    except (OSError, ValueError) as e:  # PlanCacheError is an OSError
+        guard.record_event("plan_cache_rebuild", guard.PlanCacheError(str(e)))
+        guard.warn_once(
+            ("plan_cache_load", path),
+            f"kron guard: plan cache at {path!r} unreadable "
+            f"({type(e).__name__}: {e}) — rebuilding from scratch",
+        )
+        return {}
+    if not isinstance(data, dict) or data.get("version") != PLAN_CACHE_VERSION:
+        return {}
+    entries = data.get("entries", {})
+    if not isinstance(entries, dict):
+        return {}
+    return {
+        k: v for k, v in entries.items()
+        if isinstance(v, dict) and isinstance(v.get("plan"), dict)
+    }
+
+
+def save_plan_cache(
+    path: str, entries: dict, *, retries: int = PLAN_CACHE_SAVE_RETRIES
+) -> None:
+    """Atomic write (a temporary file in the target directory, then
+    ``os.replace``), so a reader never sees a partial file.  Entries written
+    to the file since our load are merged in (ours win a key), so parallel
+    tuners lose at most a race, not their work.  A failed write is retried
+    with exponential backoff; when every attempt fails, one
+    ``GuardWarning`` per path and a ``plan_cache_save_failed`` event."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    merged = {**load_plan_cache(path), **entries}
+    payload = {"version": PLAN_CACHE_VERSION, "entries": merged}
+    last: OSError | None = None
+    for attempt in range(max(1, retries)):
+        tmp = None
+        try:
+            chaos.maybe_fail("plan_cache_save")
+            fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path) or ".", suffix=".tmp")
+            with os.fdopen(fd, "w") as f:
+                json.dump(payload, f, indent=1, sort_keys=True)
+            os.replace(tmp, path)
+            return
+        except OSError as e:  # PlanCacheError is an OSError
+            last = e
+            if tmp is not None:
+                try:
+                    os.unlink(tmp)
+                except OSError:
+                    pass
+            if attempt + 1 < max(1, retries):
+                time.sleep(0.01 * (2 ** attempt))
+    guard.record_event("plan_cache_save_failed", last)
+    guard.warn_once(
+        ("plan_cache_save", path),
+        f"kron guard: plan-cache save to {path!r} failed after "
+        f"{max(1, retries)} attempts ({type(last).__name__}: {last}) — "
+        "tuning results not persisted",
+    )
+
+
+def _launch_tiles(plan: KronPlan, prob: KronProblem, batch: int | None,
+                  dtype_bytes: int) -> tuple:
+    """The block tiles a plan's forward plus full backward launches, stage
+    by stage: the forward chain's (``chain_fwd``), the transposed chain's
+    at the backward M-tile (``chain_bwd``) and the stage backward's
+    (``grad``), each from the executor's own checks (``emit.chain_geometry``
+    and ``grad_geometry``: the per-block budget, then ``emit.block_tile``);
+    a single-factor stage adds the sliced kernels' tiles
+    (``kron_sliced.sliced_tiles``, both kinds), which its per-factor rung
+    and backward fallback run.  Raises ``VmemOverflowError`` or
+    ``LoweringError`` where a kernel cannot take the plan's tiles."""
+    prog = lower(plan, prob.ps, prob.qs, batched=batch is not None)
+    dtype = _DTYPES.get(dtype_bytes, torch.float32)
+    b = batch or 1
+    k = prob.k
+    out = []
+    for ins in prog.instrs:
+        if ins.kind == emit_mod.PREKRON:
+            ps, qs = (ins.pprod,), (ins.qprod,)
+            t_qs = ins.t_qs if ins.t_qs and len(ins.t_qs) == 1 else None
+        else:
+            ps, qs, t_qs = ins.ps, ins.qs, ins.t_qs
+        acc = emit_mod._resolve_acc(ins.acc_dtype, dtype).itemsize
+        fs = [(b, p, q) for p, q in zip(ps, qs)]
+        k_out = k // math.prod(ps) * math.prod(qs)
+        t_b = ins.t_b or 1
+        t_m_bwd = ins.t_m_bwd or ins.t_m
+        common = dict(t_b=t_b, acc_bytes=acc, in_bytes=dtype_bytes)
+        fwd = emit_mod.chain_geometry(
+            (b, prob.m, k), fs, t_m=ins.t_m, t_k=ins.t_k, t_qs=t_qs, **common)
+        bwd = emit_mod.chain_geometry(
+            (b, prob.m, k_out), fs, t_m=t_m_bwd, t_k=ins.t_k, t_qs=t_qs,
+            direction="bwd", **common)
+        grad = emit_mod.grad_geometry(
+            (b, prob.m, k), (b, prob.m, k_out), fs, t_m=t_m_bwd, t_k=ins.t_k, **common)
+        tiles = [(fwd.block_m, fwd.block_k), (bwd.block_m, bwd.block_k),
+                 (grad.block_m, grad.block_k)]
+        if len(ps) == 1:
+            s = k // ps[0]
+            for kind in ("fwd", "sliced_t"):
+                tiles.append(kron_sliced.sliced_tiles(
+                    prob.m, s, ps[0], qs[0], acc, kind, dtype_bytes))
+        out.append(tuple(tiles))
+        k = k_out
+    return tuple(out)
+
+
+def _sweep_candidates(
+    base: KronPlan, prob: KronProblem, vmem_budget_elems: int = SMEM_BUDGET_ELEMS
+) -> list[KronPlan]:
+    """The reference's sweep (``repro.core.autotune._measured_candidates``
+    before its batch-tile variants): the analytic plan, then the same plan
+    with every stage retiled to ``t_m`` for each ``t_m`` in (4, 8, 16, 32)
+    that divides the row count.  The reference retiles the backward stages
+    to the same ``t_m``; here each is clamped as ``mirror_bwd_stages``
+    clamps it (``_bwd_t_m``), or a forward M-tile would push every stage
+    backward out of one block."""
+    cands = [base]
+    fwd_of = {st.factor_ids: st for st in base.stages}
+    for t_m in (4, 8, 16, 32):
+        if t_m > prob.m or prob.m % t_m:
+            continue
+
+        def retile(st, t_m):
+            return Stage(st.factor_ids, st.prekron,
+                         TileConfig(t_m, st.tiles.t_s, st.tiles.t_q), st.t_qs, st.acc_dtype)
+
+        bwd = tuple(
+            retile(s, _bwd_t_m(prob, fwd_of[s.factor_ids], t_m, vmem_budget_elems))
+            for s in (base.bwd_stages or ())
+        )
+        cands.append(KronPlan(
+            tuple(retile(s, t_m) for s in base.stages), bwd or None, base.t_b))
+    return cands
+
+
+def _measured_candidates(
+    base: KronPlan, prob: KronProblem, batch: int | None, dtype_bytes: int = 4
+) -> list[KronPlan]:
+    """The candidates ``_measured_plan`` times: ``_sweep_candidates``, less
+    the variants a kernel cannot take (``_launch_tiles`` raises: the run
+    would leave the planned kernels for the ladder's rung 1 or the
+    backward's per-factor fallback) and those that launch the same block
+    tiles as an earlier candidate (a plan's ``t_m`` only bounds the
+    kernels' block tile), the analytic plan first, so it wins a tie.  No
+    ``t_b`` variants: no kernel reads ``t_b``, so they would rank identical
+    launches."""
+    cands, seen = [], set()
+    for plan in _sweep_candidates(base, prob):
+        try:
+            tiles = _launch_tiles(plan, prob, batch, dtype_bytes)
+        except (VmemOverflowError, LoweringError):
+            if plan is base:
+                cands.append(plan)
+            continue
+        if tiles not in seen:
+            seen.add(tiles)
+            cands.append(plan)
+    return cands
+
+
+def _outside_transforms():
+    """A context that leaves any active functorch transform for its body."""
+    from torch._functorch import pyfunctorch
+
+    return pyfunctorch.temporarily_clear_interpreter_stack()
+
+
+def _measure_inputs(prob: KronProblem, batch: int | None, dtype_bytes: int,
+                    dev: torch.device):
+    """x and factors of the measured runs, from a generator seeded 0 on
+    ``dev``, requiring grad."""
+    dtype = _DTYPES.get(dtype_bytes, torch.float32)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    lead = () if batch is None else (batch,)
+
+    def randn(*shape):
+        t = torch.randn(*lead, *shape, generator=gen, device=dev, dtype=torch.float32)
+        return t.to(dtype).requires_grad_()
+
+    return randn(prob.m, prob.k), tuple(randn(p, q) for p, q in zip(prob.ps, prob.qs))
+
+
+def _measured_plan(
+    prob: KronProblem,
+    *,
+    batch: int | None = None,
+    dtype_bytes: int,
+    backend: str,
+    cache_path: str | None,
+    device: str | torch.device | None = None,
+    vmem_budget_elems: int = SMEM_BUDGET_ELEMS,
+    **plan_kwargs,
+) -> KronPlan:
+    """One measured-tuning path for single and per-sample plans.
+
+    A cache hit returns the stored plan (``plan_cache.hit``).  Otherwise
+    (``plan_cache.miss``) each of ``_measured_candidates`` runs what
+    training runs: ``KronOp(plan=candidate)`` forward and
+    ``torch.autograd.grad`` of ``y.float().sum()`` over x and the factors,
+    timed by ``measure_best`` (1 warm-up, 3 runs) on ``device``.  The winner
+    is stored with its time (``seconds``), ``measured_at``, the distinct
+    candidates (``candidates``, ``describe()`` each) and their times
+    (``candidate_seconds``)."""
+    dev = measure_device(device)
+    path = cache_path or default_cache_path()
+    key = plan_cache_key(
+        prob, dtype_bytes, backend, vmem_budget_elems=vmem_budget_elems, device=dev,
+        **plan_kwargs,
+        **({"batch": batch, "shared_factors": False} if batch is not None else {}),
+    )
+    entries = load_plan_cache(path)
+    hit = entries.get(key)
+    if hit is not None:
+        telemetry.counter_inc("plan_cache.hit")
+        return plan_from_json(hit["plan"])
+    telemetry.counter_inc("plan_cache.miss")
+
+    base = make_plan(prob, dtype_bytes=dtype_bytes, vmem_budget_elems=vmem_budget_elems,
+                     **plan_kwargs)
+    if batch is not None:
+        base = KronPlan(base.stages, base.bwd_stages, 1)
+    cands = _measured_candidates(base, prob, batch, dtype_bytes)
+    from . import engine  # engine imports this module at load time
+
+    def fn_of_plan(plan):
+        op = engine.KronOp(
+            prob.ps, prob.qs, backend=backend, plan=plan,
+            **({} if batch is None else {"batch": batch, "shared_factors": False}),
+        )
+        return lambda: torch.autograd.grad(op(x, factors).float().sum(), (x, *factors))
+
+    timings: list = []
+    # A plan resolved inside a functorch transform (the vmap rules) is
+    # measured outside it: on plain tensors, with random inputs and autograd.
+    with _outside_transforms(), telemetry.span("measure_plan", candidates=len(cands)):
+        x, factors = _measure_inputs(prob, batch, dtype_bytes, dev)
+        best, seconds = measure_best(fn_of_plan, cands, warmup=1, iters=3, timings=timings)
+    entries[key] = {
+        "plan": plan_to_json(best),
+        "seconds": seconds,
+        "measured_at": time.strftime("%Y-%m-%dT%H:%M:%S"),
+        "candidates": [c.describe() for c, _ in timings],
+        "candidate_seconds": [t for _, t in timings],
+    }
+    save_plan_cache(path, entries)
+    return best
 
 
 # ---------------------------------------------------------------------------
@@ -549,10 +991,16 @@ __all__ = [
     "lower",
     "make_plan",
     "make_batched_plan",
+    "measure_best",
+    "peak_flops",
     "plan_cache_key",
     "plan_to_json",
     "plan_from_json",
+    "load_plan_cache",
+    "save_plan_cache",
+    "default_cache_path",
     "PEAK_FLOPS",
+    "PEAK_FLOPS_F64",
     "HBM_BW",
     "SMEM_BYTES",
 ]

@@ -34,11 +34,12 @@ form) whose pieces are the port of the JAX primitives and custom VJP:
 
 Per-sample batching (``batch=B, shared_factors=False``) runs the same
 kernels on 3-D ``(B, P_i, Q_i)`` factors under ``make_batched_plan``'s
-per-sample plan.
+per-sample plan.  ``tune="measure"`` resolves each plan by timing its
+candidates on the device (``autotune.make_plan``) through the on-disk plan
+cache; ``KronOp.profile`` times the forward program stage by stage against
+the cost model.
 
-Left for later slices (ROADMAP.md queue 1): measured tuning and the plan
-cache (``tune="measure"``, ``cache_path``), the mesh rounds, and
-``profile()``.
+Left for later slices (ROADMAP.md queue 1): the mesh rounds.
 """
 from __future__ import annotations
 
@@ -73,13 +74,52 @@ def _signature(factors: Sequence[torch.Tensor]) -> tuple[tuple[int, ...], tuple[
 
 def _auto_prekron() -> bool:
     # Pre-kronization trades FLOPs for contraction depth: a win on the TPU's
-    # 128x128 systolic array.  The card's kernels contract one p at a time on
-    # the CUDA cores, where the extra FLOPs are pure cost, so the auto-gate
-    # is off; an explicit ``enable_prekron=True`` still plans and runs it.
+    # 128x128 systolic array.  The card's chain kernel contracts one p at a
+    # time on the CUDA cores, where the extra FLOPs are pure cost: measured
+    # on an H100, a 16 x 16 pair's 256 x 256 product makes the GP forward
+    # (M=16, six 16 x 16 factors) 6.6x slower, and 6.9x for four such
+    # problems per sample (PERF.md §6).  So the auto-gate is off; an
+    # explicit ``enable_prekron=True`` still plans and runs it.
     return False
 
 
 _PLAN_MEMO_SIZE = 128
+
+
+class _PlanCtx(NamedTuple):
+    """Static re-planning context carried into the vmap rules, so they can
+    resolve the right plan for the transformed problem."""
+
+    auto: bool  # plan came from the planner (re-plan on reshape) vs explicit
+    prekron: bool
+    tune: str = "analytic"
+    cache_path: str | None = None
+
+
+def _auto_plan(m, ps, qs, dtype_bytes, pctx: _PlanCtx, backend: str, device) -> KronPlan:
+    """The planner's plan for ``m`` rows: the memoized analytic plan, or the
+    measured one (``tune="measure"``) on ``device`` through the plan cache,
+    which is that path's memo."""
+    if pctx.tune != "measure":
+        return _resolve_plan(m, ps, qs, dtype_bytes, pctx.prekron)
+    with telemetry.span("plan", m=m, ps=ps, qs=qs, tune="measure"):
+        return autotune.make_plan(
+            KronProblem(m, ps, qs), dtype_bytes=dtype_bytes, enable_prekron=pctx.prekron,
+            tune="measure", backend=backend, cache_path=pctx.cache_path, device=device,
+        )
+
+
+def _auto_batched_plan(b, m, ps, qs, dtype_bytes, pctx: _PlanCtx, backend: str,
+                       device) -> KronPlan:
+    """``_auto_plan`` for the per-sample batched path."""
+    if pctx.tune != "measure":
+        return _resolve_batched_plan(b, m, ps, qs, dtype_bytes, pctx.prekron)
+    with telemetry.span("plan", m=m, ps=ps, qs=qs, tune="measure", batch=b):
+        return autotune.make_batched_plan(
+            KronProblem(m, ps, qs), b, shared_factors=False, dtype_bytes=dtype_bytes,
+            enable_prekron=pctx.prekron, tune="measure", backend=backend,
+            cache_path=pctx.cache_path, device=device,
+        )
 
 
 @functools.lru_cache(maxsize=_PLAN_MEMO_SIZE)
@@ -374,14 +414,6 @@ def _kron_forward(x, factors, plan: KronPlan | None, backend: str, batched: bool
 # ---------------------------------------------------------------------------
 
 
-class _PlanCtx(NamedTuple):
-    """Static re-planning context carried into the vmap rules, so they can
-    resolve the right plan for the transformed problem."""
-
-    auto: bool  # plan came from the planner (re-plan on reshape) vs explicit
-    prekron: bool
-
-
 def _front(a: torch.Tensor, d: int | None, size: int) -> torch.Tensor:
     """Move the mapped axis to the front, or broadcast an unmapped operand."""
     if d is None:
@@ -471,7 +503,7 @@ class _KronFunction(torch.autograd.Function):
             m = int(xb.shape[1])
             p2 = plan
             if pctx.auto and plan is not None:
-                p2 = _resolve_plan(size * m, ps, qs, itemsize, pctx.prekron)
+                p2 = _auto_plan(size * m, ps, qs, itemsize, pctx, backend, x.device)
             y = _KronFunction.apply(
                 xb.reshape(size * m, -1), p2, backend, pctx, False, *factors
             )
@@ -482,13 +514,13 @@ class _KronFunction(torch.autograd.Function):
             if plan is None:
                 p2 = _unfused_batched_plan(len(factors), m)
             elif pctx.auto:
-                p2 = _resolve_batched_plan(size, m, ps, qs, itemsize, pctx.prekron)
+                p2 = _auto_batched_plan(size, m, ps, qs, itemsize, pctx, backend, x.device)
             else:
                 p2 = plan
             return _KronFunction.apply(xb, p2, backend, pctx, True, *fbs), 0
         b, m = int(xb.shape[1]), int(xb.shape[2])
         p2 = (
-            _resolve_batched_plan(size * b, m, ps, qs, itemsize, pctx.prekron)
+            _auto_batched_plan(size * b, m, ps, qs, itemsize, pctx, backend, x.device)
             if pctx.auto else plan
         )
         y = _KronFunction.apply(
@@ -512,6 +544,55 @@ class KronCost:
     flops: int
     comm_elems_per_device: int = 0
     rounds: int = 0
+
+
+def _stage_flops_bytes(
+    y_shape: Sequence[int], instr: emit.StageInstr, dtype_bytes: int
+) -> tuple[int, int]:
+    """Analytic (flops, bytes) of one stage launch on input ``y_shape``.
+
+    Flops follow the sliced-multiply count (``KronProblem.flops``, per
+    chained factor); bytes are the input and output plus the factor panels,
+    the two quantities the planner's model trades, so ``profile()`` drift is
+    measured against the model that chose the plan."""
+    rows = math.prod(int(d) for d in y_shape[:-1]) or 1
+    k = int(y_shape[-1])
+    if instr.kind == emit.PREKRON:
+        pairs = [(instr.pprod, instr.qprod)]
+    else:
+        pairs = list(zip(instr.ps, instr.qs))
+    factor_elems = sum(p * q for p, q in zip(instr.ps, instr.qs))
+    flops = 0
+    cur = k
+    for p, q in pairs:
+        out = (cur // p) * q
+        flops += 2 * rows * out * p
+        cur = out
+    return flops, (rows * k + rows * cur + factor_elems) * dtype_bytes
+
+
+def _stage_drift(
+    measured: Sequence[float], predicted: Sequence[float], threshold: float
+) -> list[bool]:
+    """Per-stage cost-model drift flags for ``KronOp.profile()``.
+
+    An absolute measured/predicted ratio is calibration, not drift: what the
+    model promises is the split of time across stages.  So each stage's
+    ratio is normalised by the whole program's and flagged when it deviates
+    by more than ``threshold`` times either way."""
+    total_m = sum(measured)
+    total_p = sum(predicted)
+    if total_m <= 0 or total_p <= 0 or threshold <= 0:
+        return [False] * len(list(measured))
+    overall = total_m / total_p
+    flags = []
+    for m_i, p_i in zip(measured, predicted):
+        if p_i <= 0:
+            flags.append(m_i > 0)
+            continue
+        drift = (m_i / p_i) / overall
+        flags.append(drift > threshold or drift < 1.0 / threshold)
+    return flags
 
 
 _OP_STATE_SIZE = 8  # per-op (rows, dtype) -> plan entries kept
@@ -553,9 +634,14 @@ class KronOp:
     backend : ``"auto"`` (by the tensors' device), ``"cuda"`` or ``"torch"``.
     plan : ``"auto"``, ``None`` (paper-faithful unfused loop) or a
         ``KronPlan``.
-    tune, cache_path : ``"analytic"`` and None; the measured planner and the
-        plan cache raise ``NotImplementedError`` (``autotune.MEASURED_SLICE``).
-    enable_prekron : None keeps the auto-gate (off: ``_auto_prekron``); an
+    tune : ``"analytic"`` (the cost model) or ``"measure"`` (with
+        ``plan="auto"``: each plan is ranked by the time of its candidates'
+        forward and full backward and kept in the plan cache at
+        ``cache_path``, default ``autotune.default_cache_path()``).
+    device : where a measured plan is timed when no tensor is at hand (a
+        plan resolved at construction, or ``.plan`` before any call);
+        default the card.  A call measures on its tensors' device.
+    enable_prekron : None keeps the auto-gate (``_auto_prekron``); an
         explicit bool overrides it.
     """
 
@@ -573,6 +659,7 @@ class KronOp:
         cache_path: str | None = None,
         dtype_bytes: int = 4,
         enable_prekron: bool | None = None,
+        device: str | torch.device | None = None,
     ):
         self.ps = tuple(int(p) for p in ps)
         self.qs = tuple(int(q) for q in qs)
@@ -586,9 +673,7 @@ class KronOp:
             raise ValueError(f"plan must be 'auto', None, or a KronPlan: {plan!r}")
         if backend not in ("auto", "cuda", "torch"):
             raise ValueError(f"unknown backend {backend!r}: 'auto', 'cuda' or 'torch'")
-        if tune == "measure" or cache_path is not None:
-            raise NotImplementedError(autotune.MEASURED_SLICE)
-        if tune != "analytic":
+        if tune not in ("analytic", "measure"):
             raise guard.PlanError(f"unknown tune mode {tune!r}")
         self.n = len(self.ps)
         self.k = math.prod(self.ps)
@@ -600,8 +685,11 @@ class KronOp:
         self._dtype_bytes = dtype_bytes
         self._plan_arg = plan
         self._enable_prekron = enable_prekron
+        self._device = device
+        self._default_device = None
+        self._measure = tune == "measure"
         prekron = _auto_prekron() if enable_prekron is None else bool(enable_prekron)
-        self._ctx = _PlanCtx(plan == "auto", prekron)
+        self._ctx = _PlanCtx(plan == "auto", prekron, tune, cache_path)
         # Op-owned resolved state: (mode, rows or (b, m), dtype_bytes) -> plan.
         self._plans: dict = {}
         if m is not None:
@@ -623,25 +711,41 @@ class KronOp:
                 self._plans.pop(next(iter(self._plans)))
         return self._plans[key]
 
-    def _single_plan(self, rows: int, dtype_bytes: int) -> KronPlan | None:
+    def _measured_on(self, device: torch.device | None) -> torch.device | None:
+        """The device a measured plan is timed on, part of its memo key (a
+        measured plan belongs to its device): a call's tensors' device, or
+        the op's ``device`` (default the card); None when not measuring."""
+        if not self._measure:
+            return None
+        if device is not None:
+            return device
+        if self._default_device is None:
+            self._default_device = autotune.measure_device(self._device)
+        return self._default_device
+
+    def _single_plan(self, rows: int, dtype_bytes: int, device=None) -> KronPlan | None:
+        device = self._measured_on(device)
+
         def resolve():
             if self._plan_arg == "auto":
-                return _resolve_plan(rows, self.ps, self.qs, dtype_bytes, self._ctx.prekron)
+                return _auto_plan(rows, self.ps, self.qs, dtype_bytes, self._ctx,
+                                  self.backend, device)
             return self._plan_arg
 
-        return self._remember(("single", rows, dtype_bytes), resolve)
+        return self._remember(("single", rows, dtype_bytes, device), resolve)
 
-    def _batched_plan(self, b: int, m: int, dtype_bytes: int) -> KronPlan:
+    def _batched_plan(self, b: int, m: int, dtype_bytes: int, device=None) -> KronPlan:
+        device = self._measured_on(device)
+
         def resolve():
             if self._plan_arg == "auto":
-                return _resolve_batched_plan(
-                    b, m, self.ps, self.qs, dtype_bytes, self._ctx.prekron
-                )
+                return _auto_batched_plan(b, m, self.ps, self.qs, dtype_bytes, self._ctx,
+                                          self.backend, device)
             if self._plan_arg is None:
                 return _unfused_batched_plan(self.n, m)
             return self._plan_arg
 
-        return self._remember(("batched", b, m, dtype_bytes), resolve)
+        return self._remember(("batched", b, m, dtype_bytes, device), resolve)
 
     def _default_rows(self) -> int:
         # The paper's M=16 CG-block row count when no row hint exists.
@@ -672,8 +776,9 @@ class KronOp:
         return KronOp(
             self.ps, self.qs, m=None, batch=batch,
             shared_factors=self.shared_factors if shared_factors is None else shared_factors,
-            backend=self.backend, plan=self._plan_arg,
-            dtype_bytes=self._dtype_bytes, enable_prekron=self._enable_prekron,
+            backend=self.backend, plan=self._plan_arg, tune=self._ctx.tune,
+            cache_path=self._ctx.cache_path, dtype_bytes=self._dtype_bytes,
+            enable_prekron=self._enable_prekron, device=self._device,
         )
 
     # -- size / cost queries -------------------------------------------------
@@ -700,6 +805,124 @@ class KronOp:
         if self._per_sample:
             return KronCost(b * KronProblem(m, self.ps, self.qs).flops)
         return KronCost(KronProblem(b * m, self.ps, self.qs).flops)
+
+    def profile(
+        self,
+        x: torch.Tensor,
+        factors: Sequence[torch.Tensor],
+        *,
+        warmup: int = 1,
+        iters: int = 3,
+        drift_threshold: float | None = None,
+    ) -> dict:
+        """Time the op's forward program stage by stage and compare the
+        split with the planner's cost model.
+
+        Each stage runs through ``emit.run_stage`` (the call
+        ``run_program`` chains) and is timed alone, by CUDA events on the
+        card and ``time.perf_counter`` on the CPU: the minimum over
+        ``iters`` runs after ``warmup`` discarded ones.  A stage's
+        prediction is ``flops / rate + bytes / HBM_BW``, the rate the CUDA
+        cores' for the dtype (``autotune.peak_flops``: the planned forward
+        runs ``chain_fwd``, which keeps every dtype off the tensor cores).
+        A stage whose measured share departs from its predicted share by
+        more than ``drift_threshold`` (default
+        ``telemetry.DRIFT_THRESHOLD``) either way is flagged
+        (``_stage_drift``).  ``plan=None`` ops have no program and raise
+        ``PlanError``.  With telemetry on, the report is stamped into the
+        registry (``telemetry.mark_profile``) and each flagged stage emits
+        a ``cost_model_drift`` event."""
+        factors = tuple(factors)
+        self._check_factors(x, factors)
+        threshold = (
+            telemetry.DRIFT_THRESHOLD if drift_threshold is None else float(drift_threshold)
+        )
+        report = self._profile_stages(
+            x, factors, warmup=int(warmup), iters=int(iters), threshold=threshold
+        )
+        telemetry.mark_profile(report)
+        for i in report["drift_flagged"]:
+            st = report["stages"][i]
+            telemetry.event("cost_model_drift", stage=i, drift=st["drift"], instr=st["instr"])
+        return report
+
+    def _profile_stages(
+        self, x: torch.Tensor, factors: tuple, *, warmup: int, iters: int, threshold: float
+    ) -> dict:
+        dtype_bytes = x.element_size()
+        dev = x.device if self._measure else None
+        if self._per_sample:
+            b = self.batch
+            m_rows = math.prod(int(d) for d in x.shape[1:-1]) or 1
+            plan = self._batched_plan(b, m_rows, dtype_bytes, dev)
+            batched = True
+            y = x.detach().reshape(b, m_rows, self.k)
+        else:
+            rows = math.prod(int(d) for d in x.shape[:-1]) or 1
+            plan = self._single_plan(rows, dtype_bytes, dev)
+            batched = False
+            y = x.detach().reshape(rows, self.k)
+            m_rows = rows // (self.batch or 1)
+        if plan is None:
+            raise guard.PlanError(
+                "profile() needs a planned op (plan='auto' or an explicit "
+                "KronPlan): plan=None runs the paper-faithful unfused loop, "
+                "which has no StageProgram to time stage by stage"
+            )
+        prog = _lowered(plan, self.ps, self.qs, batched)
+        rev = tuple(f.detach() for f in reversed(factors))
+        stages: list[dict] = []
+        measured: list[float] = []
+        predicted: list[float] = []
+        with torch.no_grad(), telemetry.span("profile", ps=self.ps, qs=self.qs):
+            for idx, instr in enumerate(prog.instrs):
+                sf = tuple(rev[i] for i in instr.factor_ids)
+
+                def run(y_in=y, sf=sf, instr=instr):
+                    return emit.run_stage(y_in, sf, instr, backend=self.backend)
+
+                for _ in range(max(0, warmup)):
+                    run()
+                best, out = float("inf"), None
+                for _ in range(max(1, iters)):
+                    dt, out = autotune.time_once(run, y.is_cuda)
+                    best = min(best, dt)
+                flops, nbytes = _stage_flops_bytes(y.shape, instr, dtype_bytes)
+                rate = autotune.peak_flops(dtype_bytes)
+                pred = flops / rate + nbytes / autotune.HBM_BW
+                measured.append(best)
+                predicted.append(pred)
+                stages.append({
+                    "stage": idx, "instr": instr.describe(),
+                    "factor_ids": list(instr.factor_ids), "measured_s": best,
+                    "predicted_s": pred, "flops": flops, "bytes": nbytes,
+                    "kernel": "chain_fwd", "peak_flops": rate,
+                })
+                y = out
+        flags = _stage_drift(measured, predicted, threshold)
+        total_m, total_p = sum(measured), sum(predicted)
+        overall = total_m / total_p if total_p > 0 else float("nan")
+        for st, m_i, p_i, flag in zip(stages, measured, predicted, flags):
+            st["share_measured"] = m_i / total_m if total_m > 0 else 0.0
+            st["share_predicted"] = p_i / total_p if total_p > 0 else 0.0
+            st["drift"] = (m_i / p_i) / overall if p_i > 0 and overall == overall else float("inf")
+            st["drift_flagged"] = flag
+        cost = self.cost(m_rows)
+        return {
+            "signature": {"ps": list(self.ps), "qs": list(self.qs), "m": m_rows,
+                          "batch": self.batch, "backend": self.backend},
+            "plan": plan.describe(),
+            "program": prog.describe(),
+            "stages": stages,
+            "measured_s": total_m,
+            "predicted_s": total_p,
+            "cost_flops": cost.flops,
+            "measured_gflops_s": cost.flops / total_m / 1e9 if total_m > 0 else 0.0,
+            "drift_threshold": threshold,
+            "drift_flagged": [i for i, f in enumerate(flags) if f],
+            "warmup": warmup,
+            "iters": iters,
+        }
 
     def describe(self) -> str:
         mode = "batched" if self.batch is not None else "single"
@@ -769,10 +992,11 @@ class KronOp:
         factors = tuple(factors)
         self._check_factors(x, factors)
         size = x.element_size()
+        dev = x.device if self._measure else None
         if self.batch is None:
             lead = x.shape[:-1]
             rows = math.prod(lead) if lead else 1
-            plan = self._single_plan(rows, size)
+            plan = self._single_plan(rows, size, dev)
             y = _KronFunction.apply(
                 x.reshape(rows, self.k), plan, self.backend, self._ctx, False, *factors
             )
@@ -786,12 +1010,12 @@ class KronOp:
         m = math.prod(lead) if lead else 1
         if self.shared_factors:
             # B folds into M: both are row indices of the same contiguous array.
-            plan = self._single_plan(b * m, size)
+            plan = self._single_plan(b * m, size, dev)
             y = _KronFunction.apply(
                 x.reshape(b * m, self.k), plan, self.backend, self._ctx, False, *factors
             )
         else:
-            plan = self._batched_plan(b, m, size)
+            plan = self._batched_plan(b, m, size, dev)
             y = _KronFunction.apply(
                 x.reshape(b, m, self.k), plan, self.backend, self._ctx, True, *factors
             )
@@ -817,6 +1041,7 @@ def kron_op_for(
     cache_path: str | None = None,
     dtype_bytes: int = 4,
     enable_prekron: bool | None = None,
+    device: str | None = None,
 ) -> KronOp:
     """Shared, bounded ``KronOp`` factory: same signature -> same op object.
 
@@ -827,7 +1052,7 @@ def kron_op_for(
     return KronOp(
         ps, qs, m=m, batch=batch, shared_factors=shared_factors, backend=backend,
         plan=plan, tune=tune, cache_path=cache_path, dtype_bytes=dtype_bytes,
-        enable_prekron=enable_prekron,
+        enable_prekron=enable_prekron, device=device,
     )
 
 

@@ -38,8 +38,8 @@ def kron_matmul(
     DEPRECATED shim over ``KronOp(ps, qs, backend=..., plan=...)``.
     ``plan``: ``"auto"`` plans with ``autotune.make_plan``; ``None`` runs the
     paper-faithful unfused per-factor path; or an explicit KronPlan.
-    ``tune="measure"`` and ``cache_path`` raise ``NotImplementedError``
-    until the port has the measured planner.
+    ``tune="measure"`` ranks plans by their time on x's device, through the
+    plan cache at ``cache_path`` (``KronOp``).
     """
     engine.warn_deprecated("kron_matmul", "KronOp(ps, qs)")
     factors = tuple(factors)

@@ -14,12 +14,13 @@ site               where ``maybe_fail`` is called in the port
                      counterpart of building a Pallas chain)
 ``stage_execute``    ``kernels/emit.py`` ``run_stage``/``run_stage_grad``
 ``per_factor``       ``core/engine.py`` per-factor rung of the ladder
+``plan_cache_load``  ``core/autotune.py`` ``load_plan_cache``
+``plan_cache_save``  ``core/autotune.py`` ``save_plan_cache``, each attempt
 =================  ========================================================
 
 The other sites of the table (``round_chain``, ``collective``,
-``slab_collective``, ``serve_admit``, ``root_refresh``,
-``plan_cache_load``, ``plan_cache_save``) parse and fire as in the
-reference; the port calls them from the modules later slices bring.
+``slab_collective``, ``serve_admit``, ``root_refresh``) parse and fire as
+in the reference; the port calls them from the modules later slices bring.
 
 Activation is layered: ``inject(spec)`` pushes a parsed spec onto a stack
 for a ``with`` block; the ``FASTKRON_CHAOS`` env var forms a base layer

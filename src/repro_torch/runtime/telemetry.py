@@ -411,9 +411,9 @@ def summary_line() -> str:
 
 
 def mark_profile(report: dict) -> None:
-    """Stamp the latest ``KronOp.profile`` report (a later slice of the
-    port) or any dict of that shape (timestamp + headline fields)
-    into the registry and emit a ``profile`` event."""
+    """Stamp the latest ``KronOp.profile`` report, or any dict of that
+    shape (timestamp + headline fields), into the registry and emit a
+    ``profile`` event."""
     st = _STATE
     if st is None:
         return

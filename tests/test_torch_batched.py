@@ -335,10 +335,8 @@ def test_batched_plan_modes_and_errors():
     prob = KronProblem(8, (4, 4), (4, 4))
     with pytest.raises(ValueError):
         autotune.make_batched_plan(prob, 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        autotune.make_batched_plan(prob, 4, shared_factors=False, tune="measure")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        autotune.make_batched_plan(prob, 4, cache_path="plans.json")
+    with pytest.raises(autotune.PlanError):
+        autotune.make_batched_plan(prob, 4, shared_factors=False, tune="fastest")
     with pytest.raises(autotune.PlanError):
         autotune.make_batched_plan(prob, 4, tune="fastest")
     plan = autotune.make_batched_plan(KronProblem(4, (2, 3, 2), (3, 2, 2)), 2,
@@ -365,15 +363,17 @@ def test_per_sample_prekron_plan_runs_forward_and_backward():
 
 
 def test_batched_plan_cache_key_includes_batch_and_matches_jax():
+    # The port's key is the reference's with the measuring device appended.
     prob, jprob = KronProblem(8, (4, 4), (4, 4)), JProblem(8, (4, 4), (4, 4))
-    k0 = autotune.plan_cache_key(prob, 4, "cuda")
-    k8 = autotune.plan_cache_key(prob, 4, "cuda", batch=8, shared_factors=False)
-    k16 = autotune.plan_cache_key(prob, 4, "cuda", batch=16, shared_factors=False)
-    ks = autotune.plan_cache_key(prob, 4, "cuda", batch=8, shared_factors=True)
+    k0 = autotune.plan_cache_key(prob, 4, "cuda", device="cpu")
+    k8 = autotune.plan_cache_key(prob, 4, "cuda", batch=8, shared_factors=False, device="cpu")
+    k16 = autotune.plan_cache_key(prob, 4, "cuda", batch=16, shared_factors=False, device="cpu")
+    ks = autotune.plan_cache_key(prob, 4, "cuda", batch=8, shared_factors=True, device="cpu")
     assert len({k0, k8, k16, ks}) == 4
     kw = dict(batch=8, shared_factors=False, acc_dtype="float32",
               vmem_budget_elems=emit.SMEM_BUDGET_ELEMS)
-    assert autotune.plan_cache_key(prob, 4, "xla", **kw) == JA.plan_cache_key(jprob, 4, "xla", **kw)
+    assert (autotune.plan_cache_key(prob, 4, "xla", device="cpu", **kw)
+            == JA.plan_cache_key(jprob, 4, "xla", **kw) + ";dev=cpu")
 
 
 def test_batched_plan_json_roundtrip_keeps_t_b():

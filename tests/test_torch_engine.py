@@ -17,6 +17,7 @@ from repro.core import KronOp as JKronOp
 from repro_torch.convert import factors_from_numpy
 from repro_torch.core import KronOp, KronPlan
 from repro_torch.core.autotune import Stage, TileConfig
+from repro_torch.runtime import guard
 
 jax.config.update("jax_enable_x64", True)
 
@@ -111,13 +112,15 @@ def test_no_grad_inputs_give_no_graph():
 
 
 def test_rejects_what_the_slice_leaves_out_and_bad_inputs():
-    # Per-sample factors run since the batched slice; the measured planner
-    # and the plan cache are what the port still leaves out.
+    # Per-sample factors run since the batched slice, measured tuning since
+    # the consumers' slice; an unknown tune mode raises, and measuring on the
+    # card without one raises instead of measuring on the CPU.
     assert KronOp((4,), (4,), batch=2, shared_factors=False).shared_factors is False
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        KronOp((4,), (4,), tune="measure")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        KronOp((4,), (4,), cache_path="plans.json")
+    with pytest.raises(guard.PlanError):
+        KronOp((4,), (4,), tune="fastest")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            KronOp((4,), (4,), m=4, tune="measure", cache_path="plans.json")
     with pytest.raises(ValueError):
         KronOp((4, 4), (4,))
     with pytest.raises(ValueError):
