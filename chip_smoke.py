@@ -82,14 +82,34 @@ went through the kernels.  Phases, one line each:
      ``backend="shuffle"`` at 1e-4, and ``gp_train_epoch_batched`` at B=4,
      every sample against its own shuffle epoch.
      Phases 6-9 assert an empty guard report after them.
-  10. a ``{"kernels": [...]}`` JSON line (launches of phases 3 and 6-9),
+  10. train: qwen3-4b at full width and depth (36 layers, ``kron_ffn=True,
+      kron_factors=2``, bf16, remat) through ``make_train_step`` on
+      ``SyntheticLM`` batches of 4 x 1024 tokens: one step through the
+      kernels against the same step through ``backend="torch"`` (loss 1e-2,
+      every leaf's gradient as AdamW's f32 first moment holds it 1e-1,
+      updated Kron factors 2e-2), and the gradient check shown to fail a
+      planted fault (factor gradients less an eighth of the rows); 6
+      Shampoo steps (``precond_every=5``) and
+      3 AdamW steps, each step's launches asserted against the plans'
+      prediction (model: chain_fwd 540 with the remat re-forwards, grad and
+      grad_reduce 216; Shampoo's 5 precondition calls: chain_fwd 10),
+      finite losses and grad norms, the last Shampoo loss below the first;
+      ms per step (CUDA events), tokens/s, the refresh steps' excess, peak
+      memory, the profiled step's device time and idle share
+      (``torch.profiler``: 1 - device ms / that step's event ms); Shampoo's
+      batched ``precondition`` on the run's roots bitwise equal to
+      ``looped=True`` and, per shape group, against its twins at 1e-5 (f32),
+      a limit that a planted fault (the left roots dropped) must fail; an
+      empty guard report after it.
+  11. a ``{"kernels": [...]}`` JSON line (launches of phases 3 and 6-10),
       then the card's name and power limit.
-  11. last line: ``{"ok": true, "device": {...}}``.
+  12. last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero.  Needs one CUDA card; imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -1863,6 +1883,319 @@ def run_gp_epoch(gen) -> tuple[list[dict], dict]:
     return rows, total
 
 
+# qwen3-4b at full width and depth with the Kron FFN (configs/qwen3_4b.py,
+# kron_ffn=True, kron_factors=2; bf16, remat), trained on SyntheticLM: 6
+# Shampoo steps (refreshes at optimizer steps 1 and 5), then 3 AdamW steps
+# from the same init.
+TRAIN = {"arch": "qwen3-4b", "batch": 4, "seq": 1024, "seed": 0,
+         "shampoo_steps": 6, "adamw_steps": 3, "precond_every": 5, "lr": 1e-3,
+         "warmup_steps": 2}
+# One Shampoo step through the kernels against the same step through the
+# plain twins (backend="torch") from the same params and tokens, relative to
+# max|ref|: the loss; the step's gradients, as AdamW's first moment holds
+# them (f32, (1 - b1) g, every leaf: bf16 rounding that the two orders of
+# summation leave grows through the 36 layers of the backward, to a few
+# 1e-2 at the first layer, so the limit lies between that and a planted
+# fault's reading); each updated Kron factor (bf16: at step 1 the update
+# stays under one ulp of the larger elements, so this reading sees little
+# of the step).  Shampoo's precondition through the kernels against its
+# twin on the run's roots, f32, every leaf.  The gradient and precondition
+# limits must also fail a planted fault (run_train).
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_FACTOR_TOL, TRAIN_PRECOND_TOL = 1e-2, 1e-1, 2e-2, 1e-5
+
+
+def train_cfg():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(TRAIN["arch"]), kron_ffn=True, kron_factors=2)
+
+
+def train_expected(cfg, groups) -> tuple[dict, dict]:
+    """The launches of one train step as the plans predict them: (model,
+    optimizer).  Per KronLinear of n stages (the plan of the batch's rows):
+    n chain_fwd forward, n more in the remat re-forward, n-1 stage inputs
+    rematerialized for the factor gradients, n grad and n grad_reduce; three
+    KronLinears per layer (w1 and w3 up, w2 down).  Per Shampoo shape group,
+    one per-sample batched op: its stages' chain_fwd."""
+    from repro_torch.core.engine import kron_op_for, kron_precond_op
+    from repro_torch.core.layers import KronLinearSpec
+
+    b = TRAIN["batch"]
+    up = KronLinearSpec.balanced(cfg.d_model, cfg.d_ff, cfg.kron_factors)
+    down = KronLinearSpec.balanced(cfg.d_ff, cfg.d_model, cfg.kron_factors)
+    fwd = grad = 0
+    for spec in (up, up, down):
+        op = kron_op_for(spec.ps, spec.qs, batch=b, shared_factors=True,
+                         backend="auto", plan="auto")
+        op._single_plan(b * TRAIN["seq"], 2)
+        n = n_stages(op, False)
+        fwd += (2 if cfg.remat else 1) * n + n - 1
+        grad += n
+    model = expect(chain_fwd=cfg.n_layers * fwd, grad=cfg.n_layers * grad,
+                   grad_reduce=cfg.n_layers * grad)
+    opt = expect(chain_fwd=sum(
+        n_stages(kron_precond_op(p, q, sum(s for _, s in members)), True)
+        for (p, q), members in groups.items()))
+    return model, opt
+
+
+GEMM_NAMES = ("gemm", "xmma", "cutlass", "nvjet", "cublas")
+F32_GEMM_NAMES = ("f32f32", "sgemm", "ffma")
+
+
+def device_kinds(by_name: dict) -> dict:
+    """Device ms of a profile by kind of kernel: the port's kernels, f32
+    GEMMs (the CUDA cores: attention's scores, TF32 off), other GEMMs (the
+    tensor cores), and everything else (elementwise ops, reductions,
+    softmax, copies)."""
+    out = {"port_kernels": 0.0, "gemm_f32": 0.0, "gemm_tensor_core": 0.0, "other": 0.0}
+    for name, ms in by_name.items():
+        low = name.lower()
+        if any(n in name for n in PORT_KERNEL_NAMES):
+            out["port_kernels"] += ms
+        elif any(n in low for n in GEMM_NAMES):
+            out["gemm_f32" if any(n in low for n in F32_GEMM_NAMES)
+                else "gemm_tensor_core"] += ms
+        else:
+            out["other"] += ms
+    return out
+
+
+def _factor_leaves(params) -> dict:
+    from repro_torch import tree
+
+    return {p: t for p, t in tree.leaves_with_path(params) if "/factors/" in p}
+
+
+def run_train(gen, smi: str) -> tuple[dict, dict]:
+    """The port's training path at qwen3-4b's full width and depth: init,
+    ``make_train_step`` (the model forward with the Kron FFN, remat, the
+    loss, ``torch.autograd.grad`` into every parameter, the optimizer),
+    ``SyntheticLM`` batches.  First one step through the kernels and the
+    same step through ``backend="torch"`` from the same state and tokens
+    (loss, every leaf's gradient, updated Kron factors), and the step with a
+    planted gradient fault; then the main path: 6 Shampoo steps and 3
+    AdamW steps, each step's launches against the plans' prediction (model
+    and optimizer apart: the optimizer's are the launches inside
+    ``shampoo.precondition``), the losses and grad norms finite and the
+    last Shampoo loss below the first; CUDA-event ms per step, the device
+    time of a plain step (``torch.profiler``), peak memory; last, Shampoo's
+    batched ``precondition`` on the run's roots against ``looped=True``,
+    bitwise, and against its twins per shape group, with a planted fault."""
+    import dataclasses
+
+    from repro_torch import tree
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import emit
+    from repro_torch.models import model as M
+    from repro_torch.optim import OptConfig, ShampooConfig, shampoo
+    from repro_torch.train import TrainState, make_train_step
+
+    t = TRAIN
+    cfg = train_cfg()
+    tokens = t["batch"] * t["seq"]
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=t["seq"], batch=t["batch"], seed=t["seed"],
+                       device="cuda")
+    kw = dict(lr=t["lr"], warmup_steps=t["warmup_steps"])
+    sh_cfg = ShampooConfig(precond_every=t["precond_every"], **kw)
+    ad_cfg = OptConfig(**kw)
+    params0 = M.init_params(cfg, gen, device="cuda")
+    n_params = sum(p.numel() for p in tree.leaves(params0))
+    groups = shampoo.shape_groups(params0, sh_cfg)
+
+    def fresh(opt_cfg):
+        init_fn, _ = shampoo.opt_for(opt_cfg)
+        return TrainState(params0, init_fn(params0, opt_cfg), torch.zeros((), dtype=torch.int32))
+
+    def batch(i):
+        toks, labels = data.global_batch(i)
+        return {"tokens": toks, "labels": labels}
+
+    # One step through the kernels against the same step through the twins,
+    # and the same step with a planted fault in the factor gradients: the
+    # kernel's, less the last eighth of the rows (a reduction that drops one
+    # of eight partial sums).
+    grad_cuda = emit.grad_cuda
+
+    def dropped_partial(x, dy, *fs, **kw):
+        dx, dfs = grad_cuda(x, dy, *fs, **kw)
+        rows = max(x.shape[1] // 8, 1)
+        _, tail = emit.grad_reference(x[:, -rows:], dy[:, -rows:], *fs,
+                                      acc_dtype=kw.get("acc_dtype"))
+        return dx, tuple(d - t.to(d.dtype) for d, t in zip(dfs, tail))
+
+    def twin_step(backend):
+        state, m = make_train_step(cfg, sh_cfg, backend=backend)(fresh(sh_cfg), batch(0))
+        return (float(m["loss"]), dict(tree.leaves_with_path(state.opt["m"])),
+                {p: f.clone() for p, f in _factor_leaves(state.params).items()})
+
+    loss_t, moment_t, fac_t = twin_step("torch")
+    torch.cuda.empty_cache()
+    twin_row = {"loss_tol": TRAIN_LOSS_TOL, "grad_tol": TRAIN_GRAD_TOL,
+                "factor_tol": TRAIN_FACTOR_TOL, "factor_leaves": len(fac_t)}
+    for label in ("kernels", "planted"):
+        emit.grad_cuda = dropped_partial if label == "planted" else grad_cuda
+        try:
+            loss_k, moment_k, fac_k = twin_step("auto")
+        finally:
+            emit.grad_cuda = grad_cuda
+        grad_errs = {p: compare(moment_k[p], moment_t[p])[1] for p in moment_t}
+        worst = max(grad_errs, key=grad_errs.get)
+        twin_row[label] = {
+            "loss": loss_k, "loss_rel_err": abs(loss_k - loss_t) / abs(loss_t),
+            "grad_rel_err": grad_errs[worst], "grad_worst_leaf": worst,
+            "grad_worst_leaf_by_layer": ([compare(moment_k[worst][i], moment_t[worst][i])[1]
+                                          for i in range(moment_t[worst].shape[0])]
+                                         if worst.startswith("stack/") else None),
+            "factor_rel_err": max(compare(fac_k[p], fac_t[p])[1] for p in fac_t),
+        }
+        del moment_k, fac_k
+        torch.cuda.empty_cache()
+    twin_row["loss_twins"] = loss_t
+    print("train twin " + json.dumps(twin_row), flush=True)
+    sound, planted = twin_row["kernels"], twin_row["planted"]
+    if (sound["loss_rel_err"] > TRAIN_LOSS_TOL or sound["grad_rel_err"] > TRAIN_GRAD_TOL
+            or sound["factor_rel_err"] > TRAIN_FACTOR_TOL):
+        raise AssertionError(f"train: kernels against twins {twin_row}")
+    if not planted["grad_rel_err"] > TRAIN_GRAD_TOL:
+        raise AssertionError(f"train: the gradient check passes a planted fault {twin_row}")
+    del moment_t, fac_t
+
+    want_model, want_opt = train_expected(cfg, groups)
+    opt_launches = {}
+    precondition = shampoo.precondition
+
+    def counted_precondition(*args, **kwargs):
+        before = read_counters()
+        out = precondition(*args, **kwargs)
+        for name, n in read_counters().items():
+            opt_launches[name] = opt_launches.get(name, 0) + n - before[name]
+        return out
+
+    def run(opt_cfg, steps, profile_step=None):
+        """``steps`` steps from the init: per step ms, loss, grad norm,
+        launches (model, optimizer); the device time of ``profile_step``."""
+        step_fn = make_train_step(cfg, opt_cfg)
+        state = fresh(opt_cfg)
+        rows, device_ms, by_name = [], None, {}
+        for i in range(steps):
+            opt_launches.clear()
+            reset_counters()
+            b = batch(i)
+            profiled = i == profile_step
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+                  if profiled else contextlib.nullcontext()) as prof:
+                start.record()
+                state, m = step_fn(state, b)
+                end.record()
+                end.synchronize()
+            if profiled:
+                by_name = {e.key: getattr(e, "device_time_total", 0) / 1e3
+                           for e in prof.key_averages()}
+                device_ms = sum(by_name.values())
+            launches = read_counters()
+            opt = {name: opt_launches.get(name, 0) for name in launches}
+            model = {name: launches[name] - opt[name] for name in launches}
+            if model != want_model or opt != (want_opt if opt_cfg is sh_cfg else expect()):
+                raise AssertionError(f"train step {i + 1}: launches {model} + {opt}, expected "
+                                     f"{want_model} + {want_opt}")
+            rows.append({
+                "opt_step": int(state.opt["step"]), "ms": start.elapsed_time(end),
+                "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                "model_launches": {k: v for k, v in model.items() if v},
+                "opt_launches": {k: v for k, v in opt.items() if v},
+                "profiled": profiled,
+            })
+        return state, rows, (device_ms, by_name)
+
+    shampoo.precondition = counted_precondition
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        profile_step = t["shampoo_steps"] - 1
+        state, sh_rows, (device_ms, by_name) = run(sh_cfg, t["shampoo_steps"], profile_step)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        opt_bytes = shampoo.state_memory_report(state.opt)["total_bytes"]
+        kron = state.opt["kron"]
+        del state
+        torch.cuda.empty_cache()
+        ad_state, ad_rows, _ = run(ad_cfg, t["adamw_steps"])
+        del ad_state
+        torch.cuda.empty_cache()
+    finally:
+        shampoo.precondition = precondition
+    launches = {name: sum(r["model_launches"].get(name, 0) + r["opt_launches"].get(name, 0)
+                          for r in sh_rows + ad_rows) for name in read_counters()}
+
+    # Precondition on the run's roots: batched against one call per layer
+    # (bitwise), and against its twins, per shape group; the planted fault
+    # runs the kernels without the left roots (a chain that skips a stage).
+    ups = {p: randn(gen, (e["ok"].shape[0], e["lroot"].shape[-1], e["rroot"].shape[-1]),
+                    torch.float32) for p, e in kron.items()}
+    yb = shampoo.precondition(ups, kron)
+    yl = shampoo.precondition(ups, kron, looped=True)
+    bitwise = all(torch.equal(yb[p], yl[p]) for p in yl) and set(yb) == set(yl)
+    yt = shampoo.precondition(ups, kron, backend="torch")
+    no_left = {p: {**e, "lroot": torch.eye(e["lroot"].shape[-1], device="cuda").expand_as(
+        e["lroot"]).contiguous()} for p, e in kron.items()}
+    yp = shampoo.precondition(ups, no_left)
+    precond = {}
+    for (p, q), members in groups.items():
+        paths = [path for path, _ in members]
+        precond[f"{p}x{q}"] = {
+            "rel_err": max(compare(yb[path], yt[path])[1] for path in paths),
+            "planted_rel_err": min(compare(yp[path], yt[path])[1] for path in paths)}
+    del ups, yb, yl, yt, yp, no_left, kron, params0
+    torch.cuda.empty_cache()
+
+    refresh = [r for r in sh_rows
+               if r["opt_step"] == 1 or r["opt_step"] % t["precond_every"] == 0]
+    plain = [r for r in sh_rows
+             if r not in refresh and not r["profiled"] and r["opt_step"] > 1]
+    plain_ms = statistics.median(r["ms"] for r in plain)
+    dense = dataclasses.replace(cfg, kron_ffn=False)
+    row = {
+        "case": "train", "device": smi, "arch": t["arch"], "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "d_ff": cfg.d_ff, "vocab": cfg.vocab, "dtype": cfg.dtype, "remat": cfg.remat,
+        "batch": t["batch"], "seq": t["seq"], "tokens": tokens,
+        "params": n_params, "dense_params": dense.param_count(),
+        "shape_groups": {f"{p}x{q}": sum(s for _, s in m) for (p, q), m in groups.items()},
+        "expected_model_launches": {k: v for k, v in want_model.items() if v},
+        "expected_opt_launches": {k: v for k, v in want_opt.items() if v},
+        "shampoo": sh_rows, "adamw": ad_rows,
+        "plain_step_ms": plain_ms, "plain_steps": [r["opt_step"] for r in plain],
+        "refresh_excess_ms": {r["opt_step"]: r["ms"] - plain_ms for r in refresh},
+        "tokens_per_s": tokens / (plain_ms / 1e3),
+        "adamw_step_ms": statistics.median(r["ms"] for r in ad_rows[1:]),
+        "profiled_step_device_ms": device_ms,
+        "device_ms_by_kind": device_kinds(by_name),
+        "top_device_ms": {k[:80]: v for k, v in sorted(by_name.items(),
+                                                        key=lambda kv: -kv[1])[:12]},
+        "profiled_step_ms": sh_rows[profile_step]["ms"],
+        "idle_share": 1 - device_ms / sh_rows[profile_step]["ms"],
+        "peak_mem_gib": peak, "opt_state_gib": opt_bytes / 2 ** 30,
+        "precondition_batched_bitwise_looped": bitwise,
+        "precondition_against_twins": precond, "precondition_tol": TRAIN_PRECOND_TOL,
+    }
+    print("train " + json.dumps(row), flush=True)
+    for r in sh_rows + ad_rows:
+        if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])):
+            raise AssertionError(f"train: non-finite loss or grad norm {r}")
+    if not sh_rows[-1]["loss"] < sh_rows[0]["loss"]:
+        raise AssertionError(f"train: Shampoo loss did not fall: "
+                             f"{[r['loss'] for r in sh_rows]}")
+    if not bitwise:
+        raise AssertionError("train: batched precondition differs from looped")
+    for shape, r in precond.items():
+        if not r["rel_err"] <= TRAIN_PRECOND_TOL < r["planted_rel_err"]:
+            raise AssertionError(f"train: precondition {shape} against twins {r} "
+                                 f"(limit {TRAIN_PRECOND_TOL}; the planted fault must fail it)")
+    return row, launches
+
+
 # One injects faults into the kernels' path, one adds host checks, and one
 # would point the measured planner at a cache the smoke does not own.
 REFUSED_ENV = ("FASTKRON_CHAOS", "FASTKRON_NUMERICS", "FASTKRON_PLAN_CACHE")
@@ -1931,7 +2264,9 @@ def main() -> int:
     _, ffn_launches = run_ffn_block(gen)
     _, gp_launches = run_gp_epoch(gen)
     assert_clean("consumers")
-    consumers = (measure_launches, profile_launches, ffn_launches, gp_launches)
+    _, train_launches = run_train(gen, smi)
+    assert_clean("train")
+    consumers = (measure_launches, profile_launches, ffn_launches, gp_launches, train_launches)
 
     def kernel_row(name):
         source, replaces, case = KERNELS[name]

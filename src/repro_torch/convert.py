@@ -12,6 +12,10 @@ the packages always goes through these converters.
   * ``kron_linear_params_from_numpy`` / ``ffn_params_from_numpy``: the
     parameter dicts;
   * ``load_kron_linear_``: fill a ``KronLinear`` module's parameters;
+  * ``model_params_from_numpy``: a whole model's parameter tree
+    (``repro.models.model.init_params``' stacked layout, bf16 included);
+  * ``opt_state_from_numpy``: an AdamW or Shampoo state (``m``/``v``/
+    ``step``, the ``kron`` subtree, ``err``);
   * ``plan_from_jax_json``: a ``repro.core.autotune.plan_to_json`` dict as
     the port's ``KronPlan``.
 """
@@ -50,8 +54,12 @@ def factors_from_numpy(
 
 
 def _as_tensor(a) -> torch.Tensor:
-    # A copy: numpy views of JAX arrays are read-only.
-    return a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.array(a)  # a copy: numpy views of JAX arrays are read-only
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: carried as raw words
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def _tensor(a, dev: torch.device, dtype: torch.dtype | None) -> torch.Tensor:
@@ -91,6 +99,30 @@ def ffn_params_from_numpy(
     }
 
 
+def _tree_from_numpy(tree, dev: torch.device):
+    if isinstance(tree, dict):
+        return {k: _tree_from_numpy(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_from_numpy(v, dev) for v in tree)
+    return _tensor(tree, dev, None)
+
+
+def model_params_from_numpy(params: dict, *, device: str | torch.device = "cuda") -> dict:
+    """A model's parameter tree (``repro.models.model.init_params``'
+    layout, numpy leaves, bf16 as ``ml_dtypes`` arrays) as tensors on
+    ``device``, each leaf in its own dtype."""
+    return _tree_from_numpy(params, _device(device))
+
+
+def opt_state_from_numpy(state: dict, *, device: str | torch.device = "cuda") -> dict:
+    """An optimizer state (``repro.optim.opt_init`` / ``shampoo_init``
+    layout, numpy leaves) as tensors: the step counter on the host, as the
+    port keeps it, every other leaf on ``device``."""
+    out = _tree_from_numpy(state, _device(device))
+    out["step"] = _as_tensor(state["step"]).to(dtype=torch.int32)
+    return out
+
+
 def load_kron_linear_(module, params: dict):
     """Copy a KronLinear parameter dict (numpy or tensor leaves) into a
     ``core.layers.KronLinear`` module's parameters, in place, on the
@@ -122,5 +154,7 @@ __all__ = [
     "kron_linear_params_from_numpy",
     "ffn_params_from_numpy",
     "load_kron_linear_",
+    "model_params_from_numpy",
+    "opt_state_from_numpy",
     "plan_from_jax_json",
 ]

@@ -87,7 +87,7 @@ class KronLinearSpec:
 
 
 def kron_linear_init(
-    generator: torch.Generator,
+    generator: torch.Generator | None,
     spec: KronLinearSpec,
     dtype: torch.dtype = torch.float32,
     device: str | torch.device = "cuda",

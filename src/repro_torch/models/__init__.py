@@ -1,6 +1,7 @@
-"""Model zoo of the port: the configuration classes, and the layers the
-port has so far (``models.ffn``: the gated FFN with its Kron-compressed
-variant; ``models.common``: norms, RoPE, initializers, activations).
-The layer stacks of the reference's ``models.model`` come with a later
-slice."""
+"""Model zoo of the port: the configuration classes and the training half
+of the reference's models: ``models.model`` (the stacked parameter tree,
+``init_params``, ``forward`` with nested remat), ``models.attention``
+(GQA with qk-norm and RoPE), ``models.ffn`` (the gated FFN and its
+Kron-compressed variant), ``models.common``.  MoE, Mamba and the serving
+entry points come with the serving slice."""
 from .config import LayerSpec, MambaConfig, ModelConfig, MoEConfig  # noqa: F401

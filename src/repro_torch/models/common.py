@@ -1,7 +1,8 @@
 """Shared model components: norms, RoPE, initializers, activations.
 
 The port of ``repro.models.common``.  Initializers draw from a
-``torch.Generator`` on the caller's device."""
+``torch.Generator`` on the caller's device (None: the default generator,
+as on the ``meta`` device, where only the shapes are made)."""
 from __future__ import annotations
 
 import torch
@@ -18,7 +19,7 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
 
 
 def dense_init(
-    generator: torch.Generator, d_in: int, d_out: int, dtype: torch.dtype,
+    generator: torch.Generator | None, d_in: int, d_out: int, dtype: torch.dtype,
     device: str | torch.device = "cuda",
 ) -> torch.Tensor:
     """Truncated-normal fan-in init (LeCun), cut at two standard deviations."""
@@ -28,7 +29,7 @@ def dense_init(
 
 
 def embed_init(
-    generator: torch.Generator, vocab: int, d: int, dtype: torch.dtype,
+    generator: torch.Generator | None, vocab: int, d: int, dtype: torch.dtype,
     device: str | torch.device = "cuda",
 ) -> torch.Tensor:
     w = torch.randn(vocab, d, generator=generator, device=device, dtype=torch.float32)

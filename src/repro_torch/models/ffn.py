@@ -17,7 +17,7 @@ from .config import ModelConfig
 
 
 def ffn_init(
-    generator: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
+    generator: torch.Generator | None, cfg: ModelConfig, dtype: torch.dtype,
     d_ff: int | None = None, *, device: str | torch.device = "cuda",
 ) -> dict:
     d, f = cfg.d_model, d_ff or cfg.d_ff

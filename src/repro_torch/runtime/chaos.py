@@ -16,11 +16,14 @@ site               where ``maybe_fail`` is called in the port
 ``per_factor``       ``core/engine.py`` per-factor rung of the ladder
 ``plan_cache_load``  ``core/autotune.py`` ``load_plan_cache``
 ``plan_cache_save``  ``core/autotune.py`` ``save_plan_cache``, each attempt
+``root_refresh``     ``optim/shampoo.py`` inverse-root refresh, once per
+                     eligible leaf on every refresh step (the reference's
+                     fires once, when its jitted step is traced)
 =================  ========================================================
 
 The other sites of the table (``round_chain``, ``collective``,
-``slab_collective``, ``serve_admit``, ``root_refresh``) parse and fire as
-in the reference; the port calls them from the modules later slices bring.
+``slab_collective``, ``serve_admit``) parse and fire as in the reference;
+the port calls them from the modules later slices bring.
 
 Activation is layered: ``inject(spec)`` pushes a parsed spec onto a stack
 for a ``with`` block; the ``FASTKRON_CHAOS`` env var forms a base layer

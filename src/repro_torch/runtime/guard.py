@@ -169,8 +169,10 @@ def health_entries():
 
 
 def record_event(name: str, exc: BaseException | None = None) -> None:
-    """Count a degradation event outside any ladder (a stage backward that
-    took the per-factor fallback, a non-finite value, ...).  Active
+    """Count a degradation event outside any ladder (``bwd_per_factor``: a
+    stage backward that took the per-factor fallback;
+    ``root_refresh_degraded``: a Shampoo layer whose inverse-root refresh
+    failed; ``plan_cache_rebuild``; a non-finite value, ...).  Active
     telemetry receives the same event on its sink."""
     _EVENTS[name] = _EVENTS.get(name, 0) + 1
     if exc is not None:
