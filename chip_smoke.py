@@ -101,9 +101,46 @@ went through the kernels.  Phases, one line each:
       ``looped=True`` and, per shape group, against its twins at 1e-5 (f32),
       a limit that a planted fault (the left roots dropped) must fail; an
       empty guard report after it.
-  11. a ``{"kernels": [...]}`` JSON line (launches of phases 3 and 6-10),
+  11. serve: (a) qwen3-4b at full width and depth with the Kron FFN (bf16,
+      4 SyntheticLM prompts of 1024 tokens, a cache of 1088, 64 greedy
+      decode steps through ``model.prefill``/``decode_step``): launches per
+      prefill and per decode step asserted against the plans (chain_fwd
+      216 each); every chain_fwd launch of one prefill and one decode step
+      against its twin on the same inputs (1e-2); the prefill's last rows
+      and 4 teacher-forced decode steps against ``backend="torch"``, and
+      decode steps 15 and 63 against the last row of a prefill of the
+      tokens so far (1e-1 of max|ref|: bf16 rounding through 36 random-init
+      layers reads 2-3e-2); the same decode check in an f32 copy of the
+      model (1e-3); a planted fault that moves each new K/V one slot late
+      fails both; the int8 cache (``kv_quant``, f32 copy) against the exact
+      one within the reference's envelope (rtol 0.1, atol 0.15), with the
+      same argmax on every row, at under 0.55 of the bf16 cache's bytes; prefill ms, decode-step ms, one
+      profiled step's device ms, ops and idle share, KV and peak GiB.  (b)
+      ``ServeEngine`` (buckets 128/512/1024, 8 slots, groups of 4) on a
+      32-request Poisson trace: every request finishes, no plan-memo miss
+      after ``prewarm`` and ``compile_shapes``, launches as the plans of the
+      calls made predict, each request's prefill row and first token
+      against a batch-of-one engine (1e-1); every chain_fwd launch of
+      ``compile_shapes`` (each prefill bucket and the 8-slot decode)
+      against its twin (1e-2); in an f32 copy, the engine's per-slot
+      decode of three requests admitted over stale slots against
+      batch-of-one scalar-position decodes (1e-3), which a planted late
+      K/V in the per-slot scatter fails; tokens/s, TTFT and TPOT p50/p99,
+      decode-step ms, peak GiB.  (c) deepseek-moe-16b, all 28 layers (the
+      dense prelude's FFN and the shared experts as Kron FFNs: chain_fwd
+      168 per call), 4 x 512 prefill and 16 decode steps: the prefill and
+      every decode step against ``backend="torch"`` (1e-1), every chain_fwd
+      launch of a prefill and a decode step against its twin (1e-2), decode
+      steps 3 and 15 against prefill at capacity E/k (bf16 1e-1; f32 copy
+      of the first 4 layers 1e-3); the second run of each pair replays
+      the first's router top-6 picks, and the rows whose own picks flipped
+      are counted and printed.  (d)
+      mamba2-130m, 24 layers, 4 x 1024 prefill and 64 decode steps against
+      prefill (bf16 1e-1, f32 copy 1e-3); no Kron kernel on its path (d_ff
+      = 0).  An empty guard report after it.
+  12. a ``{"kernels": [...]}`` JSON line (launches of phases 3 and 6-11),
       then the card's name and power limit.
-  12. last line: ``{"ok": true, "device": {...}}``.
+  13. last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero.  Needs one CUDA card; imports nothing of JAX.
 """
@@ -2196,6 +2233,761 @@ def run_train(gen, smi: str) -> tuple[dict, dict]:
     return row, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: serving
+# ---------------------------------------------------------------------------
+
+# (a) qwen3-4b one-shot with the Kron FFN at full width and depth: 4
+# SyntheticLM prompts of 1024 tokens, a cache of 1088, 64 greedy decode
+# steps.  Decode steps 0-3 are held against the twins (backend="torch",
+# teacher-forced from a copy of the prefill's cache); steps 15 and 63
+# against the last row of a prefill of the tokens so far; the planted fault
+# is read at step 15, in bf16 and in an f32 copy of the model, where the
+# int8 cache is held against the exact one as the reference's test holds
+# it (in f32).
+SERVE_ONE_SHOT = {"arch": "qwen3-4b", "batch": 4, "prompt": 1024, "gen": 64, "seed": 0,
+                  "twin_steps": 4, "check_steps": (15, 63), "fault_step": 15,
+                  "profile_step": 32}
+# (b) continuous batching on a Poisson trace (launch/serve.py's engine).
+SERVE_CONTINUOUS = {"buckets": (128, 512, 1024), "max_slots": 8, "max_prefill": 4,
+                    "max_wait": 8, "trace": {"seed": 0, "rate": 0.5, "n": 32,
+                                             "prompt_lens": (64, 1024), "max_new": (16, 64)}}
+# The per-slot decode check of (b), in an f32 copy: stale requests in every
+# slot, live ones of several lengths in two buckets admitted over them into
+# scattered slots, decode steps teacher-forced on random tokens.
+SLOT_CHECK = {"seed": 3, "stale": (1000,) * 4, "live": ((512, (300, 450)), (128, (100,))),
+              "slots": (5, 2, 7), "steps": 3}
+# (c) deepseek-moe-16b (dense prelude FFN and shared experts as Kron FFNs)
+# and (d) mamba2-130m (no FFN: no Kron kernel), at full width and depth.
+SERVE_MOE = {"arch": "deepseek-moe-16b", "batch": 4, "prompt": 512, "gen": 16, "seed": 1,
+             "check_steps": (3, 15), "f32_layers": 4}
+SERVE_SSM = {"arch": "mamba2-130m", "batch": 4, "prompt": 1024, "gen": 64, "seed": 2,
+             "check_steps": (15, 63), "f32_layers": None}
+# Logits relative to max|ref|.  bf16 (the main path): kernels against
+# twins and decode against prefill.  bf16 rounding flips that differ
+# between two orders of summation (the twins', a prefill's GEMM shapes)
+# grow through 36 random-init layers to 2-3e-2 of max|ref| on an H100,
+# while the planted late K/V reads 0.30-0.46: the limit lies between.  f32
+# (the same model cast): decode against prefill, where rounding stays near
+# 1e-6, so the limit sees the cache logic alone.  The int8 cache against
+# the exact one in f32 within the reference's envelope
+# (tests/test_kv_quant.py: rtol 0.1, atol 0.15, f32), at under 0.55 of the
+# bf16 cache's bytes.
+SERVE_TOL, SERVE_F32_TOL = 1e-1, 1e-3
+QUANT_RTOL, QUANT_ATOL, QUANT_BYTES = 0.1, 0.15, 0.55
+
+
+def serve_cfg(arch: str, **kw):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if cfg.d_ff or (cfg.moe is not None and cfg.moe.n_shared):
+        kw = {"kron_ffn": True, "kron_factors": 2, **kw}
+    return dataclasses.replace(cfg, **kw)
+
+
+def serve_expected(cfg, b: int, s: int) -> dict:
+    """The launches of one prefill of (b, s) tokens, or one decode step of
+    b slots (s = 1), as the plans of their rows predict them: per Kron FFN
+    (the dense layers' FFN, the MoE layers' shared experts) its three
+    KronLinears' stages, one ``chain_fwd`` each."""
+    from repro_torch.core.engine import kron_op_for
+    from repro_torch.core.layers import KronLinearSpec
+
+    if not cfg.kron_ffn:
+        return expect()
+    plan = cfg.layer_plan()
+    blocks = []
+    if cfg.d_ff:
+        blocks += [cfg.d_ff] * sum(not spec.moe for spec in plan)
+    if cfg.moe is not None and cfg.moe.n_shared:
+        blocks += [cfg.moe.n_shared * cfg.moe.d_expert] * sum(spec.moe for spec in plan)
+    total = 0
+    for f in blocks:
+        up = KronLinearSpec.balanced(cfg.d_model, f, cfg.kron_factors)
+        down = KronLinearSpec.balanced(f, cfg.d_model, cfg.kron_factors)
+        for spec in (up, up, down):
+            op = kron_op_for(spec.ps, spec.qs, batch=b, shared_factors=True,
+                             backend="auto", plan="auto")
+            op._single_plan(b * s, getattr(torch, cfg.dtype).itemsize)
+            total += n_stages(op, False)
+    return expect(chain_fwd=total)
+
+
+def tree_bytes(t) -> int:
+    from repro_torch import tree
+
+    return sum(l.numel() * l.element_size() for l in tree.leaves(t))
+
+
+def last_rows(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """The last position's logits over the real vocabulary (the padded
+    rows hold -1e9, which would set max|ref|), copied: a view would keep
+    the whole logits tensor alive."""
+    return logits[:, -1, :vocab].float().clone()
+
+
+def serve_prompts(cfg, spec) -> torch.Tensor:
+    from repro_torch.data import SyntheticLM
+
+    return SyntheticLM(vocab=cfg.vocab, seq_len=spec["prompt"], batch=spec["batch"],
+                       seed=spec["seed"], device="cuda").global_batch(0)[0]
+
+
+def greedy(logits, vocab: int) -> torch.Tensor:
+    return logits[:, -1, :vocab].argmax(dim=-1).to(torch.int32)[:, None]
+
+
+def event_ms(fn):
+    """``fn()`` between two CUDA events: (its result, ms)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+@contextlib.contextmanager
+def held_launches():
+    """Inside the block every ``chain_fwd`` launch is also computed by its
+    plain twin (``chain_reference``) on the same inputs; yields the list of
+    (rows, relative error) it fills, one entry per launch."""
+    from repro_torch.kernels import emit
+
+    cuda, errs = emit.chain_cuda, []
+
+    def held(x, *fs, **kw):
+        y = cuda(x, *fs, **kw)
+        errs.append((x.shape[-2], compare(y, emit.chain_reference(
+            x, *fs, acc_dtype=kw.get("acc_dtype")))[1]))
+        return y
+
+    emit.chain_cuda = held
+    try:
+        yield errs
+    finally:
+        emit.chain_cuda = cuda
+
+
+def held_stages(cfg, params, prompts, max_len: int) -> dict:
+    """One prefill and one greedy decode step from its cache with every
+    ``chain_fwd`` launch held against its twin on the same inputs:
+    launches, rows per launch and the worst relative error of each call."""
+    from repro_torch.models import model as M
+
+    out = {}
+    with held_launches() as errs:
+        logits, cache = M.prefill(cfg, params, prompts, max_len)
+        out["prefill"] = (len(errs), sorted({r for r, _ in errs}), max(e for _, e in errs))
+        errs.clear()
+        M.decode_step(cfg, params, cache, greedy(logits, cfg.vocab), prompts.shape[1])
+        out["decode_step"] = (len(errs), sorted({r for r, _ in errs}), max(e for _, e in errs))
+    del logits, cache
+    torch.cuda.empty_cache()
+    return {k: {"launches": n, "rows": rows, "rel_err": e} for k, (n, rows, e) in out.items()}
+
+
+def decode_run(cfg, params, cache, first, prompt_len: int, steps: int, want: dict,
+               profile_step=None):
+    """The main path's ``steps`` greedy decode steps from ``cache`` (in
+    place), fed ``first`` at the first.  Returns the tokens fed, each
+    step's CUDA-event ms, the launches summed over the steps (each step's
+    asserted against ``want``) and the profiled step's (device ms, event
+    ms, {kernel name: (device ms, count)})."""
+    from repro_torch.models import model as M
+
+    pos = torch.tensor(prompt_len, dtype=torch.int32, device="cuda")
+    tok, fed, ms, total, prof_row = first, [], [], {}, None
+    for j in range(steps):
+        fed.append(tok)
+        reset_counters()
+        profiled = j == profile_step
+        with (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+              if profiled else contextlib.nullcontext()) as prof:
+            (logits, cache), t = event_ms(lambda: M.decode_step(cfg, params, cache, tok, pos))
+        launches = read_counters()
+        if launches != want:
+            raise AssertionError(f"serve {cfg.name}: decode step {j} launches {launches}, "
+                                 f"expected {want}")
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        if profiled:
+            by_name = {e.key: (getattr(e, "device_time_total", 0) / 1e3, e.count)
+                       for e in prof.key_averages()}
+            prof_row = (sum(ms for ms, _ in by_name.values()), t, by_name)
+        else:
+            ms.append(t)
+        tok = greedy(logits, cfg.vocab)
+        pos += 1
+    return fed, ms, total, prof_row
+
+
+def late_kv(orig):
+    """A planted fault for the decode checks: each new token's K/V moved one
+    slot late after it is written, in each row's own slot under per-slot
+    positions (every later step reads a zero where the token should be,
+    and the token sits in a slot still marked empty)."""
+
+    def decode(cfg, p, x, cache, pos):
+        y, cache = orig(cfg, p, x, cache, pos)
+        l = cache.k.shape[1]
+        rows = torch.arange(x.shape[0], device=x.device)
+        s = (torch.as_tensor(pos, device=x.device).long() % l).expand(x.shape[0])
+        for buf in (cache.k, cache.v):
+            buf[rows, (s + 1) % l] = buf[rows, s]
+            buf[rows, s] = 0
+        return y, cache
+
+    return decode
+
+
+def planted_late_kv(cfg, params, prompts, fed, j: int, max_len: int) -> float:
+    """``routed_against_prefill`` at decode step ``j`` under ``late_kv``:
+    the reading a sound cache keeps under the limit."""
+    from repro_torch.models import attention
+
+    orig = attention.attn_decode
+    attention.attn_decode = late_kv(orig)
+    try:
+        return routed_against_prefill(cfg, params, prompts, fed, (j,), max_len)["max_rel_err"]
+    finally:
+        attention.attn_decode = orig
+
+
+def run_serve_one_shot(gen, smi: str, peaks) -> tuple[dict, dict, dict]:
+    """(a): returns the row, the main path's launches and the model
+    (cfg, params) for (b)."""
+    import dataclasses
+
+    from repro_torch import tree
+    from repro_torch.models import model as M
+
+    spec = SERVE_ONE_SHOT
+    cfg = serve_cfg(spec["arch"])
+    b, s, steps = spec["batch"], spec["prompt"], spec["gen"]
+    max_len = s + steps
+    params = M.init_params(cfg, gen, device="cuda")
+    n_params = sum(p.numel() for p in tree.leaves(params))
+    prompts = serve_prompts(cfg, spec)
+    want_prefill, want_decode = serve_expected(cfg, b, s), serve_expected(cfg, b, 1)
+
+    # The main path: one prefill and the greedy decode steps, launches per call.
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    (logits, cache), prefill_event_ms = event_ms(lambda: M.prefill(cfg, params, prompts, max_len))
+    prefill_launches = read_counters()
+    if prefill_launches != want_prefill:
+        raise AssertionError(f"serve one-shot: prefill launches {prefill_launches}, "
+                             f"expected {want_prefill}")
+    first = greedy(logits, cfg.vocab)
+    del logits
+    cache_bytes = tree_bytes(cache)
+    fed, step_ms, decode_launches, (prof_dev, prof_ms, by_name) = decode_run(
+        cfg, params, cache, first, s, steps, want_decode, profile_step=spec["profile_step"])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del cache
+    launches = {k: prefill_launches[k] + decode_launches[k] for k in prefill_launches}
+
+    # Teacher-forced on the main path's tokens: kernels against the twins,
+    # decode against prefill (bf16), the planted fault; then in f32 the
+    # same check, its planted fault and the int8 cache.
+    twin = against_twins(cfg, params, prompts, fed, spec["twin_steps"], max_len)
+    stages = held_stages(cfg, params, prompts, max_len)
+    against = routed_against_prefill(cfg, params, prompts, fed, spec["check_steps"], max_len)
+    j = spec["fault_step"]
+    planted = {"bfloat16": planted_late_kv(cfg, params, prompts, fed, j, max_len)}
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = tree.map(lambda l: l.float(), params)
+    against32 = routed_against_prefill(cfg32, params32, prompts, fed, (j,), max_len)
+    planted["float32"] = planted_late_kv(cfg32, params32, prompts, fed, j, max_len)
+    qcfg = dataclasses.replace(cfg32, kv_quant=True)
+    quant_bytes = tree_bytes(M.init_cache(qcfg, b, max_len, device="meta"))
+    exact = routed_run(cfg32, params32, prompts, fed, j + 1, max_len)[0][j + 1]
+    quant = routed_run(qcfg, params32, prompts, fed, j + 1, max_len)[0][j + 1]
+    del params32
+    excess = float(((quant - exact).abs() - QUANT_RTOL * exact.abs()).max())
+    quant_argmax = int((quant.argmax(-1) == exact.argmax(-1)).sum())
+    torch.cuda.empty_cache()
+
+    prefill_ms = time_ms(lambda: M.prefill(cfg, params, prompts, max_len))
+    torch.cuda.empty_cache()
+    weight_bytes = sum(l.numel() * l.element_size() for p, l in tree.leaves_with_path(params)
+                       if p != "embed")
+    decode_bytes = weight_bytes + cache_bytes
+    b_ms, b_by = bound(decode_bytes, 0, peaks, torch.bfloat16)
+    row = {
+        "case": "serve-one-shot", "device": smi, "arch": cfg.name, "n_layers": cfg.n_layers,
+        "kron_ffn": cfg.kron_ffn, "dtype": cfg.dtype, "params": n_params, "batch": b,
+        "prompt": s, "max_len": max_len, "decode_steps": steps,
+        "launches_per_prefill": {k: v for k, v in prefill_launches.items() if v},
+        "launches_per_decode_step": {k: v for k, v in want_decode.items() if v},
+        "prefill_event_ms": prefill_event_ms, "prefill_ms": prefill_ms,
+        "prefill_tokens_per_s": b * s / (prefill_ms / 1e3),
+        "decode_step_ms": statistics.median(step_ms),
+        "decode_step_ms_min_max": [min(step_ms), max(step_ms)],
+        "decode_tokens_per_s": b / (statistics.median(step_ms) / 1e3),
+        "profiled_step_device_ms": prof_dev, "profiled_step_ms": prof_ms,
+        "idle_share": 1 - prof_dev / prof_ms,
+        "profiled_step_device_ops": sum(n for _, n in by_name.values()),
+        "device_ms_by_kind": device_kinds({k: ms for k, (ms, _) in by_name.items()}),
+        "top_device_ms": {k[:80]: v for k, v in sorted(by_name.items(),
+                                                        key=lambda kv: -kv[1][0])[:8]},
+        "decode_bound_ms": b_ms, "decode_bound_by": b_by, "decode_bytes": decode_bytes,
+        "weight_bytes_outside_embedding": weight_bytes,
+        "kv_cache_gib": cache_bytes / 2 ** 30, "peak_mem_gib": peak,
+        "twins": twin, "launches_against_twins": stages,
+        "launch_tol": TOLERANCE[torch.bfloat16], "decode_vs_prefill": against,
+        "f32_decode_vs_prefill": against32, "planted_late_kv_rel_err": planted,
+        "tol": SERVE_TOL, "f32_tol": SERVE_F32_TOL,
+        "kv_quant_f32": {"cache_bytes_ratio": quant_bytes / cache_bytes,
+                         "max_excess_over_rtol": excess, "rtol": QUANT_RTOL, "atol": QUANT_ATOL,
+                         "argmax_agree": f"{quant_argmax}/{b}"},
+    }
+    print("serve " + json.dumps(row), flush=True)
+    worst = max(twin["max_rel_err"], against["max_rel_err"])
+    if max(v["rel_err"] for v in stages.values()) > TOLERANCE[torch.bfloat16]:
+        raise AssertionError(f"serve one-shot: chain_fwd against its twin {stages}")
+    if worst > SERVE_TOL or against32["max_rel_err"] > SERVE_F32_TOL:
+        raise AssertionError(f"serve one-shot: rel err {worst:.3e} > {SERVE_TOL} or f32 "
+                             f"{against32} > {SERVE_F32_TOL}")
+    if not (planted["bfloat16"] > SERVE_TOL and planted["float32"] > SERVE_F32_TOL):
+        raise AssertionError(f"serve one-shot: the decode check passes a planted fault {planted}")
+    if excess > QUANT_ATOL or quant_argmax != b or quant_bytes / cache_bytes >= QUANT_BYTES:
+        raise AssertionError(f"serve one-shot: int8 cache {row['kv_quant_f32']}")
+    return row, launches, (cfg, params)
+
+
+def slot_decode(cfg, params, scfg, max_new: int, fault: bool = False) -> dict:
+    """The engine's per-slot decode against batch-of-one runs, in an f32
+    copy of the model (``SLOT_CHECK``): stale requests fill every slot,
+    then the live ones are prefilled in their buckets (padded) and
+    admitted over them, and a few decode steps are teacher-forced through
+    ``ServeEngine._decode`` with the per-slot positions of the live slots
+    (the others decode at position 0, as idle slots do).  Each live slot's
+    prefill row and decode logits are held against a batch-of-one prefill
+    of its prompt alone and scalar-position ``decode_step`` calls.
+    ``fault``: the engine's decode runs under ``late_kv``.  Returns the
+    worst relative error of the prefill rows and of each step."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import tree
+    from repro_torch.launch.serve import ServeEngine
+    from repro_torch.models import attention
+    from repro_torch.models import model as M
+
+    spec = SLOT_CHECK
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = tree.map(lambda l: l.float(), params)
+    eng = ServeEngine(cfg32, params32, scfg, max_new=max_new)
+    rng = np.random.RandomState(spec["seed"])
+    stale = [rng.randint(0, cfg.vocab, n).astype(np.int32) for n in spec["stale"]]
+    live = [(bucket, [rng.randint(0, cfg.vocab, n).astype(np.int32) for n in lens])
+            for bucket, lens in spec["live"]]
+    slots, steps = spec["slots"], spec["steps"]
+    feed = rng.randint(0, cfg.vocab, (steps, len(slots))).astype(np.int32)
+
+    cache = eng._new_cache()
+    outs = eng._prefill_group(max(scfg.buckets), stale)
+    for si in range(scfg.max_slots):
+        cache = eng._move(cache, *outs[si % len(outs)][1], si)
+    prompts, rows = [], []
+    for bucket, group in live:
+        for p, (lg, (src, i)) in zip(group, eng._prefill_group(bucket, group)):
+            cache = eng._move(cache, src, i, slots[len(prompts)])
+            prompts.append(p)
+            rows.append(lg[: cfg.vocab].float())
+    tok = np.zeros((scfg.max_slots, 1), np.int32)
+    pos = np.zeros(scfg.max_slots, np.int32)
+    pos[list(slots)] = [len(p) for p in prompts]
+    orig = attention.attn_decode
+    if fault:
+        attention.attn_decode = late_kv(orig)
+    try:
+        got = []
+        for j in range(steps):
+            tok[list(slots), 0] = feed[j]
+            logits, cache = eng._decode(params32, cache, torch.as_tensor(tok, device="cuda"),
+                                        torch.as_tensor(pos, device="cuda"))
+            got.append(last_rows(logits, cfg.vocab)[list(slots)])
+            pos[list(slots)] += 1
+    finally:
+        attention.attn_decode = orig
+    del cache, outs
+    errs = {"prefill": 0.0, "steps": [0.0] * steps}
+    for n, p in enumerate(prompts):
+        logits, c = M.prefill(cfg32, params32, torch.as_tensor(p[None], device="cuda"),
+                              eng.max_len)
+        errs["prefill"] = max(errs["prefill"], compare(torch.as_tensor(rows[n], device="cuda"),
+                                                       last_rows(logits, cfg.vocab)[0])[1])
+        for j in range(steps):
+            logits, c = M.decode_step(cfg32, params32, c,
+                                      torch.tensor([[feed[j, n]]], device="cuda"), len(p) + j)
+            errs["steps"][j] = max(errs["steps"][j],
+                                   compare(got[j][n], last_rows(logits, cfg.vocab)[0])[1])
+        del logits, c
+    del params32, eng
+    torch.cuda.empty_cache()
+    return errs
+
+
+def run_serve_continuous(cfg, params, smi: str) -> tuple[dict, dict]:
+    """(b): ``ServeEngine`` on a Poisson trace: every request finishes, no
+    plan-memo miss after ``prewarm`` and ``compile_shapes``, launches as
+    the plans of the calls made predict; each request's prefill row and
+    first token against a batch-of-one engine (one slot, groups of one);
+    every launch of ``compile_shapes`` against its twin; the per-slot
+    decode in f32 (``slot_decode``), sound and under a planted fault."""
+    import dataclasses
+
+    from repro_torch.core import engine as E
+    from repro_torch.launch.scheduler import SchedulerConfig, poisson_trace
+    from repro_torch.launch.serve import ServeEngine, _pcts
+
+    spec = SERVE_CONTINUOUS
+    reqs = poisson_trace(**spec["trace"])
+    max_new = spec["trace"]["max_new"][1]
+
+    def engine(slots, group):
+        """An engine that records each request's prefill row, each call's
+        shape and each decode step's host time (to the synchronize after
+        it)."""
+        eng = ServeEngine(cfg, params, SchedulerConfig(
+            buckets=spec["buckets"], max_slots=slots, max_prefill=group,
+            max_wait=spec["max_wait"]), max_new=max_new)
+        eng.rows, eng.calls, eng.decode_ms = {}, [], []
+        sample, pf, decode = eng._sample, eng._pf, eng._decode
+
+        def record_sample(lg, rid, index):
+            if index == 0:
+                eng.rows[rid] = lg[: cfg.vocab].float()
+            return sample(lg, rid, index)
+
+        def record_pf(p, tokens):
+            eng.calls.append(tuple(tokens.shape))
+            return pf(p, tokens)
+
+        def timed_decode(*args):
+            t0 = time.perf_counter()
+            out = decode(*args)
+            torch.cuda.synchronize()
+            eng.decode_ms.append((time.perf_counter() - t0) * 1e3)
+            eng.calls.append((slots, 1))
+            return out
+
+        eng._sample, eng._pf, eng._decode = record_sample, record_pf, timed_decode
+        return eng
+
+    eng = engine(spec["max_slots"], spec["max_prefill"])
+    n_ops = len(eng.prewarm())
+    # Every serving shape's chain_fwd launches held against their twins.
+    with held_launches() as errs:
+        n_shapes = eng.compile_shapes()
+    warm_want = sum(serve_expected(cfg, *shape)["chain_fwd"] for shape in eng.calls)
+    held = {}
+    for rows, e in errs:
+        n, worst = held.get(rows, (0, 0.0))
+        held[rows] = (n + 1, max(worst, e))
+    misses = (E._resolve_plan.cache_info().misses, E._resolve_batched_plan.cache_info().misses)
+    eng.rows, eng.calls, eng.decode_ms = {}, [], []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    rep = eng.run(reqs)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    after = (E._resolve_plan.cache_info().misses, E._resolve_batched_plan.cache_info().misses)
+    want = {}
+    for shape in eng.calls:
+        for name, n in serve_expected(cfg, *shape).items():
+            want[name] = want.get(name, 0) + n
+
+    # Batch-of-one: the same engine's prefill of each request alone (one
+    # slot, groups of one; max_new 1 ends each request at its admission).
+    solo = engine(1, 1)
+    solo_rep = solo.run([dataclasses.replace(r, max_new=1) for r in reqs])
+    row_err = {rid: compare(eng.rows[rid], solo.rows[rid])[1] for rid in solo.rows}
+    slot = {"sound": slot_decode(cfg, params, eng.scfg, max_new),
+            "planted_late_kv": slot_decode(cfg, params, eng.scfg, max_new, fault=True)}
+    agree = sum(rep.tokens[rid][0] == solo_rep.tokens[rid][0] for rid in rep.tokens)
+    done = [m for m in rep.metrics.values() if m.get("reason") in ("eos", "max_new")]
+    row = {
+        "case": "serve-continuous", "device": smi, "arch": cfg.name,
+        "scheduler": {k: spec[k] for k in ("buckets", "max_slots", "max_prefill", "max_wait")},
+        "trace": spec["trace"], "max_len": eng.max_len, "prewarmed_ops": n_ops,
+        "warmed_shapes": n_shapes, "plan_misses_while_serving": [a - m for a, m in
+                                                                 zip(after, misses)],
+        "finished": len(done), "requests": len(reqs), "steps": rep.steps,
+        "prefill_calls": sum(1 for c in eng.calls if c[1] != 1),
+        "decode_steps": len(eng.decode_ms),
+        "launches": {k: v for k, v in launches.items() if v},
+        "expected_launches": {k: v for k, v in want.items() if v},
+        "total_tokens": rep.total_tokens, "duration_s": rep.duration_s,
+        "tokens_per_s": rep.tokens_per_s, "ttft_s": _pcts(rep.ttft_s), "tpot_s": _pcts(rep.tpot_s),
+        "decode_step_ms": statistics.median(eng.decode_ms),
+        "decode_step_ms_p99": _pcts(eng.decode_ms)["p99"], "peak_mem_gib": peak,
+        "prefill_row_vs_batch_of_one_rel_err": max(row_err.values()), "tol": SERVE_TOL,
+        "first_tokens_equal_batch_of_one": f"{agree}/{len(reqs)}",
+        "warm_up_launches_against_twins": {r: {"launches": n, "rel_err": e}
+                                           for r, (n, e) in sorted(held.items())},
+        "launch_tol": TOLERANCE[torch.bfloat16],
+        "f32_slot_decode_vs_batch_of_one": slot, "f32_tol": SERVE_F32_TOL,
+    }
+    print("serve " + json.dumps(row), flush=True)
+    if len(done) != len(reqs):
+        raise AssertionError(f"serve continuous: {len(done)} of {len(reqs)} requests finished")
+    if after != misses:
+        raise AssertionError(f"serve continuous: re-planned while serving: {misses} -> {after}")
+    if launches != want:
+        raise AssertionError(f"serve continuous: launches {launches}, expected {want}")
+    if max(row_err.values()) > SERVE_TOL:
+        raise AssertionError(f"serve continuous: prefill rows against batch-of-one {row_err}")
+    if len(errs) != warm_want or max(e for _, e in held.values()) > TOLERANCE[torch.bfloat16]:
+        raise AssertionError(f"serve continuous: warm-up launches against their twins {held}, "
+                             f"{len(errs)} of {warm_want} held")
+    if max(slot["sound"]["prefill"], *slot["sound"]["steps"]) > SERVE_F32_TOL:
+        raise AssertionError(f"serve continuous: per-slot decode {slot['sound']}")
+    if not slot["planted_late_kv"]["steps"][-1] > SERVE_F32_TOL:
+        raise AssertionError(f"serve continuous: per-slot check passes a planted fault {slot}")
+    return row, launches
+
+
+@contextlib.contextmanager
+def recorded_routes(replay=None):
+    """Inside the block each MoE layer's routing records the top-k experts
+    its router picks for each token (sorted), one ``(B, S, k)`` tensor per
+    layer call in the order the layers run; yields the list it fills.
+    ``replay``: such tensors, one per layer call, whose experts each call
+    takes in place of its router's pick (the router's logits masked to
+    them, so their weights are the ones the router gives them)."""
+    from repro_torch.models import moe
+
+    route, calls = moe._route, []
+
+    def recorded(router_logits, mc, capacity):
+        top = torch.topk(torch.softmax(router_logits, dim=-1), mc.top_k, dim=-1).indices
+        calls.append(top.sort(dim=-1).values)
+        if replay is not None:
+            forced = torch.zeros_like(router_logits, dtype=torch.bool).scatter_(
+                -1, replay[len(calls) - 1], True)
+            router_logits = router_logits.masked_fill(~forced, float("-inf"))
+        return route(router_logits, mc, capacity)
+
+    moe._route = recorded
+    try:
+        yield calls
+    finally:
+        moe._route = route
+
+
+def routed_run(cfg, params, prompts, fed, steps: int, max_len: int, backend="auto",
+               replay=None):
+    """A prefill of ``prompts``, then ``steps`` decode steps teacher-forced
+    on ``fed``: per call (the prefill first) the last rows of its logits
+    and the routes its MoE layers' routers picked.  ``replay``: another
+    run's routes, per call, taken in place of this run's picks."""
+    from repro_torch.models import model as M
+
+    rows, routes = [], []
+    flat = None if replay is None else [t for call in replay for t in call]
+    with recorded_routes(flat) as calls:
+        logits, cache = M.prefill(cfg, params, prompts, max_len, backend=backend)
+        pos = torch.tensor(prompts.shape[1], dtype=torch.int32, device="cuda")
+        for j in range(steps + 1):
+            if j:
+                logits, cache = M.decode_step(cfg, params, cache, fed[j - 1], pos,
+                                              backend=backend)
+                pos += 1
+            rows.append(last_rows(logits, cfg.vocab))
+            routes.append(calls[sum(map(len, routes)):])
+    del logits, cache
+    torch.cuda.empty_cache()
+    return rows, routes
+
+
+def route_history(routes, i: int) -> list:
+    """Each MoE layer's routes at every position through call ``i`` of a
+    ``routed_run``: one ``(B, positions, k)`` tensor per layer."""
+    return [torch.cat([call[l] for call in routes[:i + 1]], dim=1)
+            for l in range(len(routes[0]))]
+
+
+def flipped_rows(a: list, b: list) -> int:
+    """The rows in which some token's router picked other experts in some
+    layer under ``b`` than under ``a`` (0 without MoE)."""
+    if not a:
+        return 0
+    differ = torch.stack([(x != y).flatten(1).any(dim=1) for x, y in zip(a, b)])
+    return int(differ.any(dim=0).sum())
+
+
+def held_rows(errs, flips) -> dict:
+    """Per-row readings of several calls: the worst, each call's worst and,
+    per call, the rows whose routers picked other experts than the run
+    they replay."""
+    e = torch.stack(errs)
+    return {"max_rel_err": float(e.max()), "by_step": [float(x) for x in e.amax(dim=1)],
+            "rows_with_route_flips": flips}
+
+
+def rel_rows(got: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """(B,): each row's max |got - ref| over its own max |ref|."""
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("non-finite logits")
+    ref = ref.double()
+    return (got.double() - ref).abs().amax(-1) / ref.abs().amax(-1)
+
+
+def against_twins(cfg, params, prompts, fed, steps: int, max_len: int) -> dict:
+    """A prefill's last rows and ``steps`` decode steps (teacher-forced on
+    ``fed``) against the twins (``backend="torch"``), which replay the
+    kernels' routes."""
+    got, got_routes = routed_run(cfg, params, prompts, fed, steps, max_len)
+    ref, ref_routes = routed_run(cfg, params, prompts, fed, steps, max_len, backend="torch",
+                                 replay=got_routes)
+    return held_rows([rel_rows(g, r) for g, r in zip(got, ref)],
+                     [flipped_rows(a, b) for a, b in zip(got_routes, ref_routes)])
+
+
+def routed_against_prefill(cfg, params, prompts, fed, steps, max_len: int) -> dict:
+    """Decode steps ``steps`` (teacher-forced on ``fed``) against the last
+    row of a prefill of the tokens so far that replays the decode run's
+    routes at every position."""
+    rows, routes = routed_run(cfg, params, prompts, fed, max(steps) + 1, max_len)
+    errs, flips = [], []
+    for j in steps:
+        history = route_history(routes, j + 1)
+        ref, ref_routes = routed_run(cfg, params, torch.cat([prompts] + fed[:j + 1], dim=1),
+                                     [], 0, max_len, replay=[history])
+        errs.append(rel_rows(rows[j + 1], ref[0]))
+        flips.append(flipped_rows(history, ref_routes[0]))
+    return held_rows(errs, flips)
+
+
+def run_serve_model(gen, smi: str, spec: dict) -> tuple[dict, dict]:
+    """(c) and (d): prefill and greedy decode at full width and depth,
+    launches per call asserted; then the checks, each teacher-forced on
+    the greedy run's tokens.  With a Kron FFN: the prefill's last rows and
+    every decode step against the twins (``backend="torch"``), and each
+    ``chain_fwd`` launch of a prefill and a decode step against its twin
+    on the same inputs.  Every model: decode steps ``spec["check_steps"]``
+    against the last row of a prefill of the tokens so far, in bf16 and in
+    an f32 copy of the first ``spec["f32_layers"]`` layers (all if None).
+    In an MoE model the second run of each pair replays the first's routes
+    (``recorded_routes``): a top-k pick that flips between two orders of
+    summation moves a row by a whole expert's share, so the readings hold
+    everything but the pick, and the rows whose picks flipped are counted.
+    Its decode is held against prefill at capacity E/k, where no token
+    drops: at the configured capacity a prefill of t + 1 tokens may drop
+    the last one, which a decode step never does."""
+    import dataclasses
+    import gc
+
+    from repro_torch import tree
+    from repro_torch.models import model as M
+
+    cfg = serve_cfg(spec["arch"])
+    b, s, steps = spec["batch"], spec["prompt"], spec["gen"]
+    max_len = s + steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    at_start = torch.cuda.memory_allocated() / 2 ** 30
+    params = M.init_params(cfg, gen, device="cuda")
+    n_params = sum(p.numel() for p in tree.leaves(params))
+    prompts = serve_prompts(cfg, spec)
+    want_prefill, want_decode = serve_expected(cfg, b, s), serve_expected(cfg, b, 1)
+    reset_counters()
+    (logits, cache), prefill_ms = event_ms(lambda: M.prefill(cfg, params, prompts, max_len))
+    prefill_launches = read_counters()
+    if prefill_launches != want_prefill:
+        raise AssertionError(f"serve {cfg.name}: prefill launches {prefill_launches}, "
+                             f"expected {want_prefill}")
+    first = greedy(logits, cfg.vocab)
+    del logits
+    fed, step_ms, decode_launches, _ = decode_run(cfg, params, cache, first, s, steps,
+                                                  want_decode)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    cache_bytes = tree_bytes(cache)
+    del cache
+    launches = {k: prefill_launches[k] + decode_launches[k] for k in prefill_launches}
+
+    checks, gates = {}, []
+    if cfg.kron_ffn:
+        checks["twins"] = against_twins(cfg, params, prompts, fed, steps, max_len)
+        checks["launches_against_twins"] = held_stages(cfg, params, prompts, max_len)
+        gates += [(checks["twins"]["max_rel_err"], SERVE_TOL),
+                  (max(v["rel_err"] for v in checks["launches_against_twins"].values()),
+                   TOLERANCE[torch.bfloat16])]
+    chk = cfg if cfg.moe is None else dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    checks["decode_vs_prefill"] = routed_against_prefill(chk, params, prompts, fed,
+                                                         spec["check_steps"], max_len)
+    gates.append((checks["decode_vs_prefill"]["max_rel_err"], SERVE_TOL))
+    n32 = spec["f32_layers"] or cfg.n_layers
+    cut = (n32 - cfg.prelude_len) // cfg.period
+    cfg32 = dataclasses.replace(chk, dtype="float32", n_layers=n32)
+    params32 = tree.map(lambda l: l.float(), {**params, "stack": tree.map(lambda l: l[:cut],
+                                                                          params["stack"])})
+    del params
+    checks["f32_decode_vs_prefill"] = routed_against_prefill(
+        cfg32, params32, prompts, fed, spec["check_steps"], max_len)
+    checks["f32_layers"] = n32
+    del params32
+    torch.cuda.empty_cache()
+    gates.append((checks["f32_decode_vs_prefill"]["max_rel_err"], SERVE_F32_TOL))
+    # In f32 the routers' own picks must agree too: the replay would hide a
+    # decode that picks the wrong experts.
+    gates.append((max(checks["f32_decode_vs_prefill"]["rows_with_route_flips"]), 0))
+    row = {
+        "case": f"serve-{cfg.name}", "device": smi, "arch": cfg.name, "n_layers": cfg.n_layers,
+        "kron_ffn": cfg.kron_ffn, "dtype": cfg.dtype, "params": n_params, "batch": b,
+        "prompt": s, "decode_steps": steps,
+        "launches_per_prefill": {k: v for k, v in prefill_launches.items() if v},
+        "launches_per_decode_step": {k: v for k, v in want_decode.items() if v},
+        "prefill_event_ms": prefill_ms, "decode_step_ms": statistics.median(step_ms),
+        "cache_gib": cache_bytes / 2 ** 30, "allocated_at_start_gib": at_start,
+        "peak_mem_gib": peak, "tol": SERVE_TOL,
+        "f32_tol": SERVE_F32_TOL, "launch_tol": TOLERANCE[torch.bfloat16], **checks,
+    }
+    if not cfg.kron_ffn:
+        row["note"] = "no Kron kernel on this path: d_ff = 0 and no MoE, so no Kron FFN"
+    print("serve " + json.dumps(row), flush=True)
+    for err, tol in gates:
+        if err > tol:
+            raise AssertionError(f"serve {cfg.name}: reading {err:.3e} > {tol}")
+    return row, launches
+
+
+def run_serve(gen, smi: str, peaks) -> tuple[list, dict]:
+    """Phase 11: (a)-(d); the launches of their main-path runs, summed.
+    Peak memory is read over what earlier phases left allocated, printed
+    first (collected garbage excluded)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"serve: {torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB allocated at the "
+          f"phase's start", flush=True)
+    one_shot, la, (cfg, params) = run_serve_one_shot(gen, smi, peaks)
+    continuous, lb = run_serve_continuous(cfg, params, smi)
+    del cfg, params
+    torch.cuda.empty_cache()
+    moe, lc = run_serve_model(gen, smi, SERVE_MOE)
+    ssm, ld = run_serve_model(gen, smi, SERVE_SSM)
+    if ld != expect():
+        raise AssertionError(f"serve mamba2-130m: launched {ld}")
+    launches = {k: la[k] + lb[k] + lc[k] + ld[k] for k in la}
+    return [one_shot, continuous, moe, ssm], launches
+
+
 # One injects faults into the kernels' path, one adds host checks, and one
 # would point the measured planner at a cache the smoke does not own.
 REFUSED_ENV = ("FASTKRON_CHAOS", "FASTKRON_NUMERICS", "FASTKRON_PLAN_CACHE")
@@ -2266,7 +3058,10 @@ def main() -> int:
     assert_clean("consumers")
     _, train_launches = run_train(gen, smi)
     assert_clean("train")
-    consumers = (measure_launches, profile_launches, ffn_launches, gp_launches, train_launches)
+    _, serve_launches = run_serve(gen, smi, peaks)
+    assert_clean("serve")
+    consumers = (measure_launches, profile_launches, ffn_launches, gp_launches, train_launches,
+                 serve_launches)
 
     def kernel_row(name):
         source, replaces, case = KERNELS[name]

@@ -13,7 +13,12 @@ the packages always goes through these converters.
     parameter dicts;
   * ``load_kron_linear_``: fill a ``KronLinear`` module's parameters;
   * ``model_params_from_numpy``: a whole model's parameter tree
-    (``repro.models.model.init_params``' stacked layout, bf16 included);
+    (``repro.models.model.init_params``' stacked layout, bf16 included;
+    MoE and Mamba leaves in their own dtypes, the router and the SSM's
+    decay parameters f32);
+  * ``cache_from_numpy``: a decode cache (``repro.models.model.init_cache``
+    / ``prefill``'s ``KVCache``, ``QuantKVCache`` and ``MambaCache``) as
+    the port's;
   * ``opt_state_from_numpy``: an AdamW or Shampoo state (``m``/``v``/
     ``step``, the ``kron`` subtree, ``err``);
   * ``plan_from_jax_json``: a ``repro.core.autotune.plan_to_json`` dict as
@@ -114,6 +119,32 @@ def model_params_from_numpy(params: dict, *, device: str | torch.device = "cuda"
     return _tree_from_numpy(params, _device(device))
 
 
+def cache_from_numpy(cache: dict, *, device: str | torch.device = "cuda") -> dict:
+    """A decode cache of the JAX package (numpy leaves, its NamedTuples
+    kept, e.g. ``jax.tree.map(np.asarray, cache)``) as the port's: each
+    ``KVCache``/``QuantKVCache``/``MambaCache`` as the port's NamedTuple of
+    the same fields, every leaf on ``device`` in its own dtype."""
+    from .models.attention import KVCache, QuantKVCache
+    from .models.ssm import MambaCache
+
+    dev = _device(device)
+    kinds = {cls._fields: cls for cls in (KVCache, QuantKVCache, MambaCache)}
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        fields = getattr(node, "_fields", None)
+        if fields is not None:
+            if fields not in kinds:
+                raise ValueError(f"not a cache of the JAX package: {type(node).__name__}{fields}")
+            return kinds[fields](*(_tensor(getattr(node, f), dev, None) for f in fields))
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return _tensor(node, dev, None)
+
+    return walk(cache)
+
+
 def opt_state_from_numpy(state: dict, *, device: str | torch.device = "cuda") -> dict:
     """An optimizer state (``repro.optim.opt_init`` / ``shampoo_init``
     layout, numpy leaves) as tensors: the step counter on the host, as the
@@ -155,6 +186,7 @@ __all__ = [
     "ffn_params_from_numpy",
     "load_kron_linear_",
     "model_params_from_numpy",
+    "cache_from_numpy",
     "opt_state_from_numpy",
     "plan_from_jax_json",
 ]

@@ -1,1 +1,2 @@
-"""Launchers: the training launcher (``python -m repro_torch.launch.train``)."""
+"""Launchers: training (``python -m repro_torch.launch.train``) and serving
+(``python -m repro_torch.launch.serve``, over the pure ``launch.scheduler``)."""

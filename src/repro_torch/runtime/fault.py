@@ -6,8 +6,8 @@ straggler (flagged ``patience`` times in a row) triggers the configured
 action: "log", "callback" (e.g. ask the cluster manager to reschedule) or
 "raise" (fail fast so the job restarts from the last checkpoint).  The
 caller times the step: on the card it synchronizes the device before
-``stop``, or the monitor times the enqueue.  ``elastic_mesh`` comes with
-the mesh slice.
+``stop``, or the monitor times the enqueue.  ``elastic_mesh`` belongs to
+the mesh slice and raises.
 """
 from __future__ import annotations
 
@@ -90,4 +90,12 @@ class StragglerMonitor:
         return is_slow
 
 
-__all__ = ["StragglerMonitor"]
+def elastic_mesh(n_devices: int, *, want_model: int = 16, axis_names=("data", "model"),
+                 devices=None):
+    """The reference's largest (data, model) device grid: the mesh slice,
+    not ported yet (ROADMAP.md queue 1)."""
+    raise NotImplementedError("elastic_mesh belongs to the mesh slice, not ported yet "
+                              "(ROADMAP.md queue 1)")
+
+
+__all__ = ["StragglerMonitor", "elastic_mesh"]

@@ -1,11 +1,13 @@
-"""The train step: CE loss + MoE aux, gradients, the optimizer update.
+"""Train / prefill / serve step builders.
 
-The port of the training half of ``repro.train.steps``.  ``make_train_step``
-returns a ``(state, batch) -> (state, metrics)`` function as the
-reference's: the state is a ``TrainState`` of trees, and the update is
-functional.  ``microbatches > 1`` accumulates the gradients over batch
-slices in a Python loop (the reference's ``lax.scan``).  The serving steps
-(``make_prefill_step``, ``make_serve_step``) come with the serving slice.
+The port of ``repro.train.steps``.  ``make_train_step`` returns a
+``(state, batch) -> (state, metrics)`` function as the reference's: the
+state is a ``TrainState`` of trees, and the update is functional.
+``microbatches > 1`` accumulates the gradients over batch slices in a
+Python loop (the reference's ``lax.scan``).  ``make_prefill_step`` and
+``make_serve_step`` are the serving entry points (``model.prefill`` and
+``model.decode_step``); ``prebuild_kron_ops`` resolves the plans of every
+serving shape before the first request.
 """
 from __future__ import annotations
 
@@ -28,45 +30,75 @@ class TrainState(NamedTuple):
     step: torch.Tensor
 
 
+def _kron_ffn_specs(cfg: ModelConfig) -> list:
+    """The (up, down) ``KronLinearSpec`` pair of every Kron FFN width the
+    model runs: ``d_ff`` where a layer has a dense FFN, ``n_shared *
+    d_expert`` where a MoE layer has shared experts."""
+    from ..core.layers import KronLinearSpec
+
+    plan = cfg.layer_plan()
+    widths = []
+    if cfg.d_ff and any(not spec.moe for spec in plan):
+        widths.append(cfg.d_ff)
+    if cfg.moe is not None and cfg.moe.n_shared and any(spec.moe for spec in plan):
+        widths.append(cfg.moe.n_shared * cfg.moe.d_expert)
+    return [(KronLinearSpec.balanced(cfg.d_model, f, cfg.kron_factors),
+             KronLinearSpec.balanced(f, cfg.d_model, cfg.kron_factors))
+            for f in dict.fromkeys(widths)]
+
+
 def prebuild_kron_ops(
     cfg: ModelConfig, *, batch: int | None = None, seq_len: int | None = None,
     mesh=None, prefill_shapes: Sequence[tuple[int, int]] = (),
     decode_batch: int | None = None, opt_cfg: OptConfig | None = None,
 ) -> tuple:
     """Construct the ``KronOp`` handles behind every Kron-compressed
-    projection in ``cfg`` before the first step; with ``batch`` and
-    ``seq_len``, resolve the plan of the ``(batch*seq_len)``-row problem too.
-    ``opt_cfg``: with a ``ShampooConfig``, also the optimizer's shape-group
-    ops, sized from the parameter shapes (a ``meta``-device init).
+    projection in ``cfg`` before the first step.
 
-    ``mesh`` belongs to the mesh slice and ``prefill_shapes``/
-    ``decode_batch`` to the serving slice (ROADMAP.md queue 1): they raise.
+    With ``batch`` and ``seq_len``, the plan of the ``(batch*seq_len)``-row
+    problem is resolved here.  ``prefill_shapes``: more ``(batch,
+    seq_len)`` pairs (the serving engine prefills each padding bucket at
+    its own shape); ``decode_batch``: the decode step's ``(slots, 1)``.
+    Each shape gives one op per projection (up and down, for each Kron FFN
+    width: the dense FFN's and the shared experts'), its plan resolved
+    through the engine's plan memo (``engine._resolve_plan``) under the
+    key a call on ``(B, S, d)`` activations of the model's dtype resolves
+    at serving time: the op of the call is another object
+    (``kron_linear_apply`` asks ``kron_op_for`` without ``m=``), but its
+    plan is a memo hit, so a prewarmed shape never plans again.  Without
+    shapes the ops are constructed and their plans resolve on first call.
+    ``opt_cfg``: with a ``ShampooConfig``, also the optimizer's
+    shape-group ops, sized from the parameter shapes (a ``meta``-device
+    init).  ``mesh`` belongs to the mesh slice (ROADMAP.md queue 1) and
+    raises.
     """
     if mesh is not None:
         raise NotImplementedError("prebuild_kron_ops(mesh=...): the mesh is not ported "
                                   "yet (ROADMAP.md queue 1)")
-    if prefill_shapes or decode_batch is not None:
-        raise NotImplementedError("prebuild_kron_ops(prefill_shapes=, decode_batch=): "
-                                  "serving is not ported yet (ROADMAP.md queue 1)")
     opt_ops: tuple = ()
     if isinstance(opt_cfg, ShampooConfig):
         opt_ops = _shampoo.prewarm(M.init_params(cfg, None, device="meta"), opt_cfg)
     if not getattr(cfg, "kron_ffn", False):
         return opt_ops
     from ..core.engine import kron_op_for
-    from ..core.layers import KronLinearSpec
 
-    dtype_bytes = {"bfloat16": 2, "float16": 2, "float64": 8}.get(
-        str(getattr(cfg, "dtype", "float32")), 4)
-    up = KronLinearSpec.balanced(cfg.d_model, cfg.d_ff, cfg.kron_factors)
-    down = KronLinearSpec.balanced(cfg.d_ff, cfg.d_model, cfg.kron_factors)
+    # The call's key: x.element_size() of the model's dtype.
+    dtype_bytes = getattr(torch, cfg.dtype).itemsize
+    shapes: list[tuple[int, int]] = []
+    if batch is not None and seq_len is not None:
+        shapes.append((int(batch), int(seq_len)))
+    shapes.extend((int(b), int(s)) for b, s in prefill_shapes)
+    if decode_batch is not None:
+        shapes.append((int(decode_batch), 1))
     ops = []
-    for spec in (up, down):
-        if batch is not None and seq_len is not None:
-            ops.append(kron_op_for(spec.ps, spec.qs, m=int(seq_len), batch=int(batch),
-                                   shared_factors=True, dtype_bytes=dtype_bytes))
-        else:
-            ops.append(kron_op_for(spec.ps, spec.qs))
+    for pair in _kron_ffn_specs(cfg):
+        for spec in pair:
+            for b, s in dict.fromkeys(shapes):
+                # (B, S, d) folds into B*S rows: that plan, resolved now
+                ops.append(kron_op_for(spec.ps, spec.qs, m=s, batch=b,
+                                       shared_factors=True, dtype_bytes=dtype_bytes))
+            if not shapes:
+                ops.append(kron_op_for(spec.ps, spec.qs))
     return tuple(ops) + opt_ops
 
 
@@ -158,10 +190,31 @@ def make_train_step(
     return train_step
 
 
+def make_prefill_step(cfg: ModelConfig, max_len: int, *, with_embeds: bool = False):
+    """``prefill_step(params, tokens, embeds=None) -> (logits, cache)``."""
+
+    def prefill_step(params, tokens, embeds=None):
+        return M.prefill(cfg, params, tokens, max_len, embeds if with_embeds else None)
+
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig):
+    """``serve_step(params, cache, tokens (B,1), pos) -> (next_token_logits,
+    cache)``; the cache is updated in place (``model.decode_step``)."""
+
+    def serve_step(params, cache, tokens, pos):
+        return M.decode_step(cfg, params, cache, tokens, pos)
+
+    return serve_step
+
+
 __all__ = [
     "TrainState",
     "train_state_init",
     "prebuild_kron_ops",
     "loss_fn",
     "make_train_step",
+    "make_prefill_step",
+    "make_serve_step",
 ]

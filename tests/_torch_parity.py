@@ -37,3 +37,24 @@ def assert_close(got, want, tol):
     scale = max(1.0, float(np.abs(want).max(initial=0.0)))
     err = float(np.abs(got - want).max(initial=0.0))
     assert err <= tol * scale, f"max err {err:.3e} > {tol:g} * {scale:.3e}"
+
+
+def jax_tree(t):
+    """A tree of the port's (dicts, lists, tuples of CPU tensors) as the
+    same tree of JAX arrays: parameters drawn once by the port, handed to
+    both packages."""
+    if isinstance(t, dict):
+        return {k: jax_tree(v) for k, v in t.items()}
+    if isinstance(t, (list, tuple)):
+        return type(t)(jax_tree(v) for v in t)
+    return jnp.asarray(t.detach().numpy())
+
+
+def model_params(cfg, seed=0):
+    """Reduced-model parameters from the port's init (a CPU generator),
+    as ``(jax tree, torch tree)``: JAX's own init of the reduced stacks
+    costs seconds a config on the CPU."""
+    from repro_torch.models import model as TM
+
+    tp = TM.init_params(cfg, torch.Generator().manual_seed(seed), device="cpu")
+    return jax_tree(tp), tp

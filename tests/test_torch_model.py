@@ -6,8 +6,9 @@ reference's parameters carried across by ``convert.model_params_from_numpy``:
 f32 logits at 1e-4 with ``kron_ffn`` on and off, remat on and off, and a
 padded vocabulary; gradients into every parameter at 1e-4 (relative to
 each leaf's largest; the two packages sum the f32 attention and the
-LM head in different orders).  Mamba and MoE layers raise until their
-slice."""
+LM head in different orders); the Mamba and MoE models' tree and forward
+too, their parameters drawn once by the port's init and handed to both
+(their serving half is in test_torch_serve_model.py)."""
 import dataclasses
 import functools
 
@@ -17,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import assert_close
+from _torch_parity import assert_close, model_params
 from repro.configs import get_config as jget
 from repro.models import model as JM
 from repro.models.config import reduced as jreduced
@@ -124,7 +125,16 @@ def test_forward_bf16_follows_reference():
 
 @pytest.mark.parametrize("arch", ["mamba2_130m", "deepseek_moe_16b", "mixtral_8x22b",
                                   "jamba_1_5_large_398b"])
-def test_mamba_and_moe_layers_raise(arch):
-    _, tcfg = _cfgs(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        TM.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
+def test_mamba_and_moe_forward_equal_reference(arch):
+    """Mamba and MoE layers (and jamba's mix of both with attention): the
+    parameter tree and the f32 logits and aux loss at 1e-4."""
+    jcfg, tcfg = _cfgs(arch)
+    jp, tp = model_params(tcfg)  # drawn once by the port, handed to both
+    want_tree = jax.eval_shape(functools.partial(JM.init_params, jcfg), jax.random.PRNGKey(0))
+    assert _torch_paths(tp) == _jax_paths(want_tree)
+    toks = np.random.default_rng(4).integers(0, jcfg.vocab, (2, 16)).astype(np.int32)
+    want, jaux = jax.jit(JM.forward, static_argnums=0)(jcfg, jp, jnp.asarray(toks))
+    got, aux = TM.forward(tcfg, tp, torch.from_numpy(toks))
+    assert_close(got, np.asarray(want), LOGIT_TOL)
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=LOGIT_TOL)
+    assert (float(aux) > 0) == (tcfg.moe is not None)

@@ -116,8 +116,12 @@ def test_prebuild_kron_ops_and_its_later_slices():
     assert len(with_opt) > 2 and all(op.batch for op in with_opt[2:])
     with pytest.raises(NotImplementedError, match="mesh"):
         TS.prebuild_kron_ops(tcfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="serving"):
-        TS.prebuild_kron_ops(tcfg, decode_batch=4)
+    # serving: one op per shape and projection, each plan resolved for its rows
+    serve = TS.prebuild_kron_ops(tcfg, prefill_shapes=[(1, 8), (2, 8), (2, 8)], decode_batch=4)
+    assert len(serve) == 2 * 3  # up and down x (1, 8), (2, 8), (4, 1)
+    keys = [list(op._plans) for op in serve]  # each op's resolved plans: (mode, rows, bytes, _)
+    assert [k[0][:3] for k in keys] == [("single", r, 4) for r in (8, 16, 4) * 2]
+    assert all(len(k) == 1 for k in keys) and [op.batch for op in serve] == [1, 2, 4] * 2
 
 
 def test_synthetic_lm_deterministic_and_shifted():
