@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --alone    # phases 1 and 4 only (A/B of two trees)
+    python3 chip_smoke.py --mesh     # phases 1 and 12 only
 
 It refuses to run (exit 1) with ``FASTKRON_CHAOS``, ``FASTKRON_NUMERICS`` or
 ``FASTKRON_PLAN_CACHE`` set: the first injects faults into the kernels'
@@ -138,15 +139,49 @@ went through the kernels.  Phases, one line each:
       mamba2-130m, 24 layers, 4 x 1024 prefill and 64 decode steps against
       prefill (bf16 1e-1, f32 copy 1e-3); no Kron kernel on its path (d_ff
       = 0).  An empty guard report after it.
-  12. a ``{"kernels": [...]}`` JSON line (launches of phases 3 and 6-11),
-      then the card's name and power limit.
-  13. last line: ``{"ok": true, "device": {...}}``.
+  12. mesh: the distributed Kron-Matmul on one card.  Four processes
+      (``torch.multiprocessing``, ``spawn``), each ``torch.cuda.set_device(0)``,
+      in a gloo process group (a ``file://`` store in a temporary directory);
+      gloo stages the CUDA tensors' collectives through host memory.  First a
+      CUDA ``all_to_all_single`` over gloo; then (a) Figure 11 (P=64, N=4,
+      K=64^4, f32, M = 4 x 4 ranks) on (1, 4) and (2, 2): FastKron rounds
+      serial, at n_slabs 2 and 4, and the per-iteration baseline, forward
+      and ``torch.autograd.grad`` into x and the factors, each rank's shards
+      against the local KronOp on the card (1e-5, gradients 1e-4), the
+      slabbed runs bitwise equal to the serial one; (b) gp16 on (2, 2):
+      ``BatchedKronKernel.matmul(v, mesh=)`` at B=4 and one
+      ``gp_train_epoch_batched(..., mesh=)`` at B=1 (cut from B=4: its 11
+      MVMs each move their rounds through the host), against the calls
+      without a mesh (1e-4); (c) qwen3-4b's Kron FFN block, 4096 bf16
+      tokens, forward and backward inside ``kron_distributed(mesh)`` against
+      the block without it (1e-2 / 2e-2), with the round counters and comm
+      gauges moving; (d) the mesh ladder under ``chaos.inject``
+      (``collective``: the local rung, bitwise the local op;
+      ``slab_collective``: the serial rounds, bitwise; ``round_chain``:
+      ``sliced`` launches inside the rounds, one all-to-all per round and
+      slab still); (e) ``tune="measure"`` on the mesh at gp16, B=2 (cut
+      from 4: four ranks' per-sample backwards do not fit one card): each
+      n_slabs candidate's time, the winner, the ``;dev=<card>;gk=2`` key,
+      a cache hit on the second construction.  Every call's launches per
+      rank (asserted equal on every rank, and to the rounds' plan) and its
+      all-to-all calls and elements per device (against
+      ``comm_elems_per_device``).  Times are wall times of the slowest rank:
+      four ranks share one card and a host-staged collective, so they are
+      not a scaling number.  A rank's failure prints its traceback and
+      fails the run.
+  13. a ``{"kernels": [...]}`` JSON line (launches of phases 3 and 6-12,
+      phase 12's summed over its ranks and also given as
+      ``mesh_launches``), then the card's name and power limit.
+  14. last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero.  Needs one CUDA card; imports nothing of JAX.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import dataclasses
+import importlib
 import json
 import math
 import os
@@ -1715,8 +1750,6 @@ def run_ffn_block(gen) -> tuple[dict, dict]:
     remats), held against the same block through ``backend="torch"`` on
     the card; the dense SwiGLU block at the same width is timed as a
     yardstick."""
-    import dataclasses
-
     from repro_torch.configs import get_config
     from repro_torch.convert import load_kron_linear_
     from repro_torch.core.layers import KronLinear, KronLinearSpec, kron_linear_apply
@@ -1942,8 +1975,6 @@ TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_FACTOR_TOL, TRAIN_PRECOND_TOL = 1e-2, 1e-1
 
 
 def train_cfg():
-    import dataclasses
-
     from repro_torch.configs import get_config
 
     return dataclasses.replace(get_config(TRAIN["arch"]), kron_ffn=True, kron_factors=2)
@@ -2021,8 +2052,6 @@ def run_train(gen, smi: str) -> tuple[dict, dict]:
     time of a plain step (``torch.profiler``), peak memory; last, Shampoo's
     batched ``precondition`` on the run's roots against ``looped=True``,
     bitwise, and against its twins per shape group, with a planted fault."""
-    import dataclasses
-
     from repro_torch import tree
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels import emit
@@ -2278,8 +2307,6 @@ QUANT_RTOL, QUANT_ATOL, QUANT_BYTES = 0.1, 0.15, 0.55
 
 
 def serve_cfg(arch: str, **kw):
-    import dataclasses
-
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
@@ -2351,26 +2378,76 @@ def event_ms(fn):
     return out, start.elapsed_time(end)
 
 
+def rel_err(got: torch.Tensor, ref: torch.Tensor, chunk: int = 1 << 24) -> float:
+    """``compare``'s relative error, taken over slices of at most ``chunk``
+    elements so that no double copy of a whole operand is held (a mesh
+    round's operand is 256-512 MiB a rank, and four ranks share the card)."""
+    if got.shape != ref.shape:
+        raise AssertionError(f"shape {tuple(got.shape)} != {tuple(ref.shape)}")
+    g, r = got.reshape(-1), ref.reshape(-1)
+    err = torch.zeros((), dtype=torch.float64, device=got.device)
+    scale, finite = err.clone(), torch.ones((), dtype=torch.bool, device=got.device)
+    for i in range(0, g.numel(), chunk):
+        a, b = g[i:i + chunk].double(), r[i:i + chunk].double()
+        finite &= torch.isfinite(a).all()
+        err = torch.maximum(err, (a - b).abs().max())
+        scale = torch.maximum(scale, b.abs().max())
+    if not bool(finite):
+        raise AssertionError("non-finite values in the kernel's output")
+    err, scale = float(err), float(scale)
+    return err / scale if scale else err
+
+
+# kernel -> (module, wrapper, plain twin): the wrappers held_launches wraps.
+HELD_WRAPPERS = {
+    "chain_fwd": ("emit", "chain_cuda", "chain_reference"),
+    "chain_bwd": ("emit", "chain_bwd_cuda", "chain_bwd_reference"),
+    "sliced": ("kron_sliced", "sliced_multiply_cuda", "sliced_multiply_reference"),
+    "sliced_t": ("kron_sliced_t", "sliced_multiply_t_cuda", "sliced_multiply_t_reference"),
+}
+
+
+# One kernel launch held against its plain twin on the same inputs.
+Held = collections.namedtuple("Held", "kernel rows dtype rel_err")
+
+
 @contextlib.contextmanager
-def held_launches():
-    """Inside the block every ``chain_fwd`` launch is also computed by its
-    plain twin (``chain_reference``) on the same inputs; yields the list of
-    (rows, relative error) it fills, one entry per launch."""
-    from repro_torch.kernels import emit
+def held_launches(kernels=("chain_fwd",)):
+    """Inside the block every launch of ``kernels`` (names of
+    ``HELD_WRAPPERS``) is also computed by its plain twin on the same
+    inputs; yields the list of ``Held`` it fills, one per launch.  The twins
+    launch no kernel, so the launch counters are untouched."""
+    saved, out = [], []
 
-    cuda, errs = emit.chain_cuda, []
+    def wrap(name, cuda, twin):
+        def held(x, *fs, **kw):
+            y = cuda(x, *fs, **kw)
+            acc = {"acc_dtype": kw.get("acc_dtype")} if name.startswith("chain") else {}
+            out.append(Held(name, int(x.shape[-2]), x.dtype, rel_err(y, twin(x, *fs, **acc))))
+            return y
+        return held
 
-    def held(x, *fs, **kw):
-        y = cuda(x, *fs, **kw)
-        errs.append((x.shape[-2], compare(y, emit.chain_reference(
-            x, *fs, acc_dtype=kw.get("acc_dtype")))[1]))
-        return y
-
-    emit.chain_cuda = held
+    for name in kernels:
+        mod_name, wrapper, twin = HELD_WRAPPERS[name]
+        mod = importlib.import_module(f"repro_torch.kernels.{mod_name}")
+        cuda = getattr(mod, wrapper)
+        saved.append((mod, wrapper, cuda))
+        setattr(mod, wrapper, wrap(name, cuda, getattr(mod, twin)))
     try:
-        yield errs
+        yield out
     finally:
-        emit.chain_cuda = cuda
+        for mod, wrapper, cuda in saved:
+            setattr(mod, wrapper, cuda)
+
+
+def held_summary(held: list) -> dict:
+    """Per kernel: launches held, their rows and the worst relative error."""
+    out = {}
+    for h in held:
+        n, rows, worst = out.get(h.kernel, (0, set(), 0.0))
+        out[h.kernel] = (n + 1, rows | {h.rows}, max(worst, h.rel_err))
+    return {k: {"launches": n, "rows": sorted(rows), "rel_err": e}
+            for k, (n, rows, e) in out.items()}
 
 
 def held_stages(cfg, params, prompts, max_len: int) -> dict:
@@ -2382,10 +2459,12 @@ def held_stages(cfg, params, prompts, max_len: int) -> dict:
     out = {}
     with held_launches() as errs:
         logits, cache = M.prefill(cfg, params, prompts, max_len)
-        out["prefill"] = (len(errs), sorted({r for r, _ in errs}), max(e for _, e in errs))
+        out["prefill"] = (len(errs), sorted({h.rows for h in errs}),
+                          max(h.rel_err for h in errs))
         errs.clear()
         M.decode_step(cfg, params, cache, greedy(logits, cfg.vocab), prompts.shape[1])
-        out["decode_step"] = (len(errs), sorted({r for r, _ in errs}), max(e for _, e in errs))
+        out["decode_step"] = (len(errs), sorted({h.rows for h in errs}),
+                              max(h.rel_err for h in errs))
     del logits, cache
     torch.cuda.empty_cache()
     return {k: {"launches": n, "rows": rows, "rel_err": e} for k, (n, rows, e) in out.items()}
@@ -2461,8 +2540,6 @@ def planted_late_kv(cfg, params, prompts, fed, j: int, max_len: int) -> float:
 def run_serve_one_shot(gen, smi: str, peaks) -> tuple[dict, dict, dict]:
     """(a): returns the row, the main path's launches and the model
     (cfg, params) for (b)."""
-    import dataclasses
-
     from repro_torch import tree
     from repro_torch.models import model as M
 
@@ -2573,8 +2650,6 @@ def slot_decode(cfg, params, scfg, max_new: int, fault: bool = False) -> dict:
     of its prompt alone and scalar-position ``decode_step`` calls.
     ``fault``: the engine's decode runs under ``late_kv``.  Returns the
     worst relative error of the prefill rows and of each step."""
-    import dataclasses
-
     import numpy as np
 
     from repro_torch import tree
@@ -2644,8 +2719,6 @@ def run_serve_continuous(cfg, params, smi: str) -> tuple[dict, dict]:
     first token against a batch-of-one engine (one slot, groups of one);
     every launch of ``compile_shapes`` against its twin; the per-slot
     decode in f32 (``slot_decode``), sound and under a planted fault."""
-    import dataclasses
-
     from repro_torch.core import engine as E
     from repro_torch.launch.scheduler import SchedulerConfig, poisson_trace
     from repro_torch.launch.serve import ServeEngine, _pcts
@@ -2691,9 +2764,9 @@ def run_serve_continuous(cfg, params, smi: str) -> tuple[dict, dict]:
         n_shapes = eng.compile_shapes()
     warm_want = sum(serve_expected(cfg, *shape)["chain_fwd"] for shape in eng.calls)
     held = {}
-    for rows, e in errs:
-        n, worst = held.get(rows, (0, 0.0))
-        held[rows] = (n + 1, max(worst, e))
+    for h in errs:
+        n, worst = held.get(h.rows, (0, 0.0))
+        held[h.rows] = (n + 1, max(worst, h.rel_err))
     misses = (E._resolve_plan.cache_info().misses, E._resolve_batched_plan.cache_info().misses)
     eng.rows, eng.calls, eng.decode_ms = {}, [], []
     torch.cuda.empty_cache()
@@ -2887,7 +2960,6 @@ def run_serve_model(gen, smi: str, spec: dict) -> tuple[dict, dict]:
     Its decode is held against prefill at capacity E/k, where no token
     drops: at the configured capacity a prefill of t + 1 tokens may drop
     the last one, which a decode step never does."""
-    import dataclasses
     import gc
 
     from repro_torch import tree
@@ -2990,6 +3062,621 @@ def run_serve(gen, smi: str, peaks) -> tuple[list, dict]:
 
 # One injects faults into the kernels' path, one adds host checks, and one
 # would point the measured planner at a cache the smoke does not own.
+# ---------------------------------------------------------------------------
+# Phase 12: the mesh (MESH_RANKS ranks share the one card over gloo)
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 4
+# Figure 11 (benchmarks/fig11.py): P=64, N=4, K=64^4=16,777,216, f32, weak
+# scaling M = 4 * G: FastKron rounds serial and at each of MESH_SLABS, and
+# the per-iteration baseline, on each mesh.
+MESH_FIG11 = {"p": 64, "n": 4, "rows_per_rank": 4, "meshes": ((1, 4), (2, 2)), "iters": 2}
+MESH_SLABS = (2, 4)
+# gp16 (Table 4 row 26) on (2, 2): the batched MVM at B=4, and one epoch
+# cut to B=1 (its 11 MVMs each move their rounds through the host).
+MESH_GP = {"dims": 6, "points": 16, "m": 16, "batch": 4, "epoch_batch": 1, "cg_iters": 10,
+           "mesh": (2, 2)}
+# qwen3-4b's Kron FFN block in bf16 (FFN_BLOCK's 4096 tokens) on (2, 2).
+MESH_FFN = {"mesh": (2, 2)}
+MESH_LADDER = {"ps": (16,) * 4, "m": 32, "mesh": (2, 2), "n_slabs": 2}
+# The measured slab count at gp16, cut from B=4 to B=2: each rank's
+# per-sample backward holds a round's inputs and cotangents for every
+# factor (over 16 GiB a rank at B=4), and the four ranks share one card.
+MESH_MEASURE = {"ps": (16,) * 6, "m": 16, "batch": 2, "mesh": (2, 2)}
+MESH_TOL, MESH_GRAD_TOL = TOLERANCE[torch.float32], GRAD_TOLERANCE[torch.float32]
+MESH_TIMEOUT_S = 600
+MESH_NOTE = "ranks share one card: not a scaling number"
+
+
+def _mesh_counters() -> dict:
+    from repro_torch.core import distributed as TD
+
+    out = read_counters()
+    out["a2a_calls"], out["a2a_elems"] = TD.all_to_all_calls, TD.all_to_all_elems
+    return out
+
+
+def _mesh_reset() -> None:
+    from repro_torch.core import distributed as TD
+
+    reset_counters()
+    TD.all_to_all_calls = TD.all_to_all_elems = 0
+
+
+def _mesh_expect(a2a_calls: int = 0, a2a_elems: int = 0, **counts) -> dict:
+    out = expect(**counts)
+    out["a2a_calls"], out["a2a_elems"] = a2a_calls, a2a_elems
+    return out
+
+
+def _mesh_counted(fn, want: dict | None, what: str):
+    """``fn()`` with every counter from 0 just before it, read just after
+    and asserted equal to ``want`` (None: returned unchecked).  Every
+    ``chain_fwd``, ``chain_bwd``, ``sliced`` and ``sliced_t`` launch in it is
+    held against its plain twin on the same inputs, at the shapes the mesh
+    path gives it, within ``TOLERANCE`` of its dtype.  Returns ``fn()``'s
+    result, the counts, and the held launches per kernel."""
+    _mesh_reset()
+    with held_launches(tuple(HELD_WRAPPERS)) as held:
+        out = fn()
+    torch.cuda.synchronize()
+    got = _mesh_counters()
+    if want is not None and got != want:
+        raise AssertionError(f"{what}: launches {got}, want {want}")
+    summary = held_summary(held)
+    if any(summary.get(k, {}).get("launches", 0) != got[k] for k in HELD_WRAPPERS):
+        raise AssertionError(f"{what}: held {summary}, launched {got}")
+    bad = [h for h in held if h.rel_err > TOLERANCE[h.dtype]]
+    if bad:
+        raise AssertionError(f"{what}: launches disagree with their twins: {bad[:8]}")
+    return out, got, summary
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def _mesh_ms(fn, iters: int) -> float:
+    """Median wall time of ``fn`` on this rank, the ranks starting together
+    (a barrier after the card is idle)."""
+    import torch.distributed as dist
+
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _rel(got: torch.Tensor, ref: torch.Tensor) -> float:
+    return compare(got, ref)[1]
+
+
+def _only(placements, dim: int) -> tuple:
+    """``placements`` with every Shard other than of tensor dim ``dim``
+    replaced by Replicate (a rank's rows with every column, or the
+    reverse)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return tuple(p if isinstance(p, Shard) and p.dim == dim else Replicate()
+                 for p in placements)
+
+
+def _round_launches(op, m_slab: int, dtype, batched: bool) -> list[int]:
+    """Chain launches per round of a mesh op: the sub-chains one block
+    holds (``distributed._round_instrs``)."""
+    from repro_torch.core import distributed as TD
+    from repro_torch.kernels import emit
+
+    ps, qs = op.ps[::-1], op.qs[::-1]
+    acc = emit.acc_dtype_for(dtype).itemsize
+    size = torch.empty((), dtype=dtype).element_size()
+    out, i, k = [], 0, op.k // op.g_k
+    for r in op.rounds:
+        out.append(len(TD._round_instrs(m_slab, k, ps[i:i + r], qs[i:i + r], batched, acc, size)))
+        k = k // math.prod(ps[i:i + r]) * math.prod(qs[i:i + r])
+        i += r
+    return out
+
+
+def _rounds_want(op, m_loc: int, n_slabs: int, dtype, *, grad: bool, batch: int = 1) -> dict:
+    """A mesh call's launches and collectives on each rank: the forward, or
+    the backward into x and the factors (the rounds but the last
+    re-materialised, ``sliced`` for the in-round inputs, ``sliced_t`` per
+    factor; per-sample factors run the chain kernels' chain-of-one for
+    both)."""
+    from repro_torch.core import distributed as TD
+
+    per_sample = batch > 1 or op._per_sample
+    per_round = _round_launches(op, m_loc // n_slabs, dtype, per_sample)
+    n_r = len(op.rounds)
+    ps, qs, k_loc = op.ps[::-1], op.qs[::-1], op.k // op.g_k
+
+    def comm(rounds):
+        return TD.comm_elems_per_device(m_loc, k_loc, ps, qs, op.g_k, rounds, batch=batch)
+
+    if not grad:
+        return _mesh_expect(chain_fwd=n_slabs * sum(per_round), a2a_calls=n_r * n_slabs,
+                            a2a_elems=comm(op.rounds))
+    within = n_slabs * (op.n - n_r)  # in-round inputs: every factor of a round but its last
+    transposed = n_slabs * op.n
+    counts = dict(chain_fwd=n_slabs * sum(per_round[:-1]))
+    if per_sample:
+        counts["chain_fwd"] += within
+        counts["chain_bwd"] = transposed
+    else:
+        counts.update(sliced=within, sliced_t=transposed)
+    remat = comm(op.rounds[:-1]) if n_r > 1 else 0
+    return _mesh_expect(a2a_calls=(2 * n_r - 1) * n_slabs, a2a_elems=remat + comm(op.rounds),
+                        **counts)
+
+
+def _mesh_fig11(shape) -> list[dict]:
+    """Figure 11 on one mesh: FastKron rounds serial and slabbed, and the
+    per-iteration baseline, forward and ``torch.autograd.grad`` into x and
+    the factors, each rank's shards against the local KronOp on the whole
+    problem; every slabbed schedule bitwise equal to the serial one."""
+    from repro_torch.core import KronOp
+    from repro_torch.core import distributed as TD
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    g_m, g_k = shape
+    cfg = MESH_FIG11
+    ps = (cfg["p"],) * cfg["n"]
+    m = cfg["rows_per_rank"] * g_m * g_k
+    k = math.prod(ps)
+    mesh = make_debug_mesh(g_m, g_k)
+    pl = TD.mesh_placements(mesh)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)  # the same x, factors and cotangent on every rank
+    x = randn(gen, (m, k), torch.float32)
+    fs = [randn(gen, (cfg["p"], cfg["p"]), torch.float32) for _ in ps]
+    ct = randn(gen, (m, k), torch.float32)
+    xr = x.clone().requires_grad_()
+    fr = [f.clone().requires_grad_() for f in fs]
+    y_ref = KronOp(ps, ps)(xr, fr)
+    g_ref = torch.autograd.grad(y_ref, (xr, *fr), ct)
+    y_ref = TD._slice_local(y_ref.detach(), mesh, pl).contiguous()
+    dx_ref = TD._slice_local(g_ref[0], mesh, pl).contiguous()
+    df_ref = g_ref[1:]
+    xs = TD.sharded_input(x, mesh).requires_grad_()
+    cts = TD.sharded_input(ct, mesh)
+    del x, ct, xr, fr, g_ref
+    torch.cuda.empty_cache()
+    fl = [f.clone().requires_grad_() for f in fs]
+    m_loc = m // g_m
+    rows, serial = [], None
+    for per_it, n_slabs in [(False, 1)] + [(False, n) for n in MESH_SLABS] + [(True, 1)]:
+        op = KronOp(ps, ps, mesh=mesh, n_slabs=n_slabs, per_iteration=per_it)
+        name = f"fig11-{g_m}x{g_k}-" + ("periter" if per_it else f"slabs{n_slabs}")
+        y, fwd, fwd_held = _mesh_counted(lambda: op(xs, fl), _rounds_want(
+            op, m_loc, n_slabs, torch.float32, grad=False), f"{name} forward")
+        g, bwd, bwd_held = _mesh_counted(lambda: torch.autograd.grad(y, (xs, *fl), cts),
+                                         _rounds_want(op, m_loc, n_slabs, torch.float32,
+                                                      grad=True), f"{name} backward")
+        outs = (y.to_local().detach(), g[0].to_local(), *g[1:])
+        errs = {"fwd": _rel(outs[0], y_ref), "dx": _rel(outs[1], dx_ref),
+                "df": max(_rel(a, b) for a, b in zip(g[1:], df_ref))}
+        if errs["fwd"] > MESH_TOL or max(errs["dx"], errs["df"]) > MESH_GRAD_TOL:
+            raise AssertionError(f"{name}: errors {errs}")
+        row = {"case": name, "mesh": [g_m, g_k], "m": m, "k": k, "rounds": list(op.rounds),
+               "n_slabs": n_slabs, "fwd_launches": _nonzero(fwd), "bwd_launches": _nonzero(bwd),
+               "fwd_held": fwd_held, "bwd_held": bwd_held, "rel_err": errs}
+        if not per_it:
+            if serial is None:
+                serial = outs
+            else:
+                row["bitwise_serial"] = all(torch.equal(a, b) for a, b in zip(outs, serial))
+                if not row["bitwise_serial"]:
+                    raise AssertionError(f"{name}: slabbed differs from serial")
+        del y, g, outs
+        with torch.no_grad():
+            row["fwd_ms"] = _mesh_ms(lambda: op(xs, fs), cfg["iters"])
+        rows.append(row)
+    del xs, cts, fl, serial, y_ref, dx_ref, df_ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _mesh_gp() -> list[dict]:
+    """gp16 on (2, 2): ``BatchedKronKernel.matmul(v, mesh=)`` at B=4, and one
+    ``gp_train_epoch_batched(..., mesh=)`` at B=1 (10 CG iterations, 11
+    MVMs), each rank's shards against the same calls without a mesh on
+    the rank's rows (rows are independent in both)."""
+    from repro_torch.core import distributed as TD
+    from repro_torch.gp import BatchedKronKernel, KronKernel, gp_train_epoch_batched
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    e = MESH_GP
+    g_m, g_k = e["mesh"]
+    mesh = make_debug_mesh(g_m, g_k)
+    pl = TD.mesh_placements(mesh, ndim=3)
+    k = e["points"] ** e["dims"]
+    m_loc = e["m"] // g_m
+    lengthscales = [0.15, 0.2, 0.25, 0.3, 0.35, 0.4]
+    kernels = [KronKernel(_gp_factors(e["dims"], e["points"],
+                                      [ls * (1 + 0.25 * i) for ls in lengthscales]))
+               for i in range(e["batch"])]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(16)
+    rows = []
+    for case, b in (("gp16-mesh-matmul", e["batch"]), ("gp16-mesh-epoch", e["epoch_batch"])):
+        bk = BatchedKronKernel.stack(kernels[:b])
+        v = randn(gen, (b, e["m"], k), torch.float32)
+        vs = TD.sharded_input_batched(v, mesh)
+        v_rows = TD._slice_local(v, mesh, _only(pl, 1)).contiguous()
+        del v
+        op = bk.op.with_mesh(mesh)
+        n_slabs = op._resolve_n_slabs(m_loc, 4, op._mesh_batched_plan(b, m_loc, 4, None))
+        mvm = _rounds_want(op, m_loc, n_slabs, torch.float32, grad=False, batch=b)
+        if case.endswith("matmul"):
+            ref = TD._slice_local(bk.matmul(v_rows), mesh, _only(pl, 2))
+            y, got, held = _mesh_counted(lambda: bk.matmul(vs, mesh=mesh), mvm, case)
+            errs = {"fwd": _rel(y.to_local(), ref)}
+            call = lambda: bk.matmul(vs, mesh=mesh)  # noqa: E731
+        else:
+            mvms = e["cg_iters"] + 1
+            want = {n: c * mvms for n, c in mvm.items()}
+            xr, rr = gp_train_epoch_batched(bk, v_rows, cg_iters=e["cg_iters"])
+            (x, res), got, held = _mesh_counted(
+                lambda: gp_train_epoch_batched(bk, vs, cg_iters=e["cg_iters"], mesh=mesh),
+                want, case)
+            errs = {"x": _rel(x.to_local(), TD._slice_local(xr, mesh, _only(pl, 2))),
+                    "residual": _rel(res.to_local(), rr)}
+            call = lambda: gp_train_epoch_batched(  # noqa: E731
+                bk, vs, cg_iters=e["cg_iters"], mesh=mesh)
+        if max(errs.values()) > GP_TOLERANCE:
+            raise AssertionError(f"{case}: errors {errs}")
+        row = {"case": case, "mesh": [g_m, g_k], "b": b, "m": e["m"], "k": k,
+               "rounds": list(op.rounds), "n_slabs": n_slabs, "launches": _nonzero(got),
+               "held": held, "rel_err": errs,
+               "tol": GP_TOLERANCE, "ms": _mesh_ms(call, 1)}
+        rows.append(row)
+        del bk, vs, v_rows, op
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _mesh_ffn() -> list[dict]:
+    """qwen3-4b's Kron FFN block on 4096 bf16 tokens, forward and backward
+    inside ``kron_distributed(mesh)`` (every rank holds the activation;
+    each projection is two one-factor rounds), against the block without
+    the scope; the mesh op's round counters and comm gauges must move."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.layers import kron_distributed
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.ffn import ffn_apply, ffn_init
+    from repro_torch.runtime import telemetry
+
+    mesh = make_debug_mesh(*MESH_FFN["mesh"])
+    cfg = dataclasses.replace(get_config(FFN_BLOCK["arch"]), kron_ffn=True, kron_factors=2)
+    dtype = FFN_BLOCK["dtype"]
+    shape = (FFN_BLOCK["batch"], FFN_BLOCK["seq"], cfg.d_model)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    params = ffn_init(gen, cfg, dtype, device="cuda")
+    leaves = [f.requires_grad_() for v in params.values() for f in v["factors"]]
+    x = randn(gen, shape, dtype).requires_grad_()
+    ct = randn(gen, shape, dtype)
+    y_ref = ffn_apply(cfg, params, x)
+    g_ref = torch.autograd.grad(y_ref, [x, *leaves], ct)
+    telemetry.configure(annotate=False)
+    with kron_distributed(mesh):
+        y, fwd, fwd_held = _mesh_counted(lambda: ffn_apply(cfg, params, x), None,
+                                         "ffn-mesh forward")
+    gauges = telemetry.comm_summary()
+    telemetry.disable()
+    g, bwd, bwd_held = _mesh_counted(lambda: torch.autograd.grad(y, [x, *leaves], ct), None,
+                                     "ffn-mesh backward")
+    errs = {"fwd": _rel(y.detach(), y_ref.detach()),
+            "grad": max(_rel(a, b) for a, b in zip(g, g_ref))}
+    want_fwd = fwd["a2a_calls"] == 6 and fwd["chain_fwd"] == 6
+    want_bwd = bwd["a2a_calls"] == 9 and bwd["sliced_t"] == 6 and bwd["chain_fwd"] == 3
+    if not (want_fwd and want_bwd and gauges):
+        raise AssertionError(f"ffn-mesh: the mesh op did not run as planned: {fwd} {bwd} {gauges}")
+    if errs["fwd"] > FFN_TOLERANCE or errs["grad"] > FFN_GRAD_TOLERANCE:
+        raise AssertionError(f"ffn-mesh: errors {errs}")
+
+    def fwd_bwd():
+        with kron_distributed(mesh):
+            return torch.autograd.grad(ffn_apply(cfg, params, x), [x, *leaves], ct)
+
+    row = {"case": "ffn-mesh", "mesh": list(MESH_FFN["mesh"]), "tokens": shape[0] * shape[1],
+           "dtype": "bfloat16", "fwd_launches": _nonzero(fwd), "bwd_launches": _nonzero(bwd),
+           "fwd_held": fwd_held, "bwd_held": bwd_held, "comm_rounds_gauged": len(gauges), "rel_err": errs,
+           "tol": [FFN_TOLERANCE, FFN_GRAD_TOLERANCE], "fwd_bwd_ms": _mesh_ms(fwd_bwd, 2)}
+    del params, leaves, x, ct, y, g, y_ref, g_ref
+    torch.cuda.empty_cache()
+    return [row]
+
+
+def _mesh_ladder() -> list[dict]:
+    """The mesh ladder under ``chaos.inject`` (the same spec fires on every
+    rank): ``collective`` ends on the local rung, bitwise equal to the
+    local op; ``slab_collective`` on the serial rounds, bitwise equal to
+    the planned serial call; ``round_chain`` runs each round's factors as
+    ``sliced`` launches, still one all-to-all per round and slab (1e-5).
+    One GuardWarning per key; the health report names the errors."""
+    import warnings
+
+    from repro_torch.core import KronOp
+    from repro_torch.core import distributed as TD
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.runtime import chaos, guard
+
+    c = MESH_LADDER
+    mesh = make_debug_mesh(*c["mesh"])
+    pl = TD.mesh_placements(mesh)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    x = randn(gen, (c["m"], math.prod(c["ps"])), torch.float32)
+    fs = [randn(gen, (p, p), torch.float32) for p in c["ps"]]
+    local = TD._slice_local(KronOp(c["ps"], c["ps"])(x, fs), mesh, pl)
+    xs = TD.sharded_input(x, mesh)
+    serial_op = KronOp(c["ps"], c["ps"], mesh=mesh, n_slabs=1)
+    serial = serial_op(xs, fs).to_local()
+    n, n_r = c["n_slabs"], len(serial_op.rounds)
+    rows = []
+    for spec, want_calls in (("collective", 0), ("slab_collective", n_r),
+                             ("round_chain", n_r * n)):
+        guard.reset_health()
+        op = KronOp(c["ps"], c["ps"], mesh=mesh, n_slabs=n)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            with chaos.inject(spec):
+                y, got, held = _mesh_counted(lambda: op(xs, fs), None, f"mesh-ladder {spec}")
+        y = y.to_local()
+        warned = [str(w.message) for w in caught if issubclass(w.category, guard.GuardWarning)]
+        report = guard.health_report()
+        row = {"case": f"mesh-ladder-{spec}", "launches": _nonzero(got), "held": held,
+               "warnings": len(warned),
+               "health": report["ops"], "events": report["events"],
+               "describe": op.describe()}
+        if spec == "collective":
+            row["bitwise_local"] = torch.equal(y, local)
+            ok = row["bitwise_local"] and got["a2a_calls"] == 0 and len(warned) == 2
+        elif spec == "slab_collective":
+            row["bitwise_serial"] = torch.equal(y, serial)
+            ok = row["bitwise_serial"] and got["a2a_calls"] == want_calls and len(warned) == 1
+        else:
+            row["rel_err"] = {"fwd": _rel(y, serial)}
+            ok = (row["rel_err"]["fwd"] <= MESH_TOL and got["a2a_calls"] == want_calls
+                  and got["sliced"] == n * len(c["ps"]) and got["chain_fwd"] == 0
+                  and len(warned) == n_r)
+        if not ok:
+            raise AssertionError(f"mesh-ladder {spec}: {row} {warned}")
+        rows.append(row)
+    guard.reset_health()
+    if chaos.active():
+        raise AssertionError("mesh-ladder: chaos left active")
+    return rows
+
+
+def _mesh_measure(cache: str) -> list[dict]:
+    """``KronOp(batch=B, shared_factors=False, mesh=..., tune="measure")`` at
+    gp16 on (2, 2) (``MESH_MEASURE``): each candidate n_slabs with its time
+    (the slowest rank's), the winner and the key; a second construction
+    hits the cache."""
+    from repro_torch.core import KronOp, autotune
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.runtime import telemetry
+
+    c = MESH_MEASURE
+    mesh = make_debug_mesh(*c["mesh"])
+    torch.cuda.empty_cache()
+    telemetry.configure(annotate=False)
+
+    def make():
+        return KronOp(c["ps"], c["ps"], m=None, batch=c["batch"], shared_factors=False,
+                      mesh=mesh, tune="measure", cache_path=cache)
+
+    t0 = time.perf_counter()
+    plan = make().plan
+    measure_s = time.perf_counter() - t0
+    hits = _telemetry_counter("plan_cache.hit")
+    again = make().plan
+    hit = _telemetry_counter("plan_cache.hit") - hits
+    telemetry.disable()
+    entries = autotune.load_plan_cache(cache)
+    (key, entry), = entries.items()
+    card = torch.cuda.get_device_name(0)
+    row = {"case": "mesh-measure", "mesh": list(c["mesh"]), "b": c["batch"], "m": c["m"],
+           "candidates": dict(zip(entry["candidates"],
+                                  [s * 1e3 for s in entry["candidate_seconds"]])),
+           "winner": plan.describe(), "n_slabs": plan.n_slabs, "key": key,
+           "second_construction_hit": hit, "measure_s": measure_s}
+    if not (key.endswith(f";dev={card};gk={c['mesh'][1]}") and hit == 1 and again == plan):
+        raise AssertionError(f"mesh-measure: {row}")
+    row.update(_mesh_winner(make(), mesh))
+    return [row]
+
+
+def _mesh_winner(op, mesh) -> dict:
+    """The measured plan once forward and backward (the per-sample mesh
+    backward: chain-of-one ``chain_fwd`` and ``chain_bwd``), its launches
+    counted and held against their twins, its results against the same
+    mesh op on the plain path (``backend="torch"``, same slab count)."""
+    from repro_torch.core import KronOp
+    from repro_torch.core import distributed as TD
+
+    c = MESH_MEASURE
+    b, m, k = c["batch"], c["m"], math.prod(c["ps"])
+    m_loc = m // c["mesh"][0]
+    n_slabs = op._resolve_n_slabs(m_loc, 4, op.plan)
+    pl = TD.mesh_placements(mesh, ndim=3)
+    shape = (b, m, k)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)  # the same factors on every rank
+    fs = [randn(gen, (b, p, p), torch.float32) / 4 for p in c["ps"]]
+    gen.manual_seed(150 + torch.distributed.get_rank())  # each rank's shard of x and ct
+    local = (b, m_loc, k // c["mesh"][1])
+    xs = TD._from_local(randn(gen, local, torch.float32), mesh, pl, shape).requires_grad_()
+    cts = TD._from_local(randn(gen, local, torch.float32), mesh, pl, shape)
+
+    def run(o, count: bool):
+        fl = [f.clone().requires_grad_() for f in fs]
+        if count:
+            y, fwd, fwd_held = _mesh_counted(lambda: o(xs, fl), _rounds_want(
+                o, m_loc, n_slabs, torch.float32, grad=False, batch=b), "mesh-measure forward")
+            g, bwd, bwd_held = _mesh_counted(
+                lambda: torch.autograd.grad(y, (xs, *fl), cts),
+                _rounds_want(o, m_loc, n_slabs, torch.float32, grad=True, batch=b),
+                "mesh-measure backward")
+            counts.update(fwd_launches=_nonzero(fwd), bwd_launches=_nonzero(bwd),
+                          fwd_held=fwd_held, bwd_held=bwd_held)
+        else:
+            y = o(xs, fl)
+            g = torch.autograd.grad(y, (xs, *fl), cts)
+        return (y.to_local().detach(), g[0].to_local(), *g[1:])
+
+    counts: dict = {}
+    got = run(op, True)
+    torch.cuda.empty_cache()
+    plain = run(KronOp(c["ps"], c["ps"], batch=b, shared_factors=False, mesh=mesh,
+                       n_slabs=n_slabs, backend="torch"), False)
+    errs = {"fwd": _rel(got[0], plain[0]), "dx": _rel(got[1], plain[1]),
+            "df": max(_rel(a, r) for a, r in zip(got[2:], plain[2:]))}
+    del got, plain, xs, cts
+    torch.cuda.empty_cache()
+    if errs["fwd"] > MESH_TOL or max(errs["dx"], errs["df"]) > MESH_GRAD_TOL:
+        raise AssertionError(f"mesh-measure winner against backend='torch': {errs}")
+    return {"winner_n_slabs": n_slabs, **counts, "rel_err": errs}
+
+
+def _mesh_rank(rank: int, world: int, store: str, out_dir: str, cache: str) -> None:
+    """One rank of phase 12: a gloo process group over a ``file://`` store,
+    every check of the phase, its rows written to ``rank<r>.json``; a
+    failure writes its traceback to ``rank<r>.err`` and exits 1."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    out = Path(out_dir)
+    # Four ranks share the card's memory: expandable segments keep each
+    # rank's cache from holding it in fragments (set before CUDA starts).
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    try:
+        sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{store}", world_size=world,
+                                rank=rank, timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+        # First on the card: one all-to-all of CUDA tensors over gloo.
+        send = torch.arange(world * 2, device="cuda", dtype=torch.float32) + 100 * rank
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, async_op=True).wait()
+        want = torch.tensor([100 * r + 2 * rank + j for r in range(world) for j in range(2)],
+                            device="cuda", dtype=torch.float32)
+        if not torch.equal(recv, want):
+            raise AssertionError(f"gloo all_to_all_single of CUDA tensors: {recv.tolist()}")
+        big = torch.empty(64 * 2 ** 20 // 4, device="cuda")
+        t0 = time.perf_counter()
+        dist.all_to_all_single(torch.empty_like(big), big)
+        torch.cuda.synchronize()
+        rows = [{"case": "gloo-probe", "a2a_cuda": "ok",
+                 "a2a_64mib_ms": (time.perf_counter() - t0) * 1e3}]
+        del big
+        timings = {}
+        for name, fn in [*((f"fig11-{s[0]}x{s[1]}", lambda s=s: _mesh_fig11(s))
+                           for s in MESH_FIG11["meshes"]),
+                         ("gp16", _mesh_gp), ("ffn", _mesh_ffn), ("ladder", _mesh_ladder),
+                         ("measure", lambda: _mesh_measure(cache))]:
+            t0 = time.perf_counter()
+            rows += fn()
+            timings[name] = time.perf_counter() - t0
+            # Written after every check, so a later failure still shows these.
+            (out / f"rank{rank}.json").write_text(json.dumps(rows))
+        rows.append({"case": "timings", "seconds": timings})
+        (out / f"rank{rank}.json").write_text(json.dumps(rows))
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        (out / f"rank{rank}.err").write_text(traceback.format_exc())
+        sys.stdout.flush()
+        os._exit(1)
+
+
+def run_mesh(smi: str) -> tuple[list[dict], dict]:
+    """Phase 12: MESH_RANKS processes on the one card (``spawn``, since this
+    process holds a CUDA context), each ``torch.cuda.set_device(0)``, in a
+    gloo process group: fig11 on (1, 4) and (2, 2), gp16-mesh, ffn-mesh,
+    mesh-ladder, mesh-measure.  One line per check (rank 0's row, the
+    launches of every rank asserted equal, the slowest rank's time); a
+    rank's failure prints its traceback and fails the phase.  Returns the
+    rows and the launches of the mesh calls summed over the ranks."""
+    import torch.multiprocessing as mp
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(
+            _mesh_rank, args=(MESH_RANKS, os.path.join(tmp, "store"), tmp,
+                              os.path.join(tmp, "plans.json")),
+            nprocs=MESH_RANKS, start_method="spawn", join=False)
+        deadline = time.monotonic() + MESH_TIMEOUT_S
+        failure = None
+        try:
+            while not ctx.join(timeout=5):
+                if time.monotonic() > deadline:
+                    failure = f"timed out after {MESH_TIMEOUT_S} s"
+                    break
+        except Exception as e:  # a rank exited non-zero; the others are stopped
+            failure = f"{type(e).__name__}: {e}"
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                p.join()
+        errs = sorted(Path(tmp).glob("rank*.err"))
+        if failure or errs:
+            done = Path(tmp) / "rank0.json"
+            for row in json.loads(done.read_text()) if done.exists() else []:
+                print("mesh (rank 0, before the failure) " + json.dumps(row), flush=True)
+            for e in errs:
+                print(f"mesh: {e.stem} failed:\n{e.read_text()}", file=sys.stderr, flush=True)
+            raise AssertionError(f"mesh phase: {failure or 'a rank failed'}")
+        per_rank = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                    for r in range(MESH_RANKS)]
+    seconds = time.perf_counter() - t0
+    launches = {name: 0 for name, _, _ in _counter_sites()}
+    rows = []
+    for i, row in enumerate(per_rank[0]):
+        others = [rr[i] for rr in per_rank]
+        for key in ("launches", "fwd_launches", "bwd_launches"):
+            if key in row:
+                if any(o[key] != row[key] for o in others):
+                    raise AssertionError(f"mesh {row['case']}: ranks differ in {key}: "
+                                         f"{[o[key] for o in others]}")
+                for name, cnt in row[key].items():
+                    if name in launches:
+                        launches[name] += cnt * MESH_RANKS
+        for key in ("held", "fwd_held", "bwd_held"):
+            if key in row:
+                if any({k: (v["launches"], v["rows"]) for k, v in o[key].items()}
+                       != {k: (v["launches"], v["rows"]) for k, v in row[key].items()}
+                       for o in others):
+                    raise AssertionError(f"mesh {row['case']}: ranks differ in {key}")
+                for name, v in row[key].items():
+                    v["rel_err"] = max(o[key][name]["rel_err"] for o in others)
+        for key in ("ms", "fwd_ms", "fwd_bwd_ms", "a2a_64mib_ms"):
+            if key in row:
+                row[key] = max(o[key] for o in others)  # the slowest rank's
+        if "rel_err" in row:
+            row["rel_err"] = {k: max(o["rel_err"][k] for o in others) for k in row["rel_err"]}
+        row.update(ranks=MESH_RANKS, ranks_share_one_card=True, times=MESH_NOTE, device=smi)
+        print("mesh " + json.dumps(row), flush=True)
+        rows.append(row)
+    print(f"mesh: phase {seconds:.1f} s of command time ({MESH_RANKS} ranks, gloo, {smi})",
+          flush=True)
+    return rows, launches
+
+
 REFUSED_ENV = ("FASTKRON_CHAOS", "FASTKRON_NUMERICS", "FASTKRON_PLAN_CACHE")
 
 
@@ -3032,6 +3719,9 @@ def main() -> int:
     if "--alone" in sys.argv[1:]:  # phase 4 only, for comparing two trees in one call
         run_alone(gen, peaks)
         return 0
+    if "--mesh" in sys.argv[1:]:  # phase 12 only
+        run_mesh(smi)
+        return 0
     assert_clean("start")
     passed = check_kernels(gen)
     assert_clean("check")
@@ -3060,8 +3750,9 @@ def main() -> int:
     assert_clean("train")
     _, serve_launches = run_serve(gen, smi, peaks)
     assert_clean("serve")
+    _, mesh_launches = run_mesh(smi)
     consumers = (measure_launches, profile_launches, ffn_launches, gp_launches, train_launches,
-                 serve_launches)
+                 serve_launches, mesh_launches)
 
     def kernel_row(name):
         source, replaces, case = KERNELS[name]
@@ -3075,6 +3766,7 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         }
+        row["mesh_launches"] = mesh_launches[name]  # phase 12, summed over its ranks
         if name == "grad":
             row["reduce_launches"] = (sum(row["launches"]["grad_reduce"] for row in rows.values())
                                       + sum(c["grad_reduce"] for c in consumers))

@@ -68,6 +68,18 @@ SMEM_BYTES = emit_mod.SMEM_BYTES  # 227 KB: what one block may hold
 COL_ALIGN = 4
 ROW_ALIGN = 4
 
+# Interconnect model of the distributed slab pipeline, in place of the
+# reference's TPU v5e ICI figures (45 GB/s, 1 us).  Published, not
+# measured: NVLink 4 moves 450 GB/s per direction per H100 SXM (NVIDIA
+# data sheet), and A2A_LATENCY_S is an assumed 10 us launch latency per
+# all-to-all, the order of NCCL's small-message collectives on one NVLink
+# node.  A four-card cell is to replace both.  Slabbing a round multiplies
+# the latency term by n_slabs while up to (n-1)/n of the payload hides
+# under chain compute, so the analytic model picks n_slabs > 1 only once a
+# round's payload clears about latency * bandwidth (4.5 MB).
+NVLINK_BW = 450e9  # bytes/s per direction per card
+A2A_LATENCY_S = 10e-6
+
 
 def _ceil_to(x: int, m: int) -> int:
     return -(-x // m) * m
@@ -257,6 +269,9 @@ class KronPlan:
     bwd_stages: tuple[Stage, ...] | None = None
     # Samples per block for per-sample batched execution; 1 == unbatched.
     t_b: int = 1
+    # Row slabs of the distributed round pipeline (per-sample mesh plans,
+    # ``make_batched_plan(g_k > 1)``); local execution ignores it.
+    n_slabs: int = 1
 
     def describe(self) -> str:
         parts = []
@@ -267,6 +282,8 @@ class KronPlan:
                 tag += f"/tq{list(st.t_qs)}"
             parts.append(tag)
         head = f"[t_b={self.t_b}] " if self.t_b != 1 else ""
+        if self.n_slabs != 1:
+            head += f"[slabs={self.n_slabs}] "
         return head + " -> ".join(parts)
 
 
@@ -531,6 +548,108 @@ def make_plan(
 # ---------------------------------------------------------------------------
 
 
+def _dist_round_payload_elems(prob: KronProblem, g_k: int) -> int:
+    """The worst round's per-sample relocation buffer of the distributed
+    round schedule: ``M_loc * C`` elements at the round's output width
+    ``C``.  ``prob`` is the local problem (``m = M_loc``; columns start at
+    ``K / G_K``).  0 without a model axis or a feasible round schedule.
+    The reference trades its batch tile against this buffer in VMEM; the
+    card's kernels take no batch tile, so here it is what a measured
+    distributed plan's cache entry records as ``payload_elems``."""
+    if g_k <= 1:
+        return 0
+    from .distributed import plan_rounds
+
+    ps = list(reversed(prob.ps))
+    qs = list(reversed(prob.qs))
+    k_loc = prob.k // g_k
+    try:
+        rounds = plan_rounds(k_loc, ps, qs, g_k)
+    except ValueError:
+        return 0
+    worst = 0
+    c = k_loc
+    i = 0
+    for r in rounds:
+        c = c // math.prod(ps[i : i + r]) * math.prod(qs[i : i + r])
+        worst = max(worst, prob.m * c)
+        i += r
+    return worst
+
+
+def _dist_round_costs(
+    prob: KronProblem, g_k: int, batch: int, dtype_bytes: int
+) -> list[tuple[float, float]]:
+    """Per-round ``(compute_s, comm_s)`` on one card of the round schedule:
+    the chain's flops at the dtype's rate (``peak_flops``) and the
+    all-to-all payload at ``NVLINK_BW``.  ``prob`` is the local problem.
+    Raises ``PlanError`` when no round schedule exists."""
+    from .distributed import plan_rounds
+
+    ps = list(reversed(prob.ps))
+    qs = list(reversed(prob.qs))
+    k_loc = prob.k // g_k
+    rounds = plan_rounds(k_loc, ps, qs, g_k)
+    peak = peak_flops(dtype_bytes)
+    costs = []
+    c = k_loc
+    i = 0
+    for r in rounds:
+        flops = 0.0
+        for j in range(i, i + r):
+            flops += 2.0 * batch * prob.m * c * qs[j]
+            c = c // ps[j] * qs[j]
+        payload = batch * prob.m * c * (g_k - 1) / g_k
+        costs.append((flops / peak, payload * dtype_bytes / NVLINK_BW))
+        i += r
+    return costs
+
+
+def _slab_schedule_seconds(costs: Sequence[tuple[float, float]], n_slabs: int) -> float:
+    """Analytic time of the slab-pipelined round schedule: per round, up to
+    ``(n-1)/n`` of ``min(compute, comm)`` hides, and every slab's
+    all-to-all pays the launch latency.  ``n_slabs=1`` is the serial
+    ``compute + comm + latency``."""
+    total = 0.0
+    for comp, comm in costs:
+        hidden = min(comp, comm) * (n_slabs - 1) / n_slabs
+        total += comp + comm - hidden + n_slabs * A2A_LATENCY_S
+    return total
+
+
+def choose_n_slabs(
+    prob: KronProblem,
+    g_k: int,
+    *,
+    batch: int = 1,
+    dtype_bytes: int = 4,
+    candidates: Sequence[int] = (1, 2, 4),
+) -> int:
+    """Analytic slab count of the distributed round pipeline.
+
+    ``prob`` is the local problem (``m`` = rows per rank, the slab axis;
+    for shared factors the folded ``B*M/G_M``).  Each candidate is clamped
+    to a divisor of the rows and scored with ``_slab_schedule_seconds``;
+    the serial schedule wins ties, so small problems plan serial.
+    ``make_batched_plan(tune="measure", mesh=...)`` overrules the model
+    with times on the mesh."""
+    if g_k <= 1 or prob.m <= 1:
+        return 1
+    try:
+        costs = _dist_round_costs(prob, g_k, batch, dtype_bytes)
+    except PlanError:
+        return 1
+    best_n, best_t = 1, _slab_schedule_seconds(costs, 1)
+    for n in candidates:
+        n_eff = emit_mod.effective_slabs(prob.m, n)
+        if n_eff == best_n:
+            continue
+        t = _slab_schedule_seconds(costs, n_eff)
+        if t < best_t:
+            best_n, best_t = n_eff, t
+    return best_n
+
+
 def make_batched_plan(
     prob: KronProblem,
     batch: int,
@@ -547,6 +666,10 @@ def make_batched_plan(
     cache_path: str | None = None,
     acc_dtype: str | None = None,
     device: str | torch.device | None = None,
+    g_k: int = 1,
+    mesh=None,
+    data_axis="data",
+    model_axis: str = "model",
 ) -> KronPlan:
     """Plan for ``batch`` independent copies of ``prob`` in one launch.
 
@@ -564,12 +687,43 @@ def make_batched_plan(
     ``tune="measure"`` ranks candidates as ``make_plan`` does: the shared
     mode measures the folded ``(batch * M)``-row problem, the per-sample
     mode the per-sample plan on ``(B, M, K)`` inputs (its M-tile variants;
-    no ``t_b`` variants, since no kernel reads ``t_b``).  The reference's
-    mesh mode (``g_k > 1``) belongs to the port's mesh slice.  An unknown
-    tune mode raises ``PlanError``.
+    no ``t_b`` variants, since no kernel reads ``t_b``).  An unknown tune
+    mode raises ``PlanError``.
+
+    ``g_k > 1`` is the distributed mode (per-sample factors on a mesh with
+    a ``G_K``-way model axis): ``prob`` is the local problem (``m = M_loc``)
+    and the plan carries the slab pipeline's depth ``n_slabs``, one
+    candidate per distinct slab count in (1, 2, 4) scored by the overlap
+    model (``_analytic_dist_plan``).  The reference trades ``n_slabs``
+    against ``t_b`` in VMEM; here ``t_b`` stays 1.  With
+    ``tune="measure"`` and a ``mesh``, the candidates are timed on the mesh
+    through the round runner (forward and backward) and the winner kept in
+    the plan cache under the batched key plus ``;gk=<G_K>``
+    (``_measured_dist_plan``); without a mesh, measuring falls back to the
+    analytic plan and caches nothing.  Shared factors take no distributed
+    plan (the batch folds into the sharded rows): ``g_k > 1`` with
+    ``shared_factors=True`` raises.
     """
     if batch <= 0:
         raise ValueError(f"batch must be positive, got {batch}")
+    if g_k > 1:
+        if shared_factors:
+            raise ValueError(
+                "g_k > 1 (distributed mode) requires shared_factors=False: the "
+                "shared-factors distributed path folds the batch into the "
+                "data-sharded rows and takes no batched plan"
+            )
+        if tune not in ("analytic", "measure"):
+            raise PlanError(f"unknown tune mode {tune!r}")
+        dist_kw = dict(dtype_bytes=dtype_bytes, enable_fusion=enable_fusion,
+                       vmem_budget_elems=vmem_budget_elems, acc_dtype=acc_dtype)
+        if tune == "measure" and mesh is not None:
+            return _measured_dist_plan(
+                prob, batch=batch, g_k=g_k, mesh=mesh, data_axis=data_axis,
+                model_axis=model_axis, backend=backend, cache_path=cache_path,
+                device=device, **dist_kw,
+            )
+        return _analytic_dist_plan(prob, batch, g_k, **dist_kw)
     kw = dict(
         dtype_bytes=dtype_bytes, enable_fusion=enable_fusion,
         enable_prekron=enable_prekron, prekron_max_p=prekron_max_p,
@@ -589,6 +743,42 @@ def make_batched_plan(
         raise PlanError(f"unknown tune mode {tune!r}")
     base = make_plan(prob, **kw)
     return KronPlan(base.stages, base.bwd_stages, 1)
+
+
+def _dist_plan_candidates(
+    prob: KronProblem, *, dtype_bytes: int, enable_fusion: bool, vmem_budget_elems: int,
+    acc_dtype: str | None, slab_candidates: Sequence[int] = (1, 2, 4),
+) -> list[KronPlan]:
+    """One distributed plan per distinct feasible slab count, serial first:
+    the per-sample plan of the local problem (``t_b=1``) with its
+    ``n_slabs``."""
+    base = make_plan(prob, dtype_bytes=dtype_bytes, enable_fusion=enable_fusion,
+                     enable_prekron=False, vmem_budget_elems=vmem_budget_elems,
+                     acc_dtype=acc_dtype)
+    slabs = sorted({emit_mod.effective_slabs(prob.m, n) for n in slab_candidates})
+    return [KronPlan(base.stages, base.bwd_stages, 1, n) for n in slabs]
+
+
+def _analytic_dist_plan(
+    prob: KronProblem, batch: int, g_k: int, *, dtype_bytes, enable_fusion,
+    vmem_budget_elems, acc_dtype,
+) -> KronPlan:
+    """The candidate whose slab schedule the overlap model times fastest;
+    ties keep the shallower pipeline (serial is listed first)."""
+    cands = _dist_plan_candidates(
+        prob, dtype_bytes=dtype_bytes, enable_fusion=enable_fusion,
+        vmem_budget_elems=vmem_budget_elems, acc_dtype=acc_dtype,
+    )
+    try:
+        costs = _dist_round_costs(prob, g_k, batch, dtype_bytes)
+    except PlanError:
+        return cands[0]
+    best, best_t = cands[0], _slab_schedule_seconds(costs, cands[0].n_slabs)
+    for plan in cands[1:]:
+        t = _slab_schedule_seconds(costs, plan.n_slabs)
+        if t < best_t:
+            best, best_t = plan, t
+    return best
 
 
 def plan_cache_key(
@@ -928,6 +1118,137 @@ def _measured_plan(
     return best
 
 
+def _mesh_all(mesh, flag: bool) -> bool:
+    """Whether ``flag`` holds on every rank of ``mesh`` (a MIN over each
+    mesh dim's group)."""
+    import torch.distributed as dist
+
+    t = torch.tensor([1 if flag else 0], device=mesh.device_type)
+    for d in range(mesh.ndim):
+        dist.all_reduce(t, op=dist.ReduceOp.MIN, group=mesh.get_group(d))
+    return bool(t.item())
+
+
+def _measure_best_mesh(fn_of_plan, cands, mesh, *, warmup: int, iters: int,
+                       timings: list) -> tuple[KronPlan, float]:
+    """``measure_best`` on every rank of ``mesh`` at once: each candidate's
+    time in a round is the slowest rank's (a MAX over the mesh), so every
+    rank ranks the same numbers and picks the same plan (the ranks must
+    run the same schedule, or their collectives would not pair up)."""
+    import torch.distributed as dist
+
+    runs = []
+    for cfg in cands:
+        try:
+            fn = fn_of_plan(cfg)
+            for _ in range(max(1, warmup)):
+                out = fn()
+        except (VmemOverflowError, LoweringError):
+            continue
+        runs.append((cfg, fn, _on_cuda(out)))
+    if not runs:
+        raise PlanError("no candidate executed successfully")
+    times = torch.zeros(len(runs), max(1, iters), dtype=torch.float64)
+    for it in range(max(1, iters)):
+        for j, (_, fn, cuda) in enumerate(runs):
+            times[j, it] = time_once(fn, cuda)[0]
+    times = times.to(mesh.device_type)
+    for d in range(mesh.ndim):
+        dist.all_reduce(times, op=dist.ReduceOp.MAX, group=mesh.get_group(d))
+    times = times.cpu().tolist()
+    timings.extend((cfg, min(t)) for (cfg, _, _), t in zip(runs, times))
+    incumbent = times[0]
+    winners = [j for j in range(1, len(runs))
+               if all(t < i for t, i in zip(times[j], incumbent))]
+    best = min(winners, key=lambda j: min(times[j])) if winners else 0
+    return runs[best][0], min(times[best])
+
+
+def _measured_dist_plan(
+    prob: KronProblem,
+    *,
+    batch: int,
+    g_k: int,
+    mesh,
+    data_axis,
+    model_axis: str,
+    dtype_bytes: int,
+    enable_fusion: bool,
+    vmem_budget_elems: int,
+    acc_dtype: str | None,
+    backend: str,
+    cache_path: str | None,
+    device: str | torch.device | None = None,
+) -> KronPlan:
+    """Measured tuning of a per-sample distributed plan: each slab-count
+    candidate runs the round runner on the caller's mesh, forward and
+    ``torch.autograd.grad`` into x and the factors, timed on every rank
+    (``_measure_best_mesh``); the winner is kept under the batched plan
+    key plus ``;gk=<G_K>``.  Collective: every rank of ``mesh`` calls it
+    with the same arguments.  The ranks agree on a cache hit before using
+    it (a rank that missed would measure alone), and the mesh's first rank
+    writes the cache before any rank returns."""
+    dev = measure_device(device)
+    path = cache_path or default_cache_path()
+    key = plan_cache_key(
+        prob, dtype_bytes, backend, enable_fusion=enable_fusion, enable_prekron=False,
+        vmem_budget_elems=vmem_budget_elems, batch=batch, shared_factors=False,
+        acc_dtype=acc_dtype, device=dev,
+    ) + f";gk={g_k}"
+    hit = load_plan_cache(path).get(key)
+    if _mesh_all(mesh, hit is not None):
+        telemetry.counter_inc("plan_cache.hit")
+        return plan_from_json(hit["plan"])
+    telemetry.counter_inc("plan_cache.miss")
+    cands = _dist_plan_candidates(
+        prob, dtype_bytes=dtype_bytes, enable_fusion=enable_fusion,
+        vmem_budget_elems=vmem_budget_elems, acc_dtype=acc_dtype,
+    )
+    from . import distributed as D
+
+    g_m = D._mesh_size(mesh, data_axis)
+    x, factors = _measure_inputs(KronProblem(prob.m * g_m, prob.ps, prob.qs), batch,
+                                 dtype_bytes, dev)
+    xd = D.sharded_input_batched(x.detach(), mesh, data_axis, model_axis)
+    xd.requires_grad_()
+    del x  # each rank keeps its shard only
+
+    def fn_of_plan(plan):
+        def run():
+            y = D.run_batched_distributed_rounds(
+                xd, factors, mesh, data_axis=data_axis, model_axis=model_axis,
+                backend=backend, n_slabs=plan.n_slabs,
+            )
+            return torch.autograd.grad(y.to_local().float().sum(), (xd, *factors))
+
+        return run
+
+    timings: list = []
+    try:
+        with telemetry.span("measure_dist_plan", candidates=len(cands), g_k=g_k):
+            best, seconds = _measure_best_mesh(fn_of_plan, cands, mesh, warmup=1, iters=3,
+                                               timings=timings)
+    except PlanError:
+        # No candidate ran on this mesh: the analytic plan, nothing cached.
+        return _analytic_dist_plan(
+            prob, batch, g_k, dtype_bytes=dtype_bytes, enable_fusion=enable_fusion,
+            vmem_budget_elems=vmem_budget_elems, acc_dtype=acc_dtype,
+        )
+    if all(c == 0 for c in mesh.get_coordinate()):
+        entries = load_plan_cache(path)
+        entries[key] = {
+            "plan": plan_to_json(best),
+            "seconds": seconds,
+            "measured_at": time.strftime("%Y-%m-%dT%H:%M:%S"),
+            "candidates": [c.describe() for c, _ in timings],
+            "candidate_seconds": [t for _, t in timings],
+            "payload_elems": _dist_round_payload_elems(prob, g_k),
+        }
+        save_plan_cache(path, entries)
+    _mesh_all(mesh, True)  # no rank returns before the cache is written
+    return best
+
+
 # ---------------------------------------------------------------------------
 # Plan JSON (the format repro.core.autotune.plan_to_json writes)
 # ---------------------------------------------------------------------------
@@ -962,12 +1283,12 @@ def plan_to_json(plan: KronPlan) -> dict:
             else None
         ),
         "t_b": plan.t_b,
+        "n_slabs": plan.n_slabs,
     }
 
 
 def plan_from_json(d: dict) -> KronPlan:
-    """Read a plan dict.  Keys the port does not use yet (the JAX package's
-    ``n_slabs``, which only its mesh rounds read) are ignored."""
+    """Read a plan dict; entries written before slabs existed are serial."""
     return KronPlan(
         tuple(_stage_from_json(s) for s in d["stages"]),
         (
@@ -976,6 +1297,7 @@ def plan_from_json(d: dict) -> KronPlan:
             else None
         ),
         int(d.get("t_b", 1)),
+        int(d.get("n_slabs", 1)),
     )
 
 
@@ -991,6 +1313,7 @@ __all__ = [
     "lower",
     "make_plan",
     "make_batched_plan",
+    "choose_n_slabs",
     "measure_best",
     "peak_flops",
     "plan_cache_key",
@@ -1003,4 +1326,6 @@ __all__ = [
     "PEAK_FLOPS_F64",
     "HBM_BW",
     "SMEM_BYTES",
+    "NVLINK_BW",
+    "A2A_LATENCY_S",
 ]

@@ -39,7 +39,14 @@ candidates on the device (``autotune.make_plan``) through the on-disk plan
 cache; ``KronOp.profile`` times the forward program stage by stage against
 the cost model.
 
-Left for later slices (ROADMAP.md queue 1): the mesh rounds.
+On a ``DeviceMesh`` (``KronOp(ps, qs, mesh=mesh)``, ``op.with_mesh(mesh)``)
+a call runs the paper's distributed round schedule
+(``core.distributed``): a ``DTensor`` x placed rows over ``data_axis`` and
+columns over ``model_axis`` comes back as a DTensor with its placements; a
+plain tensor is taken as the full array every rank holds, sliced locally
+and handed back replicated.  The mesh ladder runs the slab-pipelined
+rounds, then the serial rounds, then the local op on the gathered x,
+degrading on ``CollectiveError`` only.
 """
 from __future__ import annotations
 
@@ -144,11 +151,14 @@ def _resolve_batched_plan(
     qs: tuple[int, ...],
     dtype_bytes: int,
     enable_prekron: bool,
+    g_k: int = 1,
 ) -> KronPlan:
-    with telemetry.span("plan", m=m, ps=ps, qs=qs, tune="analytic", batch=batch):
+    """The analytic per-sample plan; ``g_k > 1`` the distributed plan of the
+    local problem (``m`` = rows per rank), which carries ``n_slabs``."""
+    with telemetry.span("plan", m=m, ps=ps, qs=qs, tune="analytic", batch=batch, g_k=g_k):
         return autotune.make_batched_plan(
             KronProblem(m, ps, qs), batch, shared_factors=False,
-            dtype_bytes=dtype_bytes, enable_prekron=enable_prekron,
+            dtype_bytes=dtype_bytes, enable_prekron=enable_prekron and g_k <= 1, g_k=g_k,
         )
 
 
@@ -208,6 +218,14 @@ def _sliced_t_batched(g: torch.Tensor, f: torch.Tensor, backend: str) -> torch.T
         kind=emit.TRANSPOSED_MULTIPLY, ps=(p,), qs=(q,), t_m=t_m, t_k=t_k, t_b=1
     )
     return emit.run_stage(g, (f,), instr, backend=backend)
+
+
+def _sliced_vjp_factor(u: torch.Tensor, g: torch.Tensor, p: int, q: int) -> torch.Tensor:
+    """df[p,q] = sum_{m,s} u[m, s*P+p] g[m, q*S+s] (one ``torch.einsum``, in
+    the accumulator dtype); per-sample ``(B, P, Q)`` grads when ``u`` and
+    ``g`` carry a leading batch axis.  The mesh backward's factor
+    gradient."""
+    return emit.sliced_vjp_factor(u, g, p, q)
 
 
 def _prekron_vjp(dk: torch.Tensor, stage_factors: Sequence[torch.Tensor]) -> tuple:
@@ -537,13 +555,22 @@ class _KronFunction(torch.autograd.Function):
 
 @dataclasses.dataclass(frozen=True)
 class KronCost:
-    """Analytic per-call cost of a KronOp (``KronOp.cost()``).  Local ops
-    move nothing between devices: ``comm_elems_per_device`` and ``rounds``
-    are 0 until the mesh slice."""
+    """Analytic per-call cost of a KronOp (``KronOp.cost()``).
+
+    Local ops move nothing between devices (``comm_elems_per_device`` and
+    ``rounds`` 0).  On a mesh: the all-to-all payload (elements sent per
+    device, all rounds), the round count, the share of the payload the
+    slab pipeline can hide under chain compute (``comm_hidden_elems``, an
+    upper bound), the resolved slab count, and the critical-path estimate:
+    per-device compute at the dtype's rate, the exposed transfer at
+    ``autotune.NVLINK_BW`` and one ``A2A_LATENCY_S`` per collective."""
 
     flops: int
     comm_elems_per_device: int = 0
     rounds: int = 0
+    comm_hidden_elems: int = 0
+    n_slabs: int = 1
+    critical_path_s: float = 0.0
 
 
 def _stage_flops_bytes(
@@ -643,6 +670,17 @@ class KronOp:
         default the card.  A call measures on its tensors' device.
     enable_prekron : None keeps the auto-gate (``_auto_prekron``); an
         explicit bool overrides it.
+    mesh : a ``DeviceMesh`` with dims ``data_axis`` (a name or a tuple of
+        names) and ``model_axis``: calls run the distributed round schedule
+        (``core.distributed``), validated at construction (``ValueError``
+        when ``K`` does not divide over the model axis, ``PlanError`` when
+        no legal relocation schedule exists).  ``per_iteration=True``
+        relocates after every factor (the CTF/DISTAL baseline).
+    n_slabs : row slabs of the mesh round pipeline: ``"auto"`` lets the
+        planner decide (a per-sample op's plan carries it as
+        ``KronPlan.n_slabs``; otherwise ``autotune.choose_n_slabs``), an int
+        forces it, clamped to a divisor of the local rows.  Ignored
+        off-mesh.
     """
 
     def __init__(
@@ -653,6 +691,10 @@ class KronOp:
         m: int | None = None,
         batch: int | None = None,
         shared_factors: bool = True,
+        mesh=None,
+        data_axis: str | tuple[str, ...] = "data",
+        model_axis: str = "model",
+        per_iteration: bool = False,
         backend: str = "auto",
         plan: KronPlan | str | None = "auto",
         tune: str = "analytic",
@@ -660,6 +702,7 @@ class KronOp:
         dtype_bytes: int = 4,
         enable_prekron: bool | None = None,
         device: str | torch.device | None = None,
+        n_slabs: int | str = "auto",
     ):
         self.ps = tuple(int(p) for p in ps)
         self.qs = tuple(int(q) for q in qs)
@@ -675,6 +718,11 @@ class KronOp:
             raise ValueError(f"unknown backend {backend!r}: 'auto', 'cuda' or 'torch'")
         if tune not in ("analytic", "measure"):
             raise guard.PlanError(f"unknown tune mode {tune!r}")
+        if isinstance(n_slabs, str):
+            if n_slabs != "auto":
+                raise ValueError(f"n_slabs must be 'auto' or an int: {n_slabs!r}")
+        elif int(n_slabs) <= 0:
+            raise ValueError(f"n_slabs must be positive, got {n_slabs}")
         self.n = len(self.ps)
         self.k = math.prod(self.ps)
         self.k_out = math.prod(self.qs)
@@ -690,9 +738,30 @@ class KronOp:
         self._measure = tune == "measure"
         prekron = _auto_prekron() if enable_prekron is None else bool(enable_prekron)
         self._ctx = _PlanCtx(plan == "auto", prekron, tune, cache_path)
+        self.mesh = mesh
+        self.data_axis = data_axis
+        self.model_axis = model_axis
+        self.per_iteration = bool(per_iteration)
+        self._n_slabs_arg = n_slabs if n_slabs == "auto" else int(n_slabs)
+        self._local = None  # the mesh ladder's last rung (``_local_op``)
+        if mesh is not None:
+            from .distributed import _mesh_size, plan_rounds
+
+            self.g_m = _mesh_size(mesh, data_axis)
+            self.g_k = _mesh_size(mesh, model_axis)
+            if self.k % self.g_k:
+                raise ValueError(f"K={self.k} not divisible by model axis G_K={self.g_k}")
+            # The round schedule, resolved (and validated) at construction.
+            self.rounds = tuple(plan_rounds(
+                self.k // self.g_k, self.ps[::-1], self.qs[::-1], self.g_k,
+                minimal=self.per_iteration,
+            ))
+        else:
+            self.g_m = self.g_k = 1
+            self.rounds = None
         # Op-owned resolved state: (mode, rows or (b, m), dtype_bytes) -> plan.
         self._plans: dict = {}
-        if m is not None:
+        if m is not None and mesh is None:
             if self._per_sample:
                 self._batched_plan(batch, m, dtype_bytes)
             else:
@@ -747,6 +816,51 @@ class KronOp:
 
         return self._remember(("batched", b, m, dtype_bytes, device), resolve)
 
+    def _mesh_batched_plan(self, b: int, m_loc: int, dtype_bytes: int, device) -> KronPlan:
+        """The per-sample mesh op's plan for ``m_loc`` rows per rank: the
+        distributed plan (``make_batched_plan(g_k=G_K)``), measured on the
+        op's own mesh under ``tune="measure"`` (the plan cache's ``;gk=``
+        entry is that path's memo)."""
+
+        def resolve():
+            if self._plan_arg == "auto":
+                if self._measure:
+                    with telemetry.span("plan", m=m_loc, ps=self.ps, qs=self.qs,
+                                        tune="measure", batch=b, g_k=self.g_k):
+                        return autotune.make_batched_plan(
+                            KronProblem(m_loc, self.ps, self.qs), b, shared_factors=False,
+                            dtype_bytes=dtype_bytes, tune="measure", backend=self.backend,
+                            cache_path=self._ctx.cache_path, g_k=self.g_k, mesh=self.mesh,
+                            data_axis=self.data_axis, model_axis=self.model_axis,
+                            device=device,
+                        )
+                return _resolve_batched_plan(b, m_loc, self.ps, self.qs, dtype_bytes,
+                                             self._ctx.prekron, self.g_k)
+            if self._plan_arg is None:
+                return _unfused_batched_plan(self.n, m_loc)
+            return self._plan_arg
+
+        return self._remember(("mesh-batched", b, m_loc, dtype_bytes, device), resolve)
+
+    def _resolve_n_slabs(self, m_loc: int, dtype_bytes: int,
+                         plan: KronPlan | None = None) -> int:
+        """The round schedule's slab count for ``m_loc`` rows per rank: an
+        explicit int, clamped to a divisor of the rows as the executor
+        clamps it; under ``"auto"`` the per-sample plan's ``n_slabs``, else
+        the analytic model (``autotune.choose_n_slabs``).  Always 1 without
+        a model axis to overlap."""
+        if self.mesh is None or self.g_k <= 1 or m_loc <= 1:
+            return 1
+        if self._n_slabs_arg != "auto":
+            return emit.effective_slabs(m_loc, int(self._n_slabs_arg))
+        if plan is not None:
+            return emit.effective_slabs(m_loc, int(plan.n_slabs))
+        b = self.batch if self._per_sample else 1
+        n = autotune.choose_n_slabs(
+            KronProblem(m_loc, self.ps, self.qs), self.g_k, batch=b, dtype_bytes=dtype_bytes,
+        )
+        return emit.effective_slabs(m_loc, n)
+
     def _default_rows(self) -> int:
         # The paper's M=16 CG-block row count when no row hint exists.
         return self._m if self._m is not None else 16
@@ -754,16 +868,45 @@ class KronOp:
     @property
     def plan(self) -> KronPlan | None:
         """The op's resolved KronPlan (last resolved; resolves for the
-        construction-time ``m`` or the M=16 default when none seen yet)."""
+        construction-time ``m`` or the M=16 default when none seen yet).
+
+        Mesh ops on the single and shared path return None: that path runs
+        the round schedule (``self.rounds``), not a stage plan.  Per-sample
+        mesh ops resolve their distributed plan (which carries
+        ``n_slabs``)."""
+        if self.mesh is not None and not self._per_sample:
+            return None
         if self._plans:
             return next(reversed(self._plans.values()))
         m = self._default_rows()
         if self._per_sample:
+            if self.mesh is not None:
+                return self._mesh_batched_plan(self.batch, max(1, m // self.g_m),
+                                               self._dtype_bytes, self._measured_on(None))
             return self._batched_plan(self.batch, m, self._dtype_bytes)
         rows = m if self.batch is None else self.batch * m
         return self._single_plan(rows, self._dtype_bytes)
 
     # -- derivations --------------------------------------------------------
+
+    def _derive(self, **changes) -> "KronOp":
+        kw = dict(
+            m=self._m, batch=self.batch, shared_factors=self.shared_factors, mesh=self.mesh,
+            data_axis=self.data_axis, model_axis=self.model_axis,
+            per_iteration=self.per_iteration, backend=self.backend, plan=self._plan_arg,
+            tune=self._ctx.tune, cache_path=self._ctx.cache_path,
+            dtype_bytes=self._dtype_bytes, enable_prekron=self._enable_prekron,
+            device=self._device, n_slabs=self._n_slabs_arg,
+        )
+        kw.update(changes)
+        return KronOp(self.ps, self.qs, **kw)
+
+    def with_mesh(
+        self, mesh, *, data_axis="data", model_axis="model", per_iteration: bool = False,
+    ) -> "KronOp":
+        """The same problem run as distributed rounds on ``mesh``."""
+        return self._derive(mesh=mesh, data_axis=data_axis, model_axis=model_axis,
+                            per_iteration=per_iteration)
 
     def with_batch(
         self, batch: int | None, *, shared_factors: bool | None = None
@@ -773,12 +916,9 @@ class KronOp:
 
         The row-count hint is dropped: a single op's ``m`` is total rows while
         a batched op's ``m`` is rows per sample."""
-        return KronOp(
-            self.ps, self.qs, m=None, batch=batch,
+        return self._derive(
+            m=None, batch=batch,
             shared_factors=self.shared_factors if shared_factors is None else shared_factors,
-            backend=self.backend, plan=self._plan_arg, tune=self._ctx.tune,
-            cache_path=self._ctx.cache_path, dtype_bytes=self._dtype_bytes,
-            enable_prekron=self._enable_prekron, device=self._device,
         )
 
     # -- size / cost queries -------------------------------------------------
@@ -799,12 +939,38 @@ class KronOp:
         return (*x_shape[:-1], self.k_out)
 
     def cost(self, m: int | None = None) -> KronCost:
-        """Analytic cost of one call: the sliced-multiply FLOPs."""
+        """Analytic cost of one call: the sliced-multiply FLOPs and, on a
+        mesh, the all-to-all payload, its share the slab pipeline can hide,
+        the slab count and the critical-path estimate (``KronCost``)."""
         m = m if m is not None else self._default_rows()
         b = self.batch or 1
         if self._per_sample:
-            return KronCost(b * KronProblem(m, self.ps, self.qs).flops)
-        return KronCost(KronProblem(b * m, self.ps, self.qs).flops)
+            flops = b * KronProblem(m, self.ps, self.qs).flops
+        else:
+            flops = KronProblem(b * m, self.ps, self.qs).flops
+        if self.mesh is None:
+            return KronCost(flops)
+        from .distributed import comm_elems_per_device, comm_hidden_elems
+
+        rows = m if self._per_sample else b * m
+        m_loc = max(1, rows // self.g_m)
+        comm_batch = b if self._per_sample else 1
+        ps_rev, qs_rev = self.ps[::-1], self.qs[::-1]
+        k_loc = self.k // self.g_k
+        comm = comm_elems_per_device(m_loc, k_loc, ps_rev, qs_rev, self.g_k,
+                                     rounds=self.rounds, batch=comm_batch)
+        plan = (self._mesh_batched_plan(b, m_loc, self._dtype_bytes, self._measured_on(None))
+                if self._per_sample and self._plan_arg == "auto" and not self._measure
+                else None)
+        n = self._resolve_n_slabs(m_loc, self._dtype_bytes, plan)
+        hidden = comm_hidden_elems(m_loc, k_loc, ps_rev, qs_rev, self.g_k,
+                                   rounds=self.rounds, batch=comm_batch, n_slabs=n)
+        critical = (
+            flops / (self.g_m * self.g_k) / autotune.peak_flops(self._dtype_bytes)
+            + (comm - hidden) * self._dtype_bytes / autotune.NVLINK_BW
+            + len(self.rounds) * n * autotune.A2A_LATENCY_S
+        )
+        return KronCost(flops, comm, len(self.rounds), hidden, n, critical)
 
     def profile(
         self,
@@ -837,9 +1003,42 @@ class KronOp:
         threshold = (
             telemetry.DRIFT_THRESHOLD if drift_threshold is None else float(drift_threshold)
         )
-        report = self._profile_stages(
+        op = self
+        if self.mesh is not None:
+            # Per-stage times inside the rounds are not the program's: a
+            # mesh op profiles its local-equivalent plan on the gathered x,
+            # with the collective cost as predicted-only under "comm".
+            from torch.distributed.tensor import DTensor
+
+            from .distributed import _local_factor, gather
+
+            op = self._derive(mesh=None, m=None)
+            x = gather(x) if isinstance(x, DTensor) else x
+            factors = tuple(_local_factor(f) for f in factors)
+        report = op._profile_stages(
             x, factors, warmup=int(warmup), iters=int(iters), threshold=threshold
         )
+        if self.mesh is not None:
+            cost = self.cost(report["signature"]["m"])
+            report["signature"]["mesh"] = [self.g_m, self.g_k]
+            report["comm"] = {
+                "elems_per_device": cost.comm_elems_per_device,
+                "rounds": cost.rounds,
+                "n_slabs": cost.n_slabs,
+                "hidden_elems": cost.comm_hidden_elems,
+                "critical_path_s": cost.critical_path_s,
+                "predicted_s": cost.comm_elems_per_device * self._dtype_bytes
+                / autotune.NVLINK_BW,
+                "measured_s": None,
+            }
+            # The gauges' hidden total (per round: total - max slab) equals
+            # the model's payload - payload/n when the rounds ran the
+            # schedule cost() predicts.
+            tele = telemetry.comm_summary()
+            if tele:
+                report["comm"]["telemetry_hidden_elems"] = sum(
+                    r["hidden"] for r in tele.values())
+                report["comm"]["telemetry_rounds"] = tele
         telemetry.mark_profile(report)
         for i in report["drift_flagged"]:
             st = report["stages"][i]
@@ -929,11 +1128,17 @@ class KronOp:
         shared = "" if self.batch is None else (
             ", shared" if self.shared_factors else ", per-sample"
         )
+        where = f"mesh({self.g_m}x{self.g_k})" if self.mesh is not None else "local"
         plan = self.plan
-        pdesc = plan.describe() if plan is not None else "unfused"
+        if plan is not None:
+            pdesc = plan.describe()
+        elif self.rounds is not None:
+            pdesc = f"rounds{list(self.rounds)}"  # the mesh path's schedule is its plan
+        else:
+            pdesc = "unfused"
         base = (
             f"KronOp(ps={list(self.ps)}, qs={list(self.qs)}, {mode}{shared}, "
-            f"local, backend={self.backend}) :: {pdesc}"
+            f"{where}, backend={self.backend}) :: {pdesc}"
         )
         return base + self._health_suffix() + self._telemetry_suffix()
 
@@ -979,7 +1184,7 @@ class KronOp:
         for f in factors:
             if self._per_sample and int(f.shape[0]) != self.batch:
                 raise ValueError(f"factor batch {f.shape[0]} != x batch {self.batch}")
-            if f.device != x.device:
+            if f.device.type != x.device.type or (self.mesh is None and f.device != x.device):
                 raise ValueError(f"x on {x.device} but a factor on {f.device}")
         if x.shape[-1] != self.k:
             raise ValueError(
@@ -991,6 +1196,8 @@ class KronOp:
     ) -> torch.Tensor:
         factors = tuple(factors)
         self._check_factors(x, factors)
+        if self.mesh is not None:
+            return self._run_mesh(x, factors)
         size = x.element_size()
         dev = x.device if self._measure else None
         if self.batch is None:
@@ -1021,6 +1228,84 @@ class KronOp:
             )
         return y.reshape(b, *lead, self.k_out)
 
+    # -- the mesh path -------------------------------------------------------
+
+    def _local_op(self) -> "KronOp":
+        """The mesh ladder's last rung: this problem on one device (a shared
+        batch folds into the rows, so the single-problem op)."""
+        if self._local is None:
+            self._local = (
+                self._derive(mesh=None, m=None) if self._per_sample
+                else self._derive(mesh=None, m=None, batch=None, shared_factors=True))
+        return self._local
+
+    def _run_mesh(self, x, factors):
+        """A call on the mesh.  ``x`` is a DTensor placed rows over
+        ``data_axis`` and columns over ``model_axis`` (``(M, K)``; ``(B, M,
+        K)`` for a batched op, B replicated), or a plain tensor every rank
+        holds in full, which is sliced locally (no communication) and whose
+        result comes back replicated (an all-gather).
+
+        The mesh ladder: ``mesh-slabbed`` (when the schedule has more than
+        one slab), ``mesh-rounds`` (serial), ``local``.  The local rung
+        gathers x (``distributed.gather``, an all-gather, not the
+        relocation that failed), runs the local op on each rank's device
+        and hands back the caller's placements.  Only ``CollectiveError``
+        degrades."""
+        from torch.distributed.tensor import DTensor
+
+        from . import distributed as D
+
+        plain = not isinstance(x, DTensor)
+        shape = tuple(x.shape)
+        if self.batch is None:
+            if plain:
+                x = x.reshape(-1, self.k)
+            elif x.ndim != 2:
+                raise ValueError(f"distributed op expects x (M, K), got {shape}")
+        elif x.ndim != 3 or int(x.shape[0]) != self.batch:
+            raise ValueError(f"batched mesh op expects x (B={self.batch}, M, K), got {shape}")
+        elif plain and self.shared_factors:
+            # A shared batch folds into the sharded rows, as in the reference.
+            x = x.reshape(-1, self.k)
+        placements = D.mesh_placements(self.mesh, self.data_axis, self.model_axis, ndim=x.ndim)
+        size = x.element_size()
+        m = int(x.shape[-2])
+        rows = m * (int(x.shape[0]) if x.ndim == 3 and not self._per_sample else 1)
+        m_loc = max(1, rows // self.g_m)
+        if self._per_sample:
+            plan = self._mesh_batched_plan(
+                self.batch, max(1, m // self.g_m), size,
+                x.device if self._measure else None)
+            n_slabs = self._resolve_n_slabs(max(1, m // self.g_m), size, plan)
+            run = D.run_batched_distributed_rounds
+        else:
+            n_slabs = self._resolve_n_slabs(m_loc, size)
+            run = D.run_distributed_rounds
+        kw = dict(data_axis=self.data_axis, model_axis=self.model_axis, backend=self.backend,
+                  per_iteration=self.per_iteration)
+
+        def _local():
+            xf = D.gather(x) if isinstance(x, DTensor) else x
+            fs = tuple(D._local_factor(f) for f in factors)
+            if self._per_sample:
+                y = self._local_op()(xf, fs)
+            else:
+                y = self._local_op()(xf.reshape(-1, self.k), fs).reshape(
+                    *xf.shape[:-1], self.k_out)
+            return D._as_placed(y, self.mesh, placements)
+
+        rungs = [("mesh-rounds", lambda: run(x, factors, self.mesh, **kw)), ("local", _local)]
+        if n_slabs > 1:
+            rungs.insert(0, ("mesh-slabbed",
+                             lambda: run(x, factors, self.mesh, n_slabs=n_slabs, **kw)))
+        mode = "batched" if self._per_sample else "single"
+        y = guard.run_ladder(("mesh", self.ps, self.qs, self.backend, mode), rungs,
+                             catch=(guard.CollectiveError,))
+        if plain:
+            return D.gather(y).reshape(*shape[:-1], self.k_out)
+        return y
+
 
 # ---------------------------------------------------------------------------
 # Bounded op factory (the shim path) + deprecation bookkeeping
@@ -1035,6 +1320,10 @@ def kron_op_for(
     m: int | None = None,
     batch: int | None = None,
     shared_factors: bool = True,
+    mesh=None,
+    data_axis: str | tuple[str, ...] = "data",
+    model_axis: str = "model",
+    per_iteration: bool = False,
     backend: str = "auto",
     plan: KronPlan | str | None = "auto",
     tune: str = "analytic",
@@ -1042,17 +1331,21 @@ def kron_op_for(
     dtype_bytes: int = 4,
     enable_prekron: bool | None = None,
     device: str | None = None,
+    n_slabs: int | str = "auto",
 ) -> KronOp:
     """Shared, bounded ``KronOp`` factory: same signature -> same op object.
 
     The cache behind the ``kron_matmul*`` shims and the consumers that key
-    ops on runtime shapes.  Plans are also shared through the engine's
-    bounded plan memo, so two distinct ops with one signature hold one plan.
+    ops on runtime shapes (a ``DeviceMesh`` is hashable, so mesh ops are
+    shared too).  Plans are also shared through the engine's bounded plan
+    memo, so two distinct ops with one signature hold one plan.
     """
     return KronOp(
-        ps, qs, m=m, batch=batch, shared_factors=shared_factors, backend=backend,
-        plan=plan, tune=tune, cache_path=cache_path, dtype_bytes=dtype_bytes,
-        enable_prekron=enable_prekron, device=device,
+        ps, qs, m=m, batch=batch, shared_factors=shared_factors, mesh=mesh,
+        data_axis=data_axis, model_axis=model_axis, per_iteration=per_iteration,
+        backend=backend, plan=plan, tune=tune, cache_path=cache_path,
+        dtype_bytes=dtype_bytes, enable_prekron=enable_prekron, device=device,
+        n_slabs=n_slabs,
     )
 
 

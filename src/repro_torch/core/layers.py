@@ -12,11 +12,12 @@ frozen).
 The functional surface takes the reference's parameter dict, ``{"factors":
 (F^1, ..., F^N), "bias": b}`` (bias optional); ``KronLinear`` is an
 ``nn.Module`` holding the factors as an ``nn.ParameterList`` and the
-resolved op.  The reference's ``kron_distributed`` scope belongs to the
-port's mesh slice.
+resolved op.  Inside a ``kron_distributed(mesh)`` scope, ``(B, T, d)``
+activations run the distributed Kron-Matmul on the scope's mesh.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Sequence
@@ -25,6 +26,66 @@ import torch
 from torch import nn
 
 from .engine import KronOp, kron_op_for, signature_of
+
+# Active distributed-KronLinear scopes (innermost last), entered through
+# ``kron_distributed``.
+_DIST_SCOPES: list[tuple] = []
+
+
+@contextlib.contextmanager
+def kron_distributed(mesh, *, data_axis="data", model_axis="model"):
+    """Route batched KronLinear applies through the distributed Kron-Matmul.
+
+    Inside the scope, ``kron_linear_apply`` (and ``KronLinear.forward``) on
+    a ``(B, T, d)`` activation that every rank holds in full runs the mesh
+    ``KronOp`` on ``mesh`` (shared factors: ``B*T`` folds into the rows,
+    sharded over ``data_axis``, the paper's round schedule): each rank
+    keeps its slice of the activation (no communication), runs the rounds
+    on it, and the result comes back replicated (an all-gather).  The
+    factor gradients are summed over the mesh.  Shapes the mesh cannot host
+    (rows not divisible by the data axis, ``K`` not by the model axis, or
+    no legal relocation round) run local: the scope is an optimisation,
+    never an error.  The routing is decided per call."""
+    _DIST_SCOPES.append((mesh, data_axis, model_axis))
+    try:
+        yield
+    finally:
+        _DIST_SCOPES.pop()
+
+
+def _mesh_op_maybe(ps, qs, b, m, backend) -> KronOp | None:
+    """The innermost scope's mesh op when it can host a ``(b, m, K)``
+    activation, else None."""
+    if not _DIST_SCOPES:
+        return None
+    mesh, data_axis, model_axis = _DIST_SCOPES[-1]
+    try:
+        op = kron_op_for(
+            ps, qs, batch=b, shared_factors=True, mesh=mesh, data_axis=data_axis,
+            model_axis=model_axis, backend=backend,
+        )
+    except ValueError:
+        # K not divisible by the model axis, or no legal relocation round
+        # for this (K, G_K) (PlanError is a ValueError): run local.
+        return None
+    if (b * m) % op.g_m:
+        return None
+    return op
+
+
+def _apply_batched_maybe_distributed(factors, x, backend, plan, op=None):
+    """A ``(B, ..., d)`` apply: through the scope's mesh op when one hosts
+    a 3-D ``x``, else the local batched op (or ``op``)."""
+    ps, qs = signature_of(factors, shared_factors=True)
+    if x.ndim == 3:
+        mesh_op = _mesh_op_maybe(ps, qs, int(x.shape[0]), int(x.shape[1]),
+                                 backend if op is None else op.backend)
+        if mesh_op is not None:
+            return mesh_op(x, factors)
+    if op is None:
+        op = kron_op_for(ps, qs, batch=int(x.shape[0]), shared_factors=True,
+                         backend=backend, plan=plan)
+    return op(x, factors)
 
 
 def balanced_factorization(d: int, n: int) -> tuple[int, ...]:
@@ -115,18 +176,18 @@ def kron_linear_apply(
     """``x @ W (+ bias)`` for ``x: (..., d_in)``.  A batch of three or more
     dims ``(B, ..., d_in)`` runs the shared-factor batched op (B and the
     other leading dims fold into the rows: one launch per stage for the
-    whole batch); a 2-D ``x`` the single op.  ``op``, an op already
+    whole batch), inside a ``kron_distributed`` scope the scope's mesh op
+    for a 3-D ``x``; a 2-D ``x`` the single op.  ``op``, an op already
     resolved for these factors (``KronLinear``'s), runs in place of one
     from ``kron_op_for``; ``backend`` and ``plan`` are then its own."""
     factors = tuple(params["factors"])
-    if op is None:
-        ps, qs = signature_of(factors, shared_factors=True)
-        if x.ndim >= 3:
-            op = kron_op_for(ps, qs, batch=int(x.shape[0]), shared_factors=True,
-                             backend=backend, plan=plan)
-        else:
+    if x.ndim >= 3:
+        y = _apply_batched_maybe_distributed(factors, x, backend, plan, op)
+    else:
+        if op is None:
+            ps, qs = signature_of(factors, shared_factors=True)
             op = kron_op_for(ps, qs, backend=backend, plan=plan)
-    y = op(x, factors)
+        y = op(x, factors)
     if "bias" in params:
         y = y + params["bias"]
     return y
@@ -206,5 +267,6 @@ __all__ = [
     "kron_linear_apply",
     "kron_linear_apply_batched",
     "kron_linear_materialize",
+    "kron_distributed",
     "balanced_factorization",
 ]

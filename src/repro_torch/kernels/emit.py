@@ -316,6 +316,44 @@ def prekron_product(stage_factors: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Slab-sliced execution (the distributed round pipeline's view of a program)
+# ---------------------------------------------------------------------------
+
+
+def effective_slabs(size: int, n_slabs: int) -> int:
+    """Clamp a requested slab count to what the axis can carry: the largest
+    divisor of ``size`` that is ``<= n_slabs``.  Slabs tile the axis
+    exactly: a ragged tail slab would change the per-slab payload and break
+    the comm accounting (per-slab all-to-all payloads sum to the serial
+    total).  ``n_slabs <= 1`` and ``size == 0`` give 1, the serial
+    schedule."""
+    n = max(1, min(int(n_slabs), int(size) if size else 1))
+    while size % n:
+        n -= 1
+    return n
+
+
+def split_slabs(y: torch.Tensor, n_slabs: int, axis: int = 0) -> list[torch.Tensor]:
+    """Split ``y`` into ``n_slabs`` equal slabs along ``axis``.
+
+    The slabs partition a row-parallel axis, so running a chain per slab
+    and concatenating is bitwise equal to the unsliced run: the property
+    the slab-pipelined mesh rounds rely on.  The slabs are views of ``y``
+    (``torch.split``): a caller reads them and writes none of them.
+    Callers clamp with ``effective_slabs`` first; a count that does not
+    divide the axis raises ``ValueError``."""
+    size = int(y.shape[axis])
+    if n_slabs <= 1:
+        return [y]
+    if size % n_slabs:
+        raise ValueError(
+            f"n_slabs={n_slabs} does not divide axis {axis} of size {size}; "
+            f"clamp with effective_slabs first"
+        )
+    return list(torch.split(y, size // n_slabs, dim=axis))
+
+
+# ---------------------------------------------------------------------------
 # Growth models (shared by the executor and the planner)
 # ---------------------------------------------------------------------------
 
@@ -1343,6 +1381,8 @@ __all__ = [
     "sliced_apply_t",
     "sliced_vjp_factor",
     "prekron_product",
+    "effective_slabs",
+    "split_slabs",
     "chain_cuda",
     "chain_reference",
     "chain_bwd_cuda",

@@ -32,8 +32,9 @@ temperature sampling draws from a ``torch.Generator`` seeded from
 ``(sample_seed, rid, index)`` (the reference folds the same three into a
 ``jax.random`` key), so a request's tokens do not depend on co-batching
 but differ from the reference's at temperature > 0.  The mesh pieces
-(``--distributed``, ``--want-model-parallel``, ``elastic_mesh``,
-``prewarm(mesh=)``) belong to the mesh slice and raise.
+(``--distributed``, ``--want-model-parallel``, ``prewarm(mesh=)``) need the
+model stack sharded over the mesh (``runtime/sharding.py``, ROADMAP.md
+queue 1 item 1) and raise.
 """
 from __future__ import annotations
 
@@ -56,7 +57,8 @@ from ..train import make_prefill_step, make_serve_step, prebuild_kron_ops
 from .scheduler import SchedulerConfig, new_state, poisson_trace
 from .scheduler import step as sched_step
 
-_MESH = "{what} belongs to the mesh slice, not ported yet (ROADMAP.md queue 1)"
+_MESH = ("{what} needs the model stack sharded over the mesh, the next mesh slice "
+         "(ROADMAP.md queue 1 item 1: runtime/sharding.py, the launchers' mesh flags)")
 
 
 def batch_buckets(max_prefill: int) -> tuple[int, ...]:
@@ -479,14 +481,14 @@ def main(argv=None) -> None:
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--want-model-parallel", type=int, default=None,
-                    help="the mesh slice's model-parallel width (not ported: raises)")
+                    help="model-parallel width (the next mesh slice: raises)")
     ap.add_argument("--kv-quant", action="store_true",
                     help="int8 KV cache (halves serving memory)")
     ap.add_argument("--kron-ffn", action="store_true",
                     help="Kron-compressed FFN projections: each projection of a "
                          "(B, T, d) activation is one KronOp call over B*T rows")
     ap.add_argument("--distributed", action="store_true",
-                    help="the mesh slice's distributed Kron-FFN prefill (not ported: raises)")
+                    help="distributed Kron-FFN prefill (the next mesh slice: raises)")
     ap.add_argument("--numerics", choices=list(guard.NUMERICS_POLICIES), default=None,
                     help="non-finite guard at StageProgram boundaries "
                          "(default: FASTKRON_NUMERICS or off)")

@@ -10,7 +10,8 @@ Shampoo) -> the straggler monitor -> atomic asynchronous checkpoints, as
 ``repro.launch.train`` does on one device.  ``--device`` is ``cuda`` by
 default and raises without a card; ``--device cpu`` runs the kernels'
 plain twins.  ``--reduced`` is the tiny same-family config.  The
-reference's ``--want-model-parallel`` comes with the mesh slice.
+reference's ``--want-model-parallel`` comes with the next mesh slice (the
+model stack sharded over the mesh, ROADMAP.md queue 1 item 1).
 """
 from __future__ import annotations
 

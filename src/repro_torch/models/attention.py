@@ -9,7 +9,7 @@ saved.  GQA keeps K/V un-repeated through a grouped einsum.  Scores and
 probabilities are f32, computed with ``torch.einsum`` as the reference
 computes them outside any Pallas kernel (with TF32 off, PyTorch's default,
 they stay f32 on the card).  The reference's context parallelism belongs to
-the mesh slice.
+the next mesh slice (``runtime/sharding.py``).
 
 The serving half: ``KVCache`` / ``QuantKVCache`` (int8 with per-(token,
 head) absmax scales), ``attn_prefill_cache`` (the sliding-window ring order

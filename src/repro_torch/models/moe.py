@@ -17,7 +17,8 @@ One difference from the reference, kept: the index map is written only
 from kept slots.  The reference sends a dropped slot's write to expert 0,
 slot 0, an index in range, so whenever a token overflows capacity it
 overwrites the token held there (which then loses that expert's
-contribution).  The reference's sharding hints belong to the mesh slice.
+contribution).  The reference's sharding hints belong to the next mesh slice
+(``runtime/sharding.py``).
 """
 from __future__ import annotations
 

@@ -6,8 +6,8 @@ straggler (flagged ``patience`` times in a row) triggers the configured
 action: "log", "callback" (e.g. ask the cluster manager to reschedule) or
 "raise" (fail fast so the job restarts from the last checkpoint).  The
 caller times the step: on the card it synchronizes the device before
-``stop``, or the monitor times the enqueue.  ``elastic_mesh`` belongs to
-the mesh slice and raises.
+``stop``, or the monitor times the enqueue.  ``elastic_mesh`` builds the
+largest ``(data, model)`` DeviceMesh over the ranks that survived.
 """
 from __future__ import annotations
 
@@ -90,12 +90,43 @@ class StragglerMonitor:
         return is_slow
 
 
+def elastic_shape(n_devices: int, want_model: int = 16) -> tuple[int, int]:
+    """``(data, model)`` of ``elastic_mesh``: model is the largest power of
+    two that divides ``n_devices`` and is ``<= want_model``, data the rest,
+    so every device is used."""
+    model = 1
+    while model * 2 <= want_model and n_devices % (model * 2) == 0:
+        model *= 2
+    return n_devices // model, model
+
+
 def elastic_mesh(n_devices: int, *, want_model: int = 16, axis_names=("data", "model"),
-                 devices=None):
-    """The reference's largest (data, model) device grid: the mesh slice,
-    not ported yet (ROADMAP.md queue 1)."""
-    raise NotImplementedError("elastic_mesh belongs to the mesh slice, not ported yet "
-                              "(ROADMAP.md queue 1)")
+                 devices=None, device_type: str | None = None):
+    """Largest ``(data, model)`` DeviceMesh for however many ranks survived
+    (``elastic_shape``), so a job that loses a host restarts on the N-k
+    ranks left without config edits.
+
+    Over ``torch.distributed``'s world (which must hold ``n_devices``
+    ranks), or over the ranks in ``devices`` (every rank of the world
+    calls it, as process groups are made collectively).  ``device_type``:
+    ``"cuda"`` unless given (``"cpu"`` for a gloo mesh on the CPU).  The
+    caller initialises the process group."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    data, model = elastic_shape(int(n_devices), want_model)
+    ranks = list(range(n_devices)) if devices is None else [int(d) for d in devices]
+    if len(ranks) != n_devices:
+        raise ValueError(f"{len(ranks)} ranks given for n_devices={n_devices}")
+    world = dist.get_world_size() if dist.is_initialized() else 0
+    if max(ranks) >= world:
+        raise RuntimeError(
+            f"elastic_mesh over ranks up to {max(ranks)} needs an initialised "
+            f"torch.distributed world that holds them (world size {world})"
+        )
+    mesh = torch.tensor(ranks, dtype=torch.int64).reshape(data, model)
+    return DeviceMesh(device_type or "cuda", mesh, mesh_dim_names=tuple(axis_names))
 
 
-__all__ = ["StragglerMonitor", "elastic_mesh"]
+__all__ = ["StragglerMonitor", "elastic_mesh", "elastic_shape"]

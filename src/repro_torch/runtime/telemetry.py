@@ -368,9 +368,8 @@ def comm_summary() -> dict:
     ``hidden`` is the overlap accounting the gauges imply — everything except
     one exposed slab per round (0 for serial rounds).  ``KronOp.profile()``
     reconciles ``KronCost.comm_hidden_elems`` against this; ``{}`` while
-    inactive or before any mesh round ran.  The port's mesh rounds come
-    with a later slice (ROADMAP queue 1, mesh rounds); the gauge format is
-    the reference's."""
+    inactive or before any mesh round ran.  ``core.distributed``'s rounds
+    set the gauges, in the reference's format."""
     st = _STATE
     if st is None:
         return {}

@@ -69,12 +69,11 @@ def prebuild_kron_ops(
     shapes the ops are constructed and their plans resolve on first call.
     ``opt_cfg``: with a ``ShampooConfig``, also the optimizer's
     shape-group ops, sized from the parameter shapes (a ``meta``-device
-    init).  ``mesh`` belongs to the mesh slice (ROADMAP.md queue 1) and
-    raises.
+    init).  ``mesh``: also each projection's mesh op (what a
+    ``kron_distributed(mesh)`` scope runs), where the mesh can host the
+    shape; one with no legal round schedule is skipped (the scope runs it
+    local).
     """
-    if mesh is not None:
-        raise NotImplementedError("prebuild_kron_ops(mesh=...): the mesh is not ported "
-                                  "yet (ROADMAP.md queue 1)")
     opt_ops: tuple = ()
     if isinstance(opt_cfg, ShampooConfig):
         opt_ops = _shampoo.prewarm(M.init_params(cfg, None, device="meta"), opt_cfg)
@@ -99,6 +98,11 @@ def prebuild_kron_ops(
                                        shared_factors=True, dtype_bytes=dtype_bytes))
             if not shapes:
                 ops.append(kron_op_for(spec.ps, spec.qs))
+            if mesh is not None:
+                try:
+                    ops.append(kron_op_for(spec.ps, spec.qs, mesh=mesh))
+                except ValueError:
+                    pass  # no legal round schedule: the scope runs it local
     return tuple(ops) + opt_ops
 
 

@@ -123,7 +123,7 @@ def test_lower_equals_jax(tpu_model, m, ps, qs, batched):
 def test_plan_json_round_trip_reads_jax_dicts():
     jplan = JA.make_plan(JProblem(8, (8, 16, 32), (8, 16, 32)), acc_dtype="float32")
     d = JA.plan_to_json(jplan)
-    assert "n_slabs" in d  # a key only the JAX mesh rounds read
+    assert "n_slabs" in d  # the key the mesh rounds' plans carry
     plan = plan_from_jax_json(d)
     assert TA.plan_from_json(TA.plan_to_json(plan)) == plan
     assert plan.describe() == jplan.describe()

@@ -120,13 +120,33 @@ def test_stack_equals_reference():
         assert_close(g, w, 0)
 
 
-def test_mesh_raises_naming_the_mesh_slice():
+def test_mesh_raises_naming_the_mesh_slice(tmp_path):
+    """The mesh forms no longer raise: the mesh slice is ported.  On a
+    one-rank gloo world's (1, 1) mesh, ``matmul(mesh=)`` and the epochs with
+    ``mesh=`` equal the local calls (tests/test_torch_distributed.py holds
+    them against the reference on eight ranks)."""
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed as TD
+    from repro_torch.launch.mesh import make_debug_mesh
+
     bk = TS.BatchedKronKernel(tuple(to_torch(f) for f in _kernels(6, (4, 4), batch=2)))
-    v = torch.zeros(2, 3, 16, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="mesh slice"):
-        bk.matmul(v, mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh slice"):
-        TS.gp_train_epoch_batched(bk, v, mesh=object())
+    tk = TS.KronKernel(tuple(f[0] for f in bk.factors))
+    v = to_torch(np.random.default_rng(6).standard_normal((2, 3, 16)))
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", world_size=1,
+                            rank=0)
+    try:
+        mesh = make_debug_mesh(1, 1, device_type="cpu")
+        assert_close(TD.gather(bk.matmul(TD.sharded_input_batched(v, mesh), mesh=mesh)),
+                     bk.matmul(v).numpy(), 1e-12)
+        for got, want in zip(TS.gp_train_epoch_batched(bk, v, cg_iters=3, mesh=mesh),
+                             TS.gp_train_epoch_batched(bk, v, cg_iters=3)):
+            assert_close(got, want.numpy(), 1e-12)
+        for got, want in zip(TS.gp_train_epoch(tk, v[0], cg_iters=3, mesh=mesh),
+                             TS.gp_train_epoch(tk, v[0], cg_iters=3)):
+            assert_close(got, want.numpy(), 1e-12)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_epoch_mvms_go_through_the_op(monkeypatch):

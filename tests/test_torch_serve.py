@@ -7,7 +7,7 @@ index)); ``serve_admit`` chaos degrading to per-request prefills without
 dropping a request; zero plan-memo misses while serving after ``prewarm``
 and ``compile_shapes`` with ``kron_ffn``; padded prefill positions masked;
 and the launcher, one-shot and continuous, with ``--device cpu`` (its mesh
-flags and ``elastic_mesh`` raise)."""
+flags raise; ``elastic_mesh`` needs an initialised process group)."""
 import dataclasses
 import json
 
@@ -200,5 +200,5 @@ def test_launcher_one_shot_and_continuous_on_cpu(capsys):
     for flag in (["--distributed"], ["--want-model-parallel", "4"]):
         with pytest.raises(NotImplementedError, match="queue 1"):
             TServe.main(["--arch", "gemma-2b", "--reduced", "--device", "cpu", *flag])
-    with pytest.raises(NotImplementedError, match="queue 1"):
+    with pytest.raises(RuntimeError, match="world"):  # built over an initialised world
         elastic_mesh(4, want_model=2)

@@ -108,14 +108,21 @@ def test_microbatch_accumulation_matches_full_batch():
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-3, atol=1e-5)
 
 
+class _StandInMesh:
+    mesh_dim_names = ("data", "model")
+    shape = (1, 2)
+
+
 def test_prebuild_kron_ops_and_its_later_slices():
     _, tcfg = _cfgs()
     assert len(TS.prebuild_kron_ops(tcfg)) == 2  # up and down projections
     assert len(TS.prebuild_kron_ops(tcfg, batch=2, seq_len=16)) == 2
     with_opt = TS.prebuild_kron_ops(tcfg, opt_cfg=TSh())
     assert len(with_opt) > 2 and all(op.batch for op in with_opt[2:])
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TS.prebuild_kron_ops(tcfg, mesh=object())
+    mesh = _StandInMesh()  # a (1, 2) mesh: construction reads its dims' names and sizes
+    with_mesh = TS.prebuild_kron_ops(tcfg, mesh=mesh)
+    assert [op.mesh is mesh for op in with_mesh] == [False, True, False, True]
+    assert all(op.rounds for op in with_mesh[1::2])
     # serving: one op per shape and projection, each plan resolved for its rows
     serve = TS.prebuild_kron_ops(tcfg, prefill_shapes=[(1, 8), (2, 8), (2, 8)], decode_batch=4)
     assert len(serve) == 2 * 3  # up and down x (1, 8), (2, 8), (4, 1)
