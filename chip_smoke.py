@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --alone    # phases 1 and 4 only (A/B of two trees)
     python3 chip_smoke.py --mesh     # phases 1 and 12 only
+    python3 chip_smoke.py --shard    # phases 1 and 13 only
 
 It refuses to run (exit 1) with ``FASTKRON_CHAOS``, ``FASTKRON_NUMERICS`` or
 ``FASTKRON_PLAN_CACHE`` set: the first injects faults into the kernels'
@@ -162,17 +163,43 @@ went through the kernels.  Phases, one line each:
       slab still); (e) ``tune="measure"`` on the mesh at gp16, B=2 (cut
       from 4: four ranks' per-sample backwards do not fit one card): each
       n_slabs candidate's time, the winner, the ``;dev=<card>;gk=2`` key,
-      a cache hit on the second construction.  Every call's launches per
+      a cache hit on the second construction, and each rank's peak memory
+      over the winner's forward and backward.  Every call's launches per
       rank (asserted equal on every rank, and to the rounds' plan) and its
       all-to-all calls and elements per device (against
       ``comm_elems_per_device``).  Times are wall times of the slowest rank:
       four ranks share one card and a host-staged collective, so they are
       not a scaling number.  A rank's failure prints its traceback and
       fails the run.
-  13. a ``{"kernels": [...]}`` JSON line (launches of phases 3 and 6-12,
-      phase 12's summed over its ranks and also given as
-      ``mesh_launches``), then the card's name and power limit.
-  14. last line: ``{"ok": true, "device": {...}}``.
+  13. shard: the model stack sharded over a (data, model) = (2, 2) mesh
+      (``runtime/sharding.py``, the SPMD train step), four gloo ranks on the
+      card as in phase 12, moving tensors only by direct ``all_reduce`` and
+      ``all_gather_into_tensor`` calls, which a probe checks first on CUDA
+      tensors, over the world and over each mesh dim's group.  (a) qwen3-4b
+      with its Kron FFN, an f32 copy at full width cut to 4 layers: one
+      AdamW step and one Shampoo refresh step sharded against the
+      single-rank step from the same parameters (loss 1e-5; every gathered
+      gradient, as AdamW's first moment holds it, and updated parameter
+      1e-4 of max|ref|; every rank's shard shapes those of its
+      placements); (b) the same model in bf16, ``SHARD_BF16["layers"]``
+      deep: a step's launches per rank against the plans' prediction, then
+      a timed step (the slowest rank's wall time) and each rank's peak
+      memory; (c) ``launch.train --want-model-parallel 2`` on the same f32
+      copy cut to 4 layers, with a checkpoint, then ``--resume``: restored
+      shards bitwise equal to the saved ones, each save within one whole
+      leaf of the card's memory over the rank's state;
+      (d) ``launch.serve --distributed --kron-ffn`` one-shot on an f32 copy
+      cut to 4 layers against the local run: greedy tokens equal, prefill
+      logits 1e-3, ``prewarm(mesh=)`` builds the mesh ops.  Every
+      ``chain_fwd`` and ``grad`` launch (and any ``chain_bwd``, ``sliced``,
+      ``sliced_t``) of (a)-(d) is held against its plain twin
+      (``held_tolerance``).  Times are gloo host staging, not a scaling
+      number.
+  14. a ``{"kernels": [...]}`` JSON line (launches of phases 3 and 6-13,
+      phases 12 and 13 summed over their ranks and also given as
+      ``mesh_launches`` and ``shard_launches``), then the card's name and
+      power limit.
+  15. last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero.  Needs one CUDA card; imports nothing of JAX.
 """
@@ -1980,24 +2007,26 @@ def train_cfg():
     return dataclasses.replace(get_config(TRAIN["arch"]), kron_ffn=True, kron_factors=2)
 
 
-def train_expected(cfg, groups) -> tuple[dict, dict]:
+def train_expected(cfg, groups, batch: int = TRAIN["batch"],
+                   seq: int = TRAIN["seq"]) -> tuple[dict, dict]:
     """The launches of one train step as the plans predict them: (model,
     optimizer).  Per KronLinear of n stages (the plan of the batch's rows):
     n chain_fwd forward, n more in the remat re-forward, n-1 stage inputs
     rematerialized for the factor gradients, n grad and n grad_reduce; three
     KronLinears per layer (w1 and w3 up, w2 down).  Per Shampoo shape group,
-    one per-sample batched op: its stages' chain_fwd."""
+    one per-sample batched op: its stages' chain_fwd.  ``batch``: the rows
+    of the batch one rank runs (all of them off the mesh)."""
     from repro_torch.core.engine import kron_op_for, kron_precond_op
     from repro_torch.core.layers import KronLinearSpec
 
-    b = TRAIN["batch"]
+    b = batch
     up = KronLinearSpec.balanced(cfg.d_model, cfg.d_ff, cfg.kron_factors)
     down = KronLinearSpec.balanced(cfg.d_ff, cfg.d_model, cfg.kron_factors)
     fwd = grad = 0
     for spec in (up, up, down):
         op = kron_op_for(spec.ps, spec.qs, batch=b, shared_factors=True,
                          backend="auto", plan="auto")
-        op._single_plan(b * TRAIN["seq"], 2)
+        op._single_plan(b * seq, getattr(torch, cfg.dtype).itemsize)
         n = n_stages(op, False)
         fwd += (2 if cfg.remat else 1) * n + n - 1
         grad += n
@@ -2404,7 +2433,17 @@ HELD_WRAPPERS = {
     "chain_bwd": ("emit", "chain_bwd_cuda", "chain_bwd_reference"),
     "sliced": ("kron_sliced", "sliced_multiply_cuda", "sliced_multiply_reference"),
     "sliced_t": ("kron_sliced_t", "sliced_multiply_t_cuda", "sliced_multiply_t_reference"),
+    "grad": ("emit", "grad_cuda", "grad_reference"),
 }
+
+
+def held_tolerance(h) -> float:
+    """A held launch's limit: ``TOLERANCE`` of its dtype; the stage backward
+    (dx and every dF, summed over the rows in another order than its twin)
+    ``GRAD_TOLERANCE``, at most 1e-2."""
+    if h.kernel == "grad":
+        return min(GRAD_TOLERANCE[h.dtype], 1e-2)
+    return TOLERANCE[h.dtype]
 
 
 # One kernel launch held against its plain twin on the same inputs.
@@ -2422,8 +2461,14 @@ def held_launches(kernels=("chain_fwd",)):
     def wrap(name, cuda, twin):
         def held(x, *fs, **kw):
             y = cuda(x, *fs, **kw)
-            acc = {"acc_dtype": kw.get("acc_dtype")} if name.startswith("chain") else {}
-            out.append(Held(name, int(x.shape[-2]), x.dtype, rel_err(y, twin(x, *fs, **acc))))
+            acc = ({"acc_dtype": kw.get("acc_dtype")}
+                   if name.startswith("chain") or name == "grad" else {})
+            ref = twin(x, *fs, **acc)
+            if name == "grad":  # (dx, (dF_0, ...)): the worst of them
+                err = max(rel_err(a, b) for a, b in zip(flat(y), flat(ref)))
+            else:
+                err = rel_err(y, ref)
+            out.append(Held(name, int(x.shape[-2]), x.dtype, err))
             return y
         return held
 
@@ -3109,24 +3154,28 @@ def _mesh_expect(a2a_calls: int = 0, a2a_elems: int = 0, **counts) -> dict:
     return out
 
 
-def _mesh_counted(fn, want: dict | None, what: str):
+MESH_HELD = ("chain_fwd", "chain_bwd", "sliced", "sliced_t")
+
+
+def _mesh_counted(fn, want: dict | None, what: str, kernels=MESH_HELD):
     """``fn()`` with every counter from 0 just before it, read just after
-    and asserted equal to ``want`` (None: returned unchecked).  Every
-    ``chain_fwd``, ``chain_bwd``, ``sliced`` and ``sliced_t`` launch in it is
-    held against its plain twin on the same inputs, at the shapes the mesh
-    path gives it, within ``TOLERANCE`` of its dtype.  Returns ``fn()``'s
-    result, the counts, and the held launches per kernel."""
+    and asserted equal to ``want`` (None: returned unchecked).  Every launch
+    of ``kernels`` (phase 12: ``chain_fwd``, ``chain_bwd``, ``sliced`` and
+    ``sliced_t``) in it is held against its plain twin on the same inputs,
+    at the shapes the mesh path gives it, within ``held_tolerance``.
+    Returns ``fn()``'s result, the counts, and the held launches per
+    kernel."""
     _mesh_reset()
-    with held_launches(tuple(HELD_WRAPPERS)) as held:
+    with held_launches(kernels) as held:
         out = fn()
     torch.cuda.synchronize()
     got = _mesh_counters()
     if want is not None and got != want:
         raise AssertionError(f"{what}: launches {got}, want {want}")
     summary = held_summary(held)
-    if any(summary.get(k, {}).get("launches", 0) != got[k] for k in HELD_WRAPPERS):
+    if any(summary.get(k, {}).get("launches", 0) != got[k] for k in kernels):
         raise AssertionError(f"{what}: held {summary}, launched {got}")
-    bad = [h for h in held if h.rel_err > TOLERANCE[h.dtype]]
+    bad = [h for h in held if h.rel_err > held_tolerance(h)]
     if bad:
         raise AssertionError(f"{what}: launches disagree with their twins: {bad[:8]}")
     return out, got, summary
@@ -3534,7 +3583,12 @@ def _mesh_winner(op, mesh) -> dict:
         return (y.to_local().detach(), g[0].to_local(), *g[1:])
 
     counts: dict = {}
+    torch.cuda.reset_peak_memory_stats()
     got = run(op, True)
+    # This rank's peak over the per-sample mesh forward and backward,
+    # against the reference's per-device buffers for the same call
+    # (tools/reference_mesh_memory.py).
+    counts["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     torch.cuda.empty_cache()
     plain = run(KronOp(c["ps"], c["ps"], batch=b, shared_factors=False, mesh=mesh,
                        n_slabs=n_slabs, backend="torch"), False)
@@ -3547,10 +3601,41 @@ def _mesh_winner(op, mesh) -> dict:
     return {"winner_n_slabs": n_slabs, **counts, "rel_err": errs}
 
 
-def _mesh_rank(rank: int, world: int, store: str, out_dir: str, cache: str) -> None:
-    """One rank of phase 12: a gloo process group over a ``file://`` store,
-    every check of the phase, its rows written to ``rank<r>.json``; a
-    failure writes its traceback to ``rank<r>.err`` and exits 1."""
+def _mesh_probe() -> list[dict]:
+    """Phase 12's first call on the card: one all-to-all of CUDA tensors over
+    gloo, and the time of one of 64 MiB."""
+    import torch.distributed as dist
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    send = torch.arange(world * 2, device="cuda", dtype=torch.float32) + 100 * rank
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, async_op=True).wait()
+    want = torch.tensor([100 * r + 2 * rank + j for r in range(world) for j in range(2)],
+                        device="cuda", dtype=torch.float32)
+    if not torch.equal(recv, want):
+        raise AssertionError(f"gloo all_to_all_single of CUDA tensors: {recv.tolist()}")
+    big = torch.empty(64 * 2 ** 20 // 4, device="cuda")
+    t0 = time.perf_counter()
+    dist.all_to_all_single(torch.empty_like(big), big)
+    torch.cuda.synchronize()
+    return [{"case": "gloo-probe", "a2a_cuda": "ok",
+             "a2a_64mib_ms": (time.perf_counter() - t0) * 1e3}]
+
+
+def _mesh_checks(out_dir: str) -> list:
+    """Phase 12's checks, in order: (name, fn) with fn() -> rows."""
+    cache = os.path.join(out_dir, "plans.json")
+    return [("probe", _mesh_probe),
+            *((f"fig11-{s[0]}x{s[1]}", lambda s=s: _mesh_fig11(s)) for s in MESH_FIG11["meshes"]),
+            ("gp16", _mesh_gp), ("ffn", _mesh_ffn), ("ladder", _mesh_ladder),
+            ("measure", lambda: _mesh_measure(cache))]
+
+
+def _mesh_rank(rank: int, world: int, store: str, out_dir: str, phase: str = "mesh") -> None:
+    """One rank of phase 12 (``phase="mesh"``) or 13 (``"shard"``): a gloo
+    process group over a ``file://`` store, every check of the phase, its
+    rows written to ``rank<r>.json``; a failure writes its traceback to
+    ``rank<r>.err`` and exits 1."""
     import datetime
     import traceback
 
@@ -3566,26 +3651,9 @@ def _mesh_rank(rank: int, world: int, store: str, out_dir: str, cache: str) -> N
         torch.cuda.set_device(0)
         dist.init_process_group("gloo", init_method=f"file://{store}", world_size=world,
                                 rank=rank, timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
-        # First on the card: one all-to-all of CUDA tensors over gloo.
-        send = torch.arange(world * 2, device="cuda", dtype=torch.float32) + 100 * rank
-        recv = torch.empty_like(send)
-        dist.all_to_all_single(recv, send, async_op=True).wait()
-        want = torch.tensor([100 * r + 2 * rank + j for r in range(world) for j in range(2)],
-                            device="cuda", dtype=torch.float32)
-        if not torch.equal(recv, want):
-            raise AssertionError(f"gloo all_to_all_single of CUDA tensors: {recv.tolist()}")
-        big = torch.empty(64 * 2 ** 20 // 4, device="cuda")
-        t0 = time.perf_counter()
-        dist.all_to_all_single(torch.empty_like(big), big)
-        torch.cuda.synchronize()
-        rows = [{"case": "gloo-probe", "a2a_cuda": "ok",
-                 "a2a_64mib_ms": (time.perf_counter() - t0) * 1e3}]
-        del big
-        timings = {}
-        for name, fn in [*((f"fig11-{s[0]}x{s[1]}", lambda s=s: _mesh_fig11(s))
-                           for s in MESH_FIG11["meshes"]),
-                         ("gp16", _mesh_gp), ("ffn", _mesh_ffn), ("ladder", _mesh_ladder),
-                         ("measure", lambda: _mesh_measure(cache))]:
+        checks = _mesh_checks(out_dir) if phase == "mesh" else _shard_checks(out_dir)
+        rows, timings = [], {}
+        for name, fn in checks:
             t0 = time.perf_counter()
             rows += fn()
             timings[name] = time.perf_counter() - t0
@@ -3601,23 +3669,26 @@ def _mesh_rank(rank: int, world: int, store: str, out_dir: str, cache: str) -> N
         os._exit(1)
 
 
-def run_mesh(smi: str) -> tuple[list[dict], dict]:
-    """Phase 12: MESH_RANKS processes on the one card (``spawn``, since this
-    process holds a CUDA context), each ``torch.cuda.set_device(0)``, in a
-    gloo process group: fig11 on (1, 4) and (2, 2), gp16-mesh, ffn-mesh,
-    mesh-ladder, mesh-measure.  One line per check (rank 0's row, the
-    launches of every rank asserted equal, the slowest rank's time); a
-    rank's failure prints its traceback and fails the phase.  Returns the
-    rows and the launches of the mesh calls summed over the ranks."""
+def _run_ranks(phase: str) -> list[list[dict]]:
+    """MESH_RANKS processes on the one card (``spawn``, since this process
+    holds a CUDA context), each ``torch.cuda.set_device(0)``, in a gloo
+    process group, running ``_mesh_rank(..., phase)``; every rank's rows.  A
+    rank's failure prints its traceback and fails the phase."""
+    import gc
+
     import torch.multiprocessing as mp
 
+    # The ranks share the card with this process: what earlier phases left
+    # (collected garbage included) is freed first, and what stays is shown.
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
+    print(f"{phase}: this process holds {torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB "
+          f"({torch.cuda.memory_reserved() / 2 ** 30:.3f} reserved) as the ranks start",
+          flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         ctx = mp.start_processes(
-            _mesh_rank, args=(MESH_RANKS, os.path.join(tmp, "store"), tmp,
-                              os.path.join(tmp, "plans.json")),
+            _mesh_rank, args=(MESH_RANKS, os.path.join(tmp, "store"), tmp, phase),
             nprocs=MESH_RANKS, start_method="spawn", join=False)
         deadline = time.monotonic() + MESH_TIMEOUT_S
         failure = None
@@ -3637,13 +3708,18 @@ def run_mesh(smi: str) -> tuple[list[dict], dict]:
         if failure or errs:
             done = Path(tmp) / "rank0.json"
             for row in json.loads(done.read_text()) if done.exists() else []:
-                print("mesh (rank 0, before the failure) " + json.dumps(row), flush=True)
+                print(f"{phase} (rank 0, before the failure) " + json.dumps(row), flush=True)
             for e in errs:
-                print(f"mesh: {e.stem} failed:\n{e.read_text()}", file=sys.stderr, flush=True)
-            raise AssertionError(f"mesh phase: {failure or 'a rank failed'}")
-        per_rank = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
-                    for r in range(MESH_RANKS)]
-    seconds = time.perf_counter() - t0
+                print(f"{phase}: {e.stem} failed:\n{e.read_text()}", file=sys.stderr, flush=True)
+            raise AssertionError(f"{phase} phase: {failure or 'a rank failed'}")
+        return [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                for r in range(MESH_RANKS)]
+
+
+def _merge_ranks(phase: str, per_rank: list[list[dict]], smi: str) -> tuple[list[dict], dict]:
+    """One line per check: rank 0's row, the launches of every rank asserted
+    equal (and summed over the ranks), the slowest rank's times, the worst
+    rank's errors, every rank's peak memory."""
     launches = {name: 0 for name, _, _ in _counter_sites()}
     rows = []
     for i, row in enumerate(per_rank[0]):
@@ -3651,7 +3727,7 @@ def run_mesh(smi: str) -> tuple[list[dict], dict]:
         for key in ("launches", "fwd_launches", "bwd_launches"):
             if key in row:
                 if any(o[key] != row[key] for o in others):
-                    raise AssertionError(f"mesh {row['case']}: ranks differ in {key}: "
+                    raise AssertionError(f"{phase} {row['case']}: ranks differ in {key}: "
                                          f"{[o[key] for o in others]}")
                 for name, cnt in row[key].items():
                     if name in launches:
@@ -3661,19 +3737,377 @@ def run_mesh(smi: str) -> tuple[list[dict], dict]:
                 if any({k: (v["launches"], v["rows"]) for k, v in o[key].items()}
                        != {k: (v["launches"], v["rows"]) for k, v in row[key].items()}
                        for o in others):
-                    raise AssertionError(f"mesh {row['case']}: ranks differ in {key}")
+                    raise AssertionError(f"{phase} {row['case']}: ranks differ in {key}")
                 for name, v in row[key].items():
                     v["rel_err"] = max(o[key][name]["rel_err"] for o in others)
-        for key in ("ms", "fwd_ms", "fwd_bwd_ms", "a2a_64mib_ms"):
+        for key in ("ms", "fwd_ms", "fwd_bwd_ms", "a2a_64mib_ms", "step_ms",
+                    "all_gather_64mib_ms"):
             if key in row:
                 row[key] = max(o[key] for o in others)  # the slowest rank's
         if "rel_err" in row:
             row["rel_err"] = {k: max(o["rel_err"][k] for o in others) for k in row["rel_err"]}
+        if "peak_gib" in row:
+            row["peak_gib"] = [o["peak_gib"] for o in others]  # every rank's
         row.update(ranks=MESH_RANKS, ranks_share_one_card=True, times=MESH_NOTE, device=smi)
-        print("mesh " + json.dumps(row), flush=True)
+        print(f"{phase} " + json.dumps(row), flush=True)
         rows.append(row)
-    print(f"mesh: phase {seconds:.1f} s of command time ({MESH_RANKS} ranks, gloo, {smi})",
-          flush=True)
+    return rows, launches
+
+
+def run_mesh(smi: str) -> tuple[list[dict], dict]:
+    """Phase 12: MESH_RANKS ranks on the one card in a gloo process group:
+    fig11 on (1, 4) and (2, 2), gp16-mesh, ffn-mesh, mesh-ladder,
+    mesh-measure.  Returns the rows and the launches of the mesh calls
+    summed over the ranks."""
+    t0 = time.perf_counter()
+    rows, launches = _merge_ranks("mesh", _run_ranks("mesh"), smi)
+    print(f"mesh: phase {time.perf_counter() - t0:.1f} s of command time ({MESH_RANKS} ranks, "
+          f"gloo, {smi})", flush=True)
+    return rows, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the model stack sharded over the mesh (the ranks share the card)
+# ---------------------------------------------------------------------------
+
+SHARD_MESH = (2, 2)
+# (a) qwen3-4b with its Kron FFN, an f32 copy at full width cut to 4 layers:
+# one AdamW step and one Shampoo refresh step sharded, against the port's
+# single-rank step on the card from the same parameters and tokens: the
+# loss (1e-5), every gradient (as AdamW's first moment after step 1 holds
+# it) and every updated parameter (1e-4 of max|ref|).  eps at 1e-3 keeps the
+# first Adam step a smooth function of the gradient (at 1e-8 it is sign(g),
+# which flips where g sits at the summation-order noise floor).
+SHARD_PARITY = {"layers": 4, "batch": 4, "seq": 128, "seed": 21, "lr": 1e-3, "eps": 1e-3,
+                "warmup_steps": 1, "precond_every": 2}
+SHARD_LOSS_TOL, SHARD_TOL = 1e-5, 1e-4
+# (b) the same model in bf16 at full width and depth (36 layers: a step at
+# 12 took 5.6 s, so the phase stays near its 150 s): a counted step with
+# every launch held against its twin, then a timed one.
+SHARD_BF16 = {"layers": 36, "batch": 4, "seq": 1024, "seed": 22, "lr": 1e-3,
+              "warmup_steps": 2}
+# (c) the training launcher on qwen3-4b at its published widths, (a)'s f32
+# copy cut to 4 layers: two steps and a checkpoint, then --resume.  Each
+# save gathers one leaf at a time, in pieces that go to the host: a rank's
+# card holds its state and less than SHARD_SAVE_LEAVES whole leaves.
+SHARD_TRAIN_ARGV = ["--arch", "qwen3-4b", "--layers", "4", "--dtype", "float32",
+                    "--kron-ffn", "--steps", "2", "--batch", "4", "--seq", "128",
+                    "--want-model-parallel", "2", "--log-every", "1"]
+SHARD_SAVE_LEAVES = 1.0
+# (d) the serving launcher one-shot, an f32 copy of qwen3-4b cut to 4 layers,
+# local and with --distributed: greedy tokens equal, prefill logits 1e-3.
+SHARD_SERVE_ARGV = ["--arch", "qwen3-4b", "--layers", "4", "--dtype", "float32",
+                    "--kron-ffn", "--batch", "4", "--prompt-len", "32", "--gen", "4"]
+SHARD_SERVE_TOL = 1e-3
+SHARD_HELD = tuple(HELD_WRAPPERS)
+
+
+def _shard_checks(out_dir: str) -> list:
+    """Phase 13's checks, in order: (name, fn) with fn() -> rows."""
+    return [("probe", _shard_probe), ("parity", _shard_parity), ("bf16", _shard_bf16),
+            ("train-launcher", lambda: _shard_train_launcher(out_dir)),
+            ("serve-launcher", _shard_serve_launcher)]
+
+
+def _shard_probe() -> list[dict]:
+    """The collectives the sharded stack moves CUDA tensors with, probed
+    first: ``all_reduce`` and ``all_gather_into_tensor`` over the world and
+    over one mesh dim's group each, and the time of a 64 MiB all-gather."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.runtime import sharding as S
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    mesh = make_debug_mesh(*SHARD_MESH)
+    t = torch.full((4,), float(rank + 1), device="cuda")
+    dist.all_reduce(t)
+    if not bool((t == world * (world + 1) / 2).all()):
+        raise AssertionError(f"gloo all_reduce of CUDA tensors: {t.tolist()}")
+    src = torch.arange(3, device="cuda", dtype=torch.float32) + 10 * rank
+    buf = torch.empty(3 * world, device="cuda")
+    S._all_gather(buf, src)
+    want = torch.cat([torch.arange(3, device="cuda", dtype=torch.float32) + 10 * r
+                      for r in range(world)])
+    if not torch.equal(buf, want):
+        raise AssertionError(f"gloo all_gather_into_tensor of CUDA tensors: {buf.tolist()}")
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    for axis in mesh.mesh_dim_names:  # over each mesh dim's group
+        n = S._dim_size(mesh, axis)
+        v = torch.full((2,), float(coord[axis]), device="cuda")
+        S._all_reduce(v, mesh, (axis,))
+        g = S._join(torch.full((1, 2), float(coord[axis]), device="cuda"), mesh, [(0, (axis,))])
+        if not (bool((v == n * (n - 1) / 2).all())
+                and torch.equal(g[:, 0], torch.arange(n, device="cuda", dtype=torch.float32))):
+            raise AssertionError(f"collectives over {axis}: {v.tolist()} {g.tolist()}")
+    big = torch.empty(64 * 2 ** 20 // 4 // world, device="cuda")
+    out = torch.empty(big.numel() * world, device="cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    S._all_gather(out, big)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    # what the collective itself allocates on the card, in outputs
+    staged = (torch.cuda.max_memory_allocated() - base) / (out.numel() * out.element_size())
+    return [{"case": "shard-probe", "all_reduce_cuda": "ok", "all_gather_cuda": "ok",
+             "mesh_dim_groups": "ok", "all_gather_64mib_ms": ms,
+             "all_gather_card_bytes_per_output_byte": staged}]
+
+
+def _shard_cfg(layers: int, dtype: str):
+    return dataclasses.replace(train_cfg(), n_layers=layers, dtype=dtype)
+
+
+def _shard_tokens(cfg, c) -> dict:
+    """The global batch (every rank the same, from the case's seed)."""
+    g = torch.Generator().manual_seed(c["seed"])
+    t = torch.randint(0, cfg.vocab, (2, c["batch"], c["seq"]), generator=g,
+                      dtype=torch.int32).cuda()
+    return {"tokens": t[0], "labels": t[1]}
+
+
+def _shard_want(cfg, c, opt_cfg) -> dict:
+    """One sharded step's launches per rank: the model's on this rank's rows
+    of the batch, Shampoo's on the whole eligible leaves."""
+    from repro_torch.models import model as TM
+    from repro_torch.optim import ShampooConfig
+    from repro_torch.optim.shampoo import shape_groups
+
+    groups = (shape_groups(TM.init_params(cfg, None, device="meta"), opt_cfg)
+              if isinstance(opt_cfg, ShampooConfig) else {})
+    model, opt = train_expected(cfg, groups, batch=c["batch"] // SHARD_MESH[0], seq=c["seq"])
+    return _mesh_expect(**{k: model[k] + opt[k] for k in model})
+
+
+def _release() -> None:
+    """Free what a case left: its reference cycles (an autograd graph held
+    by a closure keeps a whole step's tensors), then the cached blocks. Four
+    ranks share the card."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _all_ranks(ok: bool) -> bool:
+    import torch.distributed as dist
+
+    t = torch.tensor([int(ok)])
+    dist.all_reduce(t, op=dist.ReduceOp.MIN)
+    return bool(t.item())
+
+
+def _shard_parity() -> list[dict]:
+    """(a): the sharded AdamW step and Shampoo refresh step against the
+    single-rank step on the card (rank 0 runs it first, alone), every launch
+    counted and held against its twin."""
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import model as TM
+    from repro_torch.optim import OptConfig, ShampooConfig
+    from repro_torch.runtime import sharding as S
+    from repro_torch.train import steps as TT
+
+    c = SHARD_PARITY
+    mesh = make_debug_mesh(*SHARD_MESH)
+    cfg = _shard_cfg(c["layers"], "float32")
+    rank = dist.get_rank()
+    batch = _shard_tokens(cfg, c)
+    p_sh = tree.leaves(TM.param_layout(cfg, mesh))
+    rows = []
+    for name in ("adamw", "shampoo"):
+        kw = dict(lr=c["lr"], eps=c["eps"], warmup_steps=c["warmup_steps"])
+        oc = (ShampooConfig(precond_every=c["precond_every"], **kw) if name == "shampoo"
+              else OptConfig(**kw))
+
+        def init(on_mesh):
+            g = torch.Generator(device="cuda")
+            g.manual_seed(c["seed"])
+            return TT.train_state_init(cfg, oc, g, device="cuda", mesh=on_mesh)
+
+        ref = None
+        if rank == 0:  # the single-rank step, while the others wait; kept on the host
+            state = init(None)
+            new, metrics = TT.make_train_step(cfg, oc)(state, batch)
+            ref = (float(metrics["loss"]), [t.cpu() for t in tree.leaves(new.params)],
+                   [t.cpu() for t in tree.leaves(new.opt["m"])])
+            del state, new, metrics
+            _release()
+        dist.barrier()
+        state = init(mesh)
+        torch.cuda.reset_peak_memory_stats()
+        step = TT.make_train_step(cfg, oc, mesh=mesh)
+        (new, metrics), got, held = _mesh_counted(
+            lambda: step(state, batch), _shard_want(cfg, c, oc), f"shard-parity {name}",
+            kernels=SHARD_HELD)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        shapes = all(tuple(p.shape) == tuple(m.shape) == sh.shard_shape()
+                     for p, m, sh in zip(tree.leaves(new.params), tree.leaves(new.opt["m"]), p_sh))
+        errs = torch.zeros(3, dtype=torch.float64)  # loss, gradients (m), parameters
+        # (index in errs, this rank's leaves, index of the reference's in ref)
+        pairs = ((1, tree.leaves(new.opt["m"]), 2), (2, tree.leaves(new.params), 1))
+        for i, sh in enumerate(p_sh):  # one whole leaf on the card at a time
+            for k, leaves, j in pairs:
+                full = S.gather_shards(leaves[i], sh)
+                if rank == 0:
+                    errs[k] = max(float(errs[k]), _rel(full, ref[j][i].cuda()))
+                del full
+        if rank == 0:
+            errs[0] = abs(float(metrics["loss"]) - ref[0]) / max(1.0, abs(ref[0]))
+        dist.broadcast(errs, 0)
+        del ref, state, new
+        _release()
+        row = {"case": f"shard-parity-{name}", "mesh": list(SHARD_MESH), "layers": c["layers"],
+               "dtype": "float32", "batch": c["batch"], "seq": c["seq"],
+               "loss": float(metrics["loss"]), "launches": _nonzero(got), "held": held,
+               "rel_err": {"loss": float(errs[0]), "grad": float(errs[1]),
+                           "param": float(errs[2])},
+               "shard_shapes_ok": _all_ranks(shapes), "peak_gib": peak}
+        if not (row["shard_shapes_ok"] and errs[0] <= SHARD_LOSS_TOL
+                and errs[1] <= SHARD_TOL and errs[2] <= SHARD_TOL):
+            raise AssertionError(f"shard-parity {name}: {row}")
+        rows.append(row)
+    return rows
+
+
+def _shard_bf16() -> list[dict]:
+    """(b): qwen3-4b in bf16 at full width, ``SHARD_BF16["layers"]`` deep:
+    one AdamW step counted (launches per rank against the plans'
+    prediction) with every launch held against its twin, then one timed."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import steps as TT
+
+    c = SHARD_BF16
+    mesh = make_debug_mesh(*SHARD_MESH)
+    cfg = _shard_cfg(c["layers"], "bfloat16")
+    oc = OptConfig(lr=c["lr"], warmup_steps=c["warmup_steps"])
+    g = torch.Generator(device="cuda")
+    g.manual_seed(c["seed"])
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    state = TT.train_state_init(cfg, oc, g, device="cuda", mesh=mesh)
+    batch = _shard_tokens(cfg, c)
+    step = TT.make_train_step(cfg, oc, mesh=mesh)
+    want = _shard_want(cfg, c, oc)
+    (state, m1), got, held = _mesh_counted(lambda: step(state, batch), want,
+                                           "shard-bf16 step 1", kernels=SHARD_HELD)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    state, m2 = step(state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    losses = [float(m1["loss"]), float(m2["loss"])]
+    row = {"case": "shard-bf16", "mesh": list(SHARD_MESH), "layers": c["layers"],
+           "dtype": "bfloat16", "batch": c["batch"], "seq": c["seq"],
+           "launches": _nonzero(got), "want": _nonzero(want), "held": held,
+           "loss": losses, "step_ms": step_ms,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del state
+    _release()
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"shard-bf16: {row}")
+    return [row]
+
+
+def _shard_train_launcher(out_dir: str) -> list[dict]:
+    """(c): ``launch.train --want-model-parallel 2`` on the world the phase
+    runs in, two steps and a checkpoint (gathered, rank 0 writes), then
+    ``--resume``: every rank's restored shards bitwise equal to the ones it
+    saved, and every save within ``SHARD_SAVE_LEAVES`` whole leaves of the
+    card's memory over the rank's state."""
+    from repro_torch import tree
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import train as TL
+
+    saves = []
+    orig = CheckpointManager.save
+
+    def save(self, step, state, *, shardings=None):  # the launcher's saves, measured
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        orig(self, step, state, shardings=shardings)
+        torch.cuda.synchronize()
+        leaf = max(math.prod(sh.shape or t.shape) * t.element_size()
+                   for t, sh in zip(tree.leaves(state), tree.leaves(shardings)))
+        saves.append({"s": time.perf_counter() - t0, "largest_leaf_gib": leaf / 2 ** 30,
+                      "state_gib": base / 2 ** 30,
+                      "over_state_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30})
+
+    argv = SHARD_TRAIN_ARGV + ["--ckpt-dir", os.path.join(out_dir, "train-ckpt")]
+    CheckpointManager.save = save
+    try:
+        saved, got, held = _mesh_counted(lambda: TL.main(argv), None, "shard train launcher",
+                                         kernels=SHARD_HELD)
+        _release()
+        back = TL.main(argv + ["--resume"])
+    finally:
+        CheckpointManager.save = orig
+    same = [torch.equal(a, b) for a, b in zip(tree.leaves(back._asdict()),
+                                              tree.leaves(saved._asdict()))]
+    step = int(back.step)
+    del saved, back
+    _release()
+    lean = all(v["over_state_gib"] <= SHARD_SAVE_LEAVES * v["largest_leaf_gib"] for v in saves)
+    row = {"case": "shard-train-launcher", "argv": argv, "launches": _nonzero(got),
+           "held": held, "step": step, "leaves": len(same),
+           "restored_bitwise": _all_ranks(all(same)), "saves": saves,
+           "save_within_leaves": _all_ranks(lean)}
+    if not (row["restored_bitwise"] and row["save_within_leaves"] and step == 2
+            and len(saves) == 2 and got["chain_fwd"] and got["grad"]):
+        raise AssertionError(f"shard train launcher: {row}")
+    return [row]
+
+
+def _shard_serve_launcher() -> list[dict]:
+    """(d): ``launch.serve --distributed --kron-ffn`` one-shot against the
+    same launcher without it: greedy tokens equal, prefill logits within
+    ``SHARD_SERVE_TOL``, every launch of the distributed run held against
+    its twin; ``ServeEngine.prewarm(mesh=)`` builds the mesh ops."""
+    from repro_torch.launch import serve as TServe
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.scheduler import SchedulerConfig
+    from repro_torch.models import model as TM
+
+    local = TServe.main(SHARD_SERVE_ARGV)
+    argv = SHARD_SERVE_ARGV + ["--distributed", "--want-model-parallel", str(SHARD_MESH[1])]
+    out, got, held = _mesh_counted(lambda: TServe.main(argv), None, "shard serve launcher",
+                                   kernels=SHARD_HELD)
+    same = torch.equal(out["tokens"], local["tokens"])
+    err = _rel(out["prefill_logits"], local["prefill_logits"])
+    cfg = dataclasses.replace(_shard_cfg(4, "float32"), kron_ffn=True)
+    mesh = make_debug_mesh(*SHARD_MESH)
+    eng = TServe.ServeEngine(cfg, TM.init_params(cfg, None, device="meta"),
+                             SchedulerConfig(buckets=(32,), max_slots=4, max_prefill=2),
+                             max_new=4)
+    mesh_ops = sum(op.mesh == mesh for op in eng.prewarm(mesh=mesh))
+    row = {"case": "shard-serve-launcher", "argv": argv, "launches": _nonzero(got),
+           "held": held, "tokens_equal": same, "rel_err": {"prefill_logits": err},
+           "prewarm_mesh_ops": mesh_ops}
+    if not (same and err <= SHARD_SERVE_TOL and mesh_ops == 2 and got["a2a_calls"]
+            and got["chain_fwd"]):
+        raise AssertionError(f"shard serve launcher: {row}")
+    return [row]
+
+
+def run_shard(smi: str) -> tuple[list[dict], dict]:
+    """Phase 13: the model stack sharded over a (2, 2) mesh of MESH_RANKS
+    ranks on the one card (gloo): (a) parity, (b) bf16, (c) the training
+    launcher, (d) the serving launcher.  Returns the rows and the launches
+    of the phase summed over the ranks."""
+    t0 = time.perf_counter()
+    rows, launches = _merge_ranks("shard", _run_ranks("shard"), smi)
+    print(f"shard: phase {time.perf_counter() - t0:.1f} s of command time ({MESH_RANKS} ranks, "
+          f"gloo, {smi})", flush=True)
     return rows, launches
 
 
@@ -3722,6 +4156,9 @@ def main() -> int:
     if "--mesh" in sys.argv[1:]:  # phase 12 only
         run_mesh(smi)
         return 0
+    if "--shard" in sys.argv[1:]:  # phase 13 only
+        run_shard(smi)
+        return 0
     assert_clean("start")
     passed = check_kernels(gen)
     assert_clean("check")
@@ -3751,8 +4188,9 @@ def main() -> int:
     _, serve_launches = run_serve(gen, smi, peaks)
     assert_clean("serve")
     _, mesh_launches = run_mesh(smi)
+    _, shard_launches = run_shard(smi)
     consumers = (measure_launches, profile_launches, ffn_launches, gp_launches, train_launches,
-                 serve_launches, mesh_launches)
+                 serve_launches, mesh_launches, shard_launches)
 
     def kernel_row(name):
         source, replaces, case = KERNELS[name]
@@ -3767,6 +4205,7 @@ def main() -> int:
             "library_ms": r["library_ms"],
         }
         row["mesh_launches"] = mesh_launches[name]  # phase 12, summed over its ranks
+        row["shard_launches"] = shard_launches[name]  # phase 13, summed over its ranks
         if name == "grad":
             row["reduce_launches"] = (sum(row["launches"]["grad_reduce"] for row in rows.values())
                                       + sum(c["grad_reduce"] for c in consumers))

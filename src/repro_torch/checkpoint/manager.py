@@ -17,6 +17,15 @@ back as raw words (``numpy`` has no bfloat16 of its own).
   * keep-k: the oldest checkpoints go after each successful rename;
   * async: the save copies every leaf to the host, then a thread writes
     the files (``wait()`` joins it; every save and restore waits first).
+
+On a mesh (``shardings=``, a tree of ``sharding.NamedSharding`` matching
+the state) every rank calls ``save``: the leaves are gathered one at a time,
+each in pieces of at most 256 MiB that go to the host as they arrive
+(``sharding.gather_to_host``), so a rank's card holds less than one whole
+leaf beside its shards; rank 0 keeps the host copies and alone writes, so the files are the ones a single-device save
+makes and the reference reads them.  ``restore(target, shardings=)`` reads
+the whole leaves on every rank and keeps each rank's shard, as the
+reference puts each leaf with its target's sharding.
 """
 from __future__ import annotations
 
@@ -28,8 +37,10 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import tree
+from ..runtime import sharding as S
 
 _BF16_DESCR = "<V2"
 
@@ -66,14 +77,30 @@ class CheckpointManager:
         self.keep = keep
         self.async_save = async_save
         self._thread: threading.Thread | None = None
+        self._sharded = False  # the last save was collective: wait() meets the ranks
         os.makedirs(directory, exist_ok=True)
 
     # -- save ---------------------------------------------------------------
 
-    def save(self, step: int, state: Any) -> None:
+    def save(self, step: int, state: Any, *, shardings: Any = None) -> None:
+        """Write ``state``.  ``shardings``: its leaves are this rank's
+        shards; every rank of the mesh must call it."""
         self.wait()
-        # snapshot to the host while the device state is live
-        host = [(path, _to_host(leaf)) for path, leaf in tree.leaves_with_path(state)]
+        leaves = tree.leaves_with_path(state)
+        if shardings is None:
+            # snapshot to the host while the device state is live
+            host = [(path, _to_host(leaf)) for path, leaf in leaves]
+        else:
+            # one leaf at a time, in pieces, to the host (rank 0) or dropped
+            self._sharded = True
+            writer = dist.get_rank() == 0
+            host = []
+            for (path, leaf), sh in zip(leaves, tree.leaves(shardings)):
+                full = S.gather_to_host(leaf, sh, keep=writer)  # None off rank 0
+                if writer:
+                    host.append((path, _to_host(full)))
+            if not writer:
+                return
         if self.async_save:
             self._thread = threading.Thread(target=self._write, args=(step, host))
             self._thread.start()
@@ -105,6 +132,9 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._sharded:  # the writer's files are published for every rank
+            self._sharded = False
+            dist.barrier()
 
     def _gc(self) -> None:
         steps = self.all_steps()
@@ -129,9 +159,11 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, target: Any, step: int | None = None) -> Any:
+    def restore(self, target: Any, step: int | None = None, *, shardings: Any = None) -> Any:
         """``target``: a tree of tensors (shape, dtype and device per leaf);
-        returns a tree of its structure with the checkpoint's values."""
+        returns a tree of its structure with the checkpoint's values.
+        ``shardings``: ``target`` holds this rank's shards, and each leaf
+        comes back as this rank's shard of the checkpoint's."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -141,16 +173,21 @@ class CheckpointManager:
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         by_path = {l["path"]: l for l in manifest["leaves"]}
+        leaves = tree.leaves_with_path(target)
+        shs = [None] * len(leaves) if shardings is None else tree.leaves(shardings)
         out = []
-        for path, tgt in tree.leaves_with_path(target):
+        for (path, tgt), sh in zip(leaves, shs):
             meta = by_path.get(path)
             if meta is None:
                 raise KeyError(f"checkpoint missing leaf {path!r}")
             t = _load_leaf(os.path.join(d, meta["file"]), meta["dtype"])
-            if tuple(t.shape) != tuple(tgt.shape):
+            shape = tuple(t.shape) if sh is None else sh.shard_shape(tuple(t.shape))
+            if shape != tuple(tgt.shape):
                 raise ValueError(
                     f"shape mismatch for {path}: ckpt {tuple(t.shape)} vs target "
                     f"{tuple(tgt.shape)}")
+            if sh is not None:
+                t = S.local_shard(t, sh)
             out.append(t.to(device=tgt.device, dtype=tgt.dtype))
         return tree.unflatten_like(target, out)
 

@@ -10,6 +10,10 @@ which a causal LM compresses far below uniform entropy.  The draws come from
 an explicit CPU ``torch.Generator`` seeded from ``(seed, step)``, so one
 seed gives the same tokens on every device; ``jax.random``'s stream cannot
 be reproduced, so parity tests hand both packages numpy tokens.
+
+On a mesh every rank draws the same global batch and takes its rows by
+``token_sharding`` (``rank_rows``, which the train step calls): a local
+cut, as the reference's ``host_slice`` cuts the global batch.
 """
 from __future__ import annotations
 
@@ -17,6 +21,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from ..runtime import sharding as S
 
 
 def make_batch(
@@ -38,6 +44,12 @@ def make_batch(
         toks[:, i] = t
     toks = toks.to(device=device, dtype=torch.int32)
     return toks[:, :-1], toks[:, 1:]
+
+
+def rank_rows(t: torch.Tensor, rows: "S.NamedSharding") -> torch.Tensor:
+    """This rank's rows of a global-batch tensor ``(B, ...)`` by its
+    ``token_sharding`` ``rows`` (a local cut, no collective)."""
+    return S.local_shard(t, S.NamedSharding(rows.mesh, rows.spec[:1]))
 
 
 @dataclass(frozen=True)
@@ -68,4 +80,4 @@ class SyntheticLM:
         return toks[sl], labels[sl]
 
 
-__all__ = ["SyntheticLM", "make_batch"]
+__all__ = ["SyntheticLM", "make_batch", "rank_rows"]

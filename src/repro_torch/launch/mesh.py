@@ -1,14 +1,17 @@
-"""Production and debug meshes.
+"""Production and debug meshes, and the world the launchers' mesh flags run
+on.
 
 Functions, never module-level constants: importing this module touches no
 process group.  Each builds a ``DeviceMesh`` over the ranks of an
 initialised ``torch.distributed`` world (the caller gives
 ``init_process_group`` its address, world size and rank); a world too small
-for the shape raises.
+for the shape raises.  ``init_world`` is the launchers' way in: the world
+already initialised, or one made from ``torchrun``'s environment.
 """
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 import torch.distributed as dist
@@ -42,4 +45,24 @@ def make_debug_mesh(data: int = 2, model: int = 4, *, device_type: str | None = 
     return _mesh((int(data), int(model)), ("data", "model"), device_type)
 
 
-__all__ = ["make_production_mesh", "make_debug_mesh"]
+def init_world(device: torch.device) -> int:
+    """The world size a launcher's mesh flag runs on.  An initialised world
+    is taken as it is (its ranks share ``device``).  Otherwise one is made
+    from ``torchrun``'s environment (``RANK``, ``WORLD_SIZE``,
+    ``MASTER_ADDR``, ``MASTER_PORT``): NCCL with one card per rank
+    (``LOCAL_RANK``) on the card, gloo on the CPU.  With neither, raises:
+    a mesh flag never quietly runs on one rank."""
+    if dist.is_initialized():
+        return dist.get_world_size()
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        raise RuntimeError(
+            "a mesh flag needs a torch.distributed world: launch under torchrun "
+            "(torchrun --nproc-per-node N -m ...), or initialise the process group "
+            "before calling main()")
+    if device.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    return dist.get_world_size()
+
+
+__all__ = ["make_production_mesh", "make_debug_mesh", "init_world"]

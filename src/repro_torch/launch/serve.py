@@ -11,7 +11,10 @@
 
 ``--device`` is ``cuda`` by default and raises without a card; ``--reduced
 --device cpu`` runs the tiny same-family config on the CPU through the
-kernels' plain twins.  The port of ``repro.launch.serve`` on one device.
+kernels' plain twins; ``--layers N`` and ``--dtype`` keep a config's
+published widths and cut its depth or change its dtype (a model that fits
+the card only in part, as the training launcher's flags of the same names
+do).  The port of ``repro.launch.serve`` on one device.
 
 The continuous path has two layers.  ``launch.scheduler`` decides (a pure
 state machine, device-free); ``ServeEngine`` here executes: bucketed
@@ -31,14 +34,22 @@ kernels, resolves any plan not prewarmed and warms the libraries up);
 temperature sampling draws from a ``torch.Generator`` seeded from
 ``(sample_seed, rid, index)`` (the reference folds the same three into a
 ``jax.random`` key), so a request's tokens do not depend on co-batching
-but differ from the reference's at temperature > 0.  The mesh pieces
-(``--distributed``, ``--want-model-parallel``, ``prewarm(mesh=)``) need the
-model stack sharded over the mesh (``runtime/sharding.py``, ROADMAP.md
-queue 1 item 1) and raise.
+but differ from the reference's at temperature > 0.
+
+The mesh flags, as the reference's: ``--want-model-parallel N`` builds
+``elastic_mesh(world, want_model=N)`` and ``--distributed`` (with
+``--kron-ffn``) runs every Kron-FFN projection through the mesh
+``KronOp`` inside ``kron_distributed(mesh)``, each prewarmed
+(``ServeEngine.prewarm(mesh=)``, ``prebuild_kron_ops(mesh=)``).  The
+reference does not shard the serving parameters, so every rank holds the
+whole model and runs the same deterministic engine.  The world comes from
+``torchrun``'s environment or is the one already initialised
+(``launch.mesh.init_world``); a mesh flag without one raises.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import time
 
@@ -47,18 +58,18 @@ import torch
 
 from ..configs import get_config
 from ..convert import _device
+from ..core.layers import kron_distributed
 from ..data import SyntheticLM
 from ..models import model as M
 from ..models.config import reduced as reduce_cfg
 from ..runtime import chaos, guard, telemetry
 from ..runtime.events import get_logger
-from ..runtime.fault import StragglerMonitor
+from ..runtime.fault import StragglerMonitor, elastic_mesh
 from ..train import make_prefill_step, make_serve_step, prebuild_kron_ops
+from .mesh import init_world
 from .scheduler import SchedulerConfig, new_state, poisson_trace
 from .scheduler import step as sched_step
 
-_MESH = ("{what} needs the model stack sharded over the mesh, the next mesh slice "
-         "(ROADMAP.md queue 1 item 1: runtime/sharding.py, the launchers' mesh flags)")
 
 
 def batch_buckets(max_prefill: int) -> tuple[int, ...]:
@@ -146,12 +157,11 @@ class ServeEngine:
     def prewarm(self, mesh=None) -> tuple:
         """Resolve every serving ``KronOp`` plan before the first request:
         one per (batch-bucket, len-bucket) prefill shape plus the decode
-        shape."""
-        if mesh is not None:
-            raise NotImplementedError(_MESH.format(what="ServeEngine.prewarm(mesh=...)"))
+        shape.  ``mesh``: also each projection's mesh op, what a
+        ``kron_distributed(mesh)`` scope runs."""
         shapes = [(bb, lb) for lb in self.scfg.buckets for bb in self.batch_buckets]
         return prebuild_kron_ops(self.cfg, prefill_shapes=shapes,
-                                 decode_batch=self.scfg.max_slots)
+                                 decode_batch=self.scfg.max_slots, mesh=mesh)
 
     def compile_shapes(self) -> int:
         """Run every serving shape once before the first request: one
@@ -377,9 +387,9 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _one_shot(args, cfg, device, log) -> None:
+def _one_shot(args, cfg, device, log) -> dict:
     """Fixed-batch mode: prefill one batch, decode ``--gen`` tokens, report
-    tokens/s."""
+    tokens/s.  Returns the generated tokens and the prefill's logits."""
     max_len = args.prompt_len + args.gen
     params = M.init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device)
     data = SyntheticLM(vocab=cfg.vocab, seq_len=args.prompt_len, batch=args.batch,
@@ -394,6 +404,7 @@ def _one_shot(args, cfg, device, log) -> None:
         logits, cache = prefill(params, prompts)
         _sync(device)
     t_prefill = time.perf_counter() - t0
+    prefill_logits = logits
 
     def sample(logits):
         lg = logits[:, -1, : cfg.vocab]
@@ -430,6 +441,7 @@ def _one_shot(args, cfg, device, log) -> None:
              f"decode: {t_decode:.2f}s ({dec_tps:.0f} tok/s)")
     if mon.flagged_steps:
         log.info(f"stragglers: {len(mon.flagged_steps)} decode step(s) flagged")
+    return {"tokens": gen_toks, "prefill_logits": prefill_logits}
 
 
 def _pcts(xs: list[float]) -> dict:
@@ -440,7 +452,7 @@ def _pcts(xs: list[float]) -> dict:
     return {"p50": at(0.5), "p95": at(0.95), "p99": at(0.99)}
 
 
-def _continuous(args, cfg, device, log) -> None:
+def _continuous(args, cfg, device, log, mesh=None) -> None:
     """Continuous-batching mode: Poisson open-loop arrivals at
     ``--arrival-rate`` requests per scheduler step."""
     scfg = SchedulerConfig(
@@ -451,7 +463,7 @@ def _continuous(args, cfg, device, log) -> None:
     engine = ServeEngine(cfg, params, scfg, max_new=args.gen,
                          temperature=args.temperature, eos_id=args.eos_id)
     if cfg.kron_ffn:
-        for op in engine.prewarm():
+        for op in engine.prewarm(mesh=mesh if args.distributed else None):
             print(f"kron-ffn {op.describe()}")
     with telemetry.span("serve.compile_shapes"):
         n_shapes = engine.compile_shapes()
@@ -469,26 +481,35 @@ def _continuous(args, cfg, device, log) -> None:
     log.info(f"ttft_s: {_pcts(rep.ttft_s)}  tpot_s: {_pcts(rep.tpot_s)}")
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> dict | None:
+    """Runs the launcher; one-shot mode returns ``_one_shot``'s tokens and
+    prefill logits."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true",
                     help="tiny same-family config for CPU demo runs")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the stack to N layers (the widths stay)")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default=None,
+                    help="the model's dtype (default: the config's)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--want-model-parallel", type=int, default=None,
-                    help="model-parallel width (the next mesh slice: raises)")
+                    help="model-parallel width of elastic_mesh(world, want_model=N) "
+                         "(default 16 with --distributed); needs a torch.distributed "
+                         "world (torchrun)")
     ap.add_argument("--kv-quant", action="store_true",
                     help="int8 KV cache (halves serving memory)")
     ap.add_argument("--kron-ffn", action="store_true",
                     help="Kron-compressed FFN projections: each projection of a "
                          "(B, T, d) activation is one KronOp call over B*T rows")
     ap.add_argument("--distributed", action="store_true",
-                    help="distributed Kron-FFN prefill (the next mesh slice: raises)")
+                    help="distributed Kron-FFN: every projection through the mesh "
+                         "KronOp (needs --kron-ffn and a torch.distributed world)")
     ap.add_argument("--numerics", choices=list(guard.NUMERICS_POLICIES), default=None,
                     help="non-finite guard at StageProgram boundaries "
                          "(default: FASTKRON_NUMERICS or off)")
@@ -519,10 +540,9 @@ def main(argv=None) -> None:
                     help="token id treated as EOS (default: none; requests "
                          "run to their per-request max-new)")
     args = ap.parse_args(argv)
-    if args.distributed:
-        raise NotImplementedError(_MESH.format(what="--distributed"))
-    if args.want_model_parallel is not None:
-        raise NotImplementedError(_MESH.format(what="--want-model-parallel"))
+    if args.distributed and not args.kron_ffn:
+        ap.error("--distributed requires --kron-ffn (it distributes the "
+                 "Kron-FFN projections)")
     if args.numerics is not None:
         guard.set_numerics_policy(args.numerics)
     if args.telemetry or args.trace:
@@ -531,6 +551,12 @@ def main(argv=None) -> None:
     device = _device(args.device)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"device: {device} ({name})")
+    mesh = None
+    if args.distributed or args.want_model_parallel is not None:
+        world = init_world(device)
+        mesh = elastic_mesh(world, want_model=args.want_model_parallel or 16,
+                            device_type=device.type)
+        print(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -538,15 +564,23 @@ def main(argv=None) -> None:
     if args.kv_quant or args.kron_ffn:
         cfg = dataclasses.replace(cfg, kv_quant=args.kv_quant or cfg.kv_quant,
                                   kron_ffn=args.kron_ffn or cfg.kron_ffn)
-    if args.arrival_rate is not None:
-        _continuous(args, cfg, device, log)
-    else:
-        if cfg.kron_ffn:
-            # One KronOp per FFN projection, its plan resolved for the
-            # serving (batch, prompt-len) rows before the first call.
-            for op in prebuild_kron_ops(cfg, batch=args.batch, seq_len=args.prompt_len):
-                print(f"kron-ffn {op.describe()}")
-        _one_shot(args, cfg, device, log)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    if args.dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=args.dtype)
+    out = None
+    scope = kron_distributed(mesh) if args.distributed else contextlib.nullcontext()
+    with scope:
+        if args.arrival_rate is not None:
+            _continuous(args, cfg, device, log, mesh)
+        else:
+            if cfg.kron_ffn:
+                # One KronOp per FFN projection, its plan resolved for the
+                # serving (batch, prompt-len) rows before the first call.
+                for op in prebuild_kron_ops(cfg, batch=args.batch, seq_len=args.prompt_len,
+                                            mesh=mesh if args.distributed else None):
+                    print(f"kron-ffn {op.describe()}")
+            out = _one_shot(args, cfg, device, log)
     # One merged exit report: guard health carries the telemetry snapshot
     # (counters, gauges, histogram percentiles) when KronScope is live.
     report = guard.health_report()
@@ -555,6 +589,7 @@ def main(argv=None) -> None:
     ):
         log.info(f"health: {report}")
     telemetry.shutdown()
+    return out
 
 
 __all__ = ["ServeEngine", "ServeReport", "batch_buckets", "main"]

@@ -8,8 +8,16 @@ block live, and each chunk is recomputed in the backward pass
 saved.  GQA keeps K/V un-repeated through a grouped einsum.  Scores and
 probabilities are f32, computed with ``torch.einsum`` as the reference
 computes them outside any Pallas kernel (with TF32 off, PyTorch's default,
-they stay f32 on the card).  The reference's context parallelism belongs to
-the next mesh slice (``runtime/sharding.py``).
+they stay f32 on the card).
+
+On a mesh (``sharding.use_mesh``) a layer runs head-parallel when the model
+axis divides ``n_heads`` (the model passes ``tp=True``): ``wq`` and ``bq``
+arrive as this rank's columns (its q heads) and ``wo`` as its rows, K/V are
+projected whole and each rank picks the KV heads its q heads read, and the
+output projection's partial sums are added over the model axis.  Otherwise
+the reference's context parallelism (``_use_context_parallel``): each rank
+takes its share of the query sequence and attends to the whole K/V, and the
+outputs are gathered before the output projection.
 
 The serving half: ``KVCache`` / ``QuantKVCache`` (int8 with per-(token,
 head) absmax scales), ``attn_prefill_cache`` (the sliding-window ring order
@@ -29,10 +37,23 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..runtime.sharding import (
+    constrain, reduce_tp, tp_join, tp_partial_grad, tp_pick, tp_rank, tp_size,
+)
 from .common import apply_rope, dense_init, rms_norm
 from .config import ModelConfig
 
 NEG_INF = -1e9
+
+
+def _use_context_parallel(cfg: ModelConfig) -> bool:
+    """Head-parallel TP needs ``n_heads % tp == 0``; where it fails, context
+    parallelism shards the query sequence over the model axis instead:
+    scores stay local against the whole (small) K/V, and the added
+    communication is one gather of the outputs before the output
+    projection.  The trigger is the q heads only, as the reference's."""
+    tp = tp_size()
+    return tp > 1 and cfg.n_heads % tp != 0
 
 
 def attn_init(
@@ -56,24 +77,46 @@ def attn_init(
     return p
 
 
-def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor):
-    """x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,Hkv,hd), RoPE'd."""
+def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor,
+                 tp: bool = False):
+    """x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,Hkv,hd), RoPE'd.
+
+    ``tp`` (head-parallel; ``wq`` and ``bq`` hold this rank's columns
+    only): q has this rank's ``H/tp`` heads, the whole K/V is projected
+    (every rank the same), and ``_local_kv`` picks the heads those q heads
+    read."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    q = x @ p["wq"]
+    h_loc = h // tp_size() if tp else h
+    xq = tp_partial_grad(x) if tp else x  # each rank's heads add to dx
+    q = xq @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, h, hd)
+    q = q.reshape(b, s, h_loc, hd)
     k = k.reshape(b, s, hkv, hd)
     v = v.reshape(b, s, hkv, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        q_norm = tp_partial_grad(p["q_norm"]) if tp else p["q_norm"]
+        q = rms_norm(q, q_norm, cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _local_kv(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor, tp: bool):
+    """The K/V heads this rank's q heads read where ``tp`` (head-parallel),
+    one per q head (the heads ``[r*H/tp, (r+1)*H/tp)`` read KV head
+    ``i // (H/Hkv)``); whole K/V otherwise."""
+    if not tp:
+        return k, v
+    h_loc = cfg.n_heads // tp_size()
+    g = cfg.n_heads // cfg.n_kv_heads
+    lo = tp_rank() * h_loc
+    idx = [(lo + j) // g for j in range(h_loc)]
+    return tp_pick(k, 2, idx), tp_pick(v, 2, idx)
 
 
 def _grouped_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -99,14 +142,28 @@ def attn_forward(
     *,
     q_chunk: int = 1024,
     return_kv: bool = False,
+    tp: bool = False,
 ):
-    """Causal full-sequence attention (training)."""
+    """Causal full-sequence attention (training).  ``tp``: head-parallel,
+    ``p`` holds this rank's heads (``wq``'s and ``bq``'s columns, ``wo``'s
+    rows) and the output is summed over the model axis."""
     b, s, _ = x.shape
-    q, k, v = _project_qkv(cfg, p, x, positions)
-    qb = min(q_chunk, s)
-    if s % qb:
-        qb = math.gcd(s, qb)
+    q, k_all, v_all = _project_qkv(cfg, p, x, positions, tp)
+    k, v = _local_kv(cfg, k_all, v_all, tp)
     k_pos = positions if positions.ndim == 2 else positions.expand(b, s)
+    q_pos = k_pos
+    if _use_context_parallel(cfg):
+        # context parallelism: queries S-sharded over the model axis, K/V
+        # whole (Hkv*hd is small), so the scores stay local; each rank's
+        # queries add their part to dK/dV
+        q = constrain(q, "batch", "tp", None, None)
+        q_pos = constrain(k_pos, "batch", "tp")
+        if q.shape[1] != s:
+            k, v = tp_partial_grad(k), tp_partial_grad(v)
+    s_q = q.shape[1]
+    qb = min(q_chunk, s_q)
+    if s_q % qb:
+        qb = math.gcd(s_q, qb)
 
     def chunk_attn(qi, qpos):
         """One q-chunk: (B, qb, H, hd), (B, qb) -> (B, qb, H, hd)."""
@@ -125,14 +182,18 @@ def attn_forward(
     # recomputed, not saved. The stack draws no random numbers, so the RNG
     # state need not be carried into the recompute.
     outs = [
-        checkpoint(chunk_attn, q[:, i:i + qb], k_pos[:, i:i + qb],
+        checkpoint(chunk_attn, q[:, i:i + qb], q_pos[:, i:i + qb],
                    use_reentrant=False, preserve_rng_state=False)
-        for i in range(0, s, qb)
+        for i in range(0, s_q, qb)
     ]
     out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+    if s_q != s:  # the query shares back together before the projection
+        out = tp_join(out, 1)
     y = out.reshape(b, s, -1).to(x.dtype) @ p["wo"]
+    if tp:  # row-parallel: partial sums
+        y = reduce_tp(y)
     if return_kv:
-        return y, (k, v)
+        return y, (k_all, v_all)
     return y
 
 

@@ -6,12 +6,20 @@ projections for KronLinear factors, the paper's ML-compression use
 and every projection becomes a FastKron Kron-Matmul through the chain
 kernels.  The dense branch is ``torch.matmul``, as the reference computes
 it outside any Pallas kernel.
+
+On a mesh (``sharding.use_mesh``) the dense branch runs tensor-parallel
+where the caller says so (``tp``: ``w1``/``w3`` are this rank's columns of
+``d_ff`` and ``w2`` its rows): the down projection's partial sums are
+added over the model axis.
+The Kron factors are replicated, so each rank runs the whole Kron FFN on
+its own rows.
 """
 from __future__ import annotations
 
 import torch
 
 from ..core.layers import KronLinearSpec, kron_linear_apply, kron_linear_init
+from ..runtime.sharding import reduce_tp, tp_partial_grad
 from .common import act_fn, dense_init
 from .config import ModelConfig
 
@@ -36,14 +44,21 @@ def ffn_init(
     }
 
 
-def ffn_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *, backend: str = "auto") -> torch.Tensor:
+def ffn_apply(
+    cfg: ModelConfig, p: dict, x: torch.Tensor, *, backend: str = "auto",
+    tp: bool = False,
+) -> torch.Tensor:
     """The block on ``x: (..., d_model)``; ``backend`` reaches the
-    KronLinears' ops (``"torch"``: the kernels' plain twins)."""
+    KronLinears' ops (``"torch"``: the kernels' plain twins).  ``tp``: the
+    dense projections are this rank's slice of ``d_ff``."""
     act = act_fn(cfg.ffn_act)
     if cfg.kron_ffn:
         h = act(kron_linear_apply(p["w1"], x, backend=backend)) * kron_linear_apply(
             p["w3"], x, backend=backend)
         return kron_linear_apply(p["w2"], h, backend=backend)
+    if tp:
+        xf = tp_partial_grad(x)
+        return reduce_tp((act(xf @ p["w1"]) * (xf @ p["w3"])) @ p["w2"])
     h = act(x @ p["w1"]) * (x @ p["w3"])
     return h @ p["w2"]
 

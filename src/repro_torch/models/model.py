@@ -24,16 +24,31 @@ axis 0) and stacked ``(n_periods, B, ...)`` leaves for the stack (batch on
 axis 1).  ``prefill`` and ``decode_step`` run without autograd; a decode
 step writes the new entries into the cache's buffers in place (the
 reference donates the cache to XLA instead) and returns that cache.
+
+On a mesh (``forward`` inside ``sharding.use_mesh``) the parameters are
+this rank's shards by ``param_layout`` and the tokens its rows of the
+batch.  Each layer reads its parameters through ``sharding.param_view``
+inside the layer's checkpoint, so the gathered copies are not kept for the
+backward pass.  The reference's constraint sites move the activations:
+the embedding is a masked lookup in this rank's vocabulary rows summed over
+the model axis, the period boundaries (the remat carry) are kept
+d_model-sharded over the model axis and gathered at the next period's
+start, and the head gives this rank's vocabulary columns of the logits.
+Which sites run tensor-parallel is decided once per layer from its
+parameters' shardings (``_tp_layout``, a ``LayerTP``) and passed to the
+attention, FFN and MoE code, which do not infer it from shapes.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import tree
+from ..runtime import sharding as S
 from . import attention as attn
 from . import ffn as ffn_mod
 from . import moe as moe_mod
@@ -111,32 +126,122 @@ def init_params(
     return params
 
 
+@functools.lru_cache(maxsize=16)
+def param_layout(cfg: ModelConfig, mesh) -> dict:
+    """The parameters' ``NamedSharding`` tree on ``mesh`` (the reference's
+    ``param_shardings`` of the ``eval_shape`` of the init)."""
+    return S.param_shardings(init_params(cfg, None, device="meta"), mesh,
+                             tied_embed=cfg.tie_embeddings)
+
+
+class LayerTP(NamedTuple):
+    """A layer's tensor-parallel layout on the mesh, decided once from its
+    parameters' shardings (``_tp_layout``); every site off outside a mesh."""
+
+    heads: bool = False         # attention: this rank's q heads (wq's columns, wo's rows, bq)
+    ffn: bool = False           # dense FFN or the MoE's shared experts: d_ff columns and rows
+    experts: str | None = None  # MoE: "ep" this rank's experts, "tp" its d_expert slice
+
+
+_NO_TP = LayerTP()
+
+
+def _tp_layout(cfg, spec: LayerSpec, sh) -> LayerTP:
+    """Which of the layer's sites run tensor-parallel: a site whose weights
+    the rules cut over the model axis (``sharding.tp_dim``), and attention
+    only where the heads divide (else context parallelism, on whole
+    weights)."""
+    if sh is None:
+        return _NO_TP
+    heads = (spec.kind == "attn" and not attn._use_context_parallel(cfg)
+             and S.tp_dim(sh["mixer"]["wq"]) is not None)
+    f = sh.get("ffn")  # None in a layer with no FFN
+    dense = None if f is None or cfg.kron_ffn else f.get("shared") if spec.moe else f
+    ffn = dense is not None and S.tp_dim(dense["w1"]) is not None
+    experts = None
+    if spec.moe:
+        d = S.tp_dim(f["ew1"])
+        experts = None if d is None else "ep" if d == len(f["ew1"].spec) - 3 else "tp"
+    return LayerTP(heads, ffn, experts)
+
+
+def _keeps_tp(path: str, lt: LayerTP) -> bool:
+    """Whether a layer's leaf enters its site as this rank's model-axis chunk."""
+    head, _, last = path.rpartition("/")
+    if head == "mixer":
+        return lt.heads and last in ("wq", "wo", "bq")
+    if head in ("ffn", "ffn/shared"):
+        return (lt.ffn and last in ("w1", "w2", "w3")) or (
+            lt.experts is not None and last in ("ew1", "ew2", "ew3"))
+    return False
+
+
+def _views(cfg, spec: LayerSpec, p, sh) -> tuple[Any, LayerTP]:
+    """The tensors a layer reads for its parameter shards ``p`` (their
+    shardings ``sh``; None off the mesh), and the layer's ``LayerTP``.  A
+    head-parallel layer whose ``bq`` the rules keep whole reads its heads'
+    part of it."""
+    if sh is None:
+        return p, _NO_TP
+    lt = _tp_layout(cfg, spec, sh)
+    out = []
+    for (path, leaf), s in zip(tree.leaves_with_path(p), tree.leaves(sh)):
+        keep = _keeps_tp(path, lt)
+        view = S.param_view(leaf, s, keep_tp=keep)
+        if keep and path == "mixer/bq" and S.tp_dim(s) is None:
+            n = view.shape[0] // S.tp_size()
+            view = S.tp_pick(view, 0, range(S.tp_rank() * n, (S.tp_rank() + 1) * n))
+        out.append(view)
+    return tree.unflatten_like(p, out), lt
+
+
+def _unstack_sharded(stacked: Any, sh: Any, n: int) -> tuple[list, Any]:
+    """``_unstack`` of stacked shards, and the per-period shardings.  A leaf
+    whose stacked dim is itself sharded (a stacked vector, which the rules
+    shard as a matrix) is gathered whole here, once, and reads as it is
+    (``VIEW``); the others are unbound locally and viewed layer by layer."""
+    leaves, shs = [], []
+    for leaf, s in zip(tree.leaves(stacked), tree.leaves(sh)):
+        if s.spec and s.spec[0] is not None:
+            leaves.append(S.param_view(leaf, s))
+            shs.append(S.VIEW)
+        else:
+            leaves.append(leaf)
+            shs.append(S.NamedSharding(s.mesh, tuple(s.spec[1:]), tuple(s.shape[1:])))
+    parts = [t.unbind(0) for t in leaves]
+    periods = [tree.unflatten_like(stacked, [p[i] for p in parts]) for i in range(n)]
+    return periods, tree.unflatten_like(stacked, shs)
+
+
 # ---------------------------------------------------------------------------
 # Layer application
 # ---------------------------------------------------------------------------
 
 
-def _ffn(cfg, spec: LayerSpec, p, x, backend: str):
+def _ffn(cfg, spec: LayerSpec, p, x, backend: str, lt: LayerTP = _NO_TP):
     """The layer's FFN half (MoE, dense or Kron FFN, or none): ``(x, aux)``."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.moe:
         h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-        y, aux = moe_mod.moe_apply(cfg, p["ffn"], h2, backend=backend)
+        y, aux = moe_mod.moe_apply(cfg, p["ffn"], h2, backend=backend,
+                                   experts=lt.experts, shared_tp=lt.ffn)
         x = x + y
     elif cfg.d_ff:
         h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + ffn_mod.ffn_apply(cfg, p["ffn"], h2, backend=backend)
+        x = x + ffn_mod.ffn_apply(cfg, p["ffn"], h2, backend=backend, tp=lt.ffn)
     return x, aux
 
 
-def _layer_forward(cfg, spec: LayerSpec, p, x, positions, backend: str = "auto"):
+def _layer_forward(cfg, spec: LayerSpec, p, x, positions, backend: str = "auto",
+                   lt: LayerTP = _NO_TP):
     """Full-sequence layer.  Returns ``(x, aux, kv | (conv tail, state))``."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if spec.kind == "attn":
-        mix, cache_out = attn.attn_forward(cfg, p["mixer"], h, positions, return_kv=True)
+        mix, cache_out = attn.attn_forward(cfg, p["mixer"], h, positions, return_kv=True,
+                                           tp=lt.heads)
     else:
         mix, cache_out = ssm.mamba_forward(cfg, p["mixer"], h, return_state=True)
-    x, aux = _ffn(cfg, spec, p, x + mix, backend)
+    x, aux = _ffn(cfg, spec, p, x + mix, backend, lt)
     return x, aux, cache_out
 
 
@@ -155,25 +260,64 @@ def _layer_decode(cfg, spec: LayerSpec, p, x, cache, pos, backend: str = "auto")
 # ---------------------------------------------------------------------------
 
 
-def _embed(cfg, params, tokens, embeds):
-    x = params["embed"][tokens.long()]  # (B, S, D) gather
+def _vocab_split(sh, name: str) -> bool:
+    """Whether the rules cut the vocabulary of table ``name`` (``embed`` or
+    ``lm_head``) over the model axis (``sh``: the parameters' shardings)."""
+    return sh is not None and S.tp_dim(sh[name]) is not None
+
+
+def logits_split(cfg: ModelConfig, mesh) -> bool:
+    """Whether ``forward`` on ``mesh`` gives this rank's columns of the
+    padded vocabulary, not all of them."""
+    return mesh is not None and _vocab_split(
+        param_layout(cfg, mesh), "embed" if cfg.tie_embeddings else "lm_head")
+
+
+def _vocab_rows(table, tokens, split: bool):
+    """Rows of an embedding table; ``split``: ``table`` is this rank's rows
+    of a vocabulary split over the model axis, read by a masked local
+    gather and one sum of the ``(B, S, D)`` result over the axis."""
+    if not split:
+        return table[tokens.long()]  # (B, S, D) gather
+    idx = tokens.long() - S.tp_rank() * table.shape[0]
+    mine = (idx >= 0) & (idx < table.shape[0])
+    rows = table[idx.clamp(0, table.shape[0] - 1)]
+    zero = torch.zeros((), dtype=rows.dtype, device=rows.device)
+    return S.reduce_tp(torch.where(mine[..., None], rows, zero))
+
+
+def _embed(cfg, params, tokens, embeds, sh=None):
+    table = params["embed"] if sh is None else S.param_view(
+        params["embed"], sh["embed"], keep_tp=True)
+    x = _vocab_rows(table, tokens, _vocab_split(sh, "embed"))
     if cfg.embed_scale:
         x = (x.float() * math.sqrt(cfg.d_model)).to(x.dtype)
     if embeds is not None:
         x = torch.cat([embeds.to(x.dtype), x], dim=1)
-    return x
+    return S.constrain(x, "batch", None, None)
 
 
-def _head(cfg, params, x):
-    h = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    if cfg.tie_embeddings:
-        logits = h @ params["embed"].T
-    else:
-        logits = h @ params["lm_head"]
-    logits = logits.float()
+def _head(cfg, params, x, sh=None):
+    """f32 logits; on a mesh this rank's columns of the padded vocabulary
+    where the head's vocabulary is split over the model axis (the
+    reference's ``("batch", None, "tp")`` logits)."""
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    split = _vocab_split(sh, name)
+
+    def view(leaf):
+        return params[leaf] if sh is None else S.param_view(
+            params[leaf], sh[leaf], keep_tp=leaf != "final_norm")
+
+    h = rms_norm(x, view("final_norm"), cfg.norm_eps)
+    w = view("embed").T if cfg.tie_embeddings else view("lm_head")  # (D, V or V/tp)
+    n_cols = w.shape[1]
+    if split:  # column-parallel: each rank adds to dh
+        h = S.tp_partial_grad(h)
+    logits = (h @ w).float()
     # mask padded vocab rows so they never win the softmax
     if cfg.padded_vocab != cfg.vocab:
-        pad_mask = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab
+        first = S.tp_rank() * n_cols if split else 0
+        pad_mask = torch.arange(first, first + n_cols, device=logits.device) >= cfg.vocab
         logits = torch.where(pad_mask, -1e9, logits)
     return logits
 
@@ -193,22 +337,30 @@ def forward(
 ):
     """Teacher-forced forward.  Returns ``(logits, aux_loss)``: f32 logits
     ``(B, S, padded_vocab)``.  ``backend`` reaches the Kron FFN's
-    KronLinears (``"torch"``: the kernels' plain twins)."""
-    x = _embed(cfg, params, tokens, embeds)
+    KronLinears (``"torch"``: the kernels' plain twins).
+
+    Inside ``sharding.use_mesh``: ``params`` are this rank's shards
+    (``param_layout``), ``tokens`` its rows, and the logits its columns of
+    the padded vocabulary where the head splits it over the model axis."""
+    mesh = S.ambient_mesh()
+    sh = param_layout(cfg, mesh) if mesh is not None else None
+    x = _embed(cfg, params, tokens, embeds, sh)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
     plan = cfg.layer_plan()
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
 
     for i, p_l in enumerate(params["prelude"]):
-        x, aux, _ = _layer_forward(cfg, plan[i], p_l, x, positions, backend)
+        p_v, lt = _views(cfg, plan[i], p_l, None if sh is None else sh["prelude"][i])
+        x, aux, _ = _layer_forward(cfg, plan[i], p_v, x, positions, backend, lt)
         aux_total = aux_total + aux
 
     pre, period = cfg.prelude_len, cfg.period
     specs = tuple(plan[pre:pre + period])
 
-    def one_layer(spec, p_l, x):
-        y, aux, _ = _layer_forward(cfg, spec, p_l, x, positions, backend)
+    def one_layer(spec, p_l, sh_l, x):
+        p_v, lt = _views(cfg, spec, p_l, sh_l)
+        y, aux, _ = _layer_forward(cfg, spec, p_v, x, positions, backend, lt)
         return y, aux
 
     def run(fn, *args):
@@ -220,17 +372,33 @@ def forward(
             return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
         return fn(*args)
 
+    if sh is None:
+        periods, sh_period = _unstack(params["stack"], cfg.n_periods), None
+    else:
+        periods, sh_period = _unstack_sharded(params["stack"], sh["stack"], cfg.n_periods)
+
     def body(x, p_period):
+        # The period boundaries (the remat carry, all live through the
+        # backward pass) are stored d_model-sharded over the model axis, as
+        # the reference pins them ("batch", None, "tp"): one gather of
+        # (B, S, D) per period and direction.
+        if x.shape[-1] != cfg.d_model:
+            x = S.tp_join(x, -1)
         aux_acc = torch.zeros((), dtype=torch.float32, device=x.device)
         for pos in range(period):
-            x, aux = run(one_layer, specs[pos], p_period[f"pos{pos}"], x)
+            key = f"pos{pos}"
+            x, aux = run(one_layer, specs[pos], p_period[key],
+                         None if sh_period is None else sh_period[key], x)
             aux_acc = aux_acc + aux
-        return x, aux_acc
+        return S.constrain(x, "batch", None, "tp"), aux_acc
 
-    for p_period in _unstack(params["stack"], cfg.n_periods):
+    x = S.constrain(x, "batch", None, "tp")
+    for p_period in periods:
         x, aux = run(body, x, p_period)
         aux_total = aux_total + aux
-    return _head(cfg, params, x), aux_total
+    if x.shape[-1] != cfg.d_model:
+        x = S.tp_join(x, -1)
+    return _head(cfg, params, x, sh), aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -421,6 +589,8 @@ def decode_step(
 
 __all__ = [
     "init_params",
+    "param_layout",
+    "logits_split",
     "forward",
     "prefill",
     "decode_step",

@@ -17,13 +17,24 @@ One difference from the reference, kept: the index map is written only
 from kept slots.  The reference sends a dropped slot's write to expert 0,
 slot 0, an index in range, so whenever a token overflows capacity it
 overwrites the token held there (which then loses that expert's
-contribution).  The reference's sharding hints belong to the next mesh slice
-(``runtime/sharding.py``).
+contribution).
+
+On a mesh (``sharding.use_mesh``) routing runs on every rank over its own
+rows, and the reference's expert hints place the expert einsums: with
+``n_experts % tp == 0`` each rank runs its own experts (expert
+parallelism: the buckets are cut over the expert axis and gathered back),
+otherwise every expert runs tensor-parallel over ``d_expert`` (the first
+einsums column-parallel, the last row-parallel, its partial sums added
+over the model axis).  The aux loss's token and probability fractions are
+means over the global batch.
 """
 from __future__ import annotations
 
 import torch
 
+from ..runtime.sharding import (
+    batch_shards, batch_sum, constrain, reduce_tp, tp_join, tp_partial_grad,
+)
 from .common import act_fn, dense_init
 from .config import ModelConfig, MoEConfig
 from .ffn import ffn_apply, ffn_init
@@ -90,9 +101,13 @@ def _route(router_logits: torch.Tensor, mc: MoEConfig, capacity: int):
     return src[:, : e * capacity].reshape(b, e, capacity), (slot_e, slot_c, w_flat, keep)
 
 
-def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *, backend: str = "auto"):
+def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *, backend: str = "auto",
+              experts: str | None = None, shared_tp: bool = False):
     """x: (B, S, D) -> (y, aux_loss).  ``backend`` reaches the shared
-    experts' Kron FFN."""
+    experts' Kron FFN.  On a mesh, ``experts``: ``"ep"`` where ``ew*`` hold
+    this rank's experts, ``"tp"`` where they hold its slice of
+    ``d_expert``; ``shared_tp``: the shared experts' dense FFN is
+    tensor-parallel (``ffn_apply(tp=)``)."""
     mc = cfg.moe
     b, s, d = x.shape
     e = mc.n_experts
@@ -108,9 +123,23 @@ def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *, backend: str = "aut
     buckets = torch.where(valid[..., None], buckets, torch.zeros((), dtype=x.dtype, device=x.device))
 
     act = act_fn(cfg.ffn_act)
-    h = act(torch.einsum("becd,edf->becf", buckets, p["ew1"])) * torch.einsum(
-        "becd,edf->becf", buckets, p["ew3"])
-    buckets_out = torch.einsum("becf,efd->becd", h, p["ew2"]).to(x.dtype)
+
+    def run_experts(bk):
+        h = act(torch.einsum("becd,edf->becf", bk, p["ew1"])) * torch.einsum(
+            "becd,edf->becf", bk, p["ew3"])
+        return torch.einsum("becf,efd->becd", h, p["ew2"])
+
+    if experts == "ep":
+        # expert parallelism: this rank's experts (the reference's
+        # ("batch", "tp", None, None) buckets), gathered back for the combine
+        local = run_experts(constrain(buckets, "batch", "tp", None, None))
+        buckets_out = tp_join(local.to(x.dtype), 1)
+    elif experts == "tp":
+        # TP inside each expert: h is ("batch", None, None, "tp"), the down
+        # projection's partial sums are added over the model axis
+        buckets_out = reduce_tp(run_experts(tp_partial_grad(buckets))).to(x.dtype)
+    else:
+        buckets_out = run_experts(buckets).to(x.dtype)
 
     # combine: slot-major gather back, token-major reshape-sum
     flat_idx = slot_e * capacity + slot_c  # (B, S*k)
@@ -122,12 +151,13 @@ def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *, backend: str = "aut
     # Switch-style load-balance aux: E * sum_e (frac_tokens_e * frac_prob_e)
     probs = torch.softmax(router_logits, dim=-1)
     top1 = router_logits.argmax(dim=-1)
-    frac_tokens = torch.nn.functional.one_hot(top1, e).float().mean(dim=(0, 1))
-    frac_probs = probs.mean(dim=(0, 1))
+    n_tok = b * s * batch_shards()  # the global batch's tokens
+    frac_tokens = batch_sum(torch.nn.functional.one_hot(top1, e).float().sum(dim=(0, 1))) / n_tok
+    frac_probs = batch_sum(probs.sum(dim=(0, 1))) / n_tok
     aux = e * torch.sum(frac_tokens * frac_probs)
 
     if mc.n_shared:
-        y = y + ffn_apply(cfg, p["shared"], x, backend=backend)
+        y = y + ffn_apply(cfg, p["shared"], x, backend=backend, tp=shared_tp)
     return y, aux
 
 

@@ -16,8 +16,9 @@ contractions the reference runs with ``preferred_element_type=f32`` take
 f32 operands here.  The einsums are ``torch.einsum``: the reference
 computes them outside any Pallas kernel.  ``mamba_decode`` writes the new
 conv tail and state into the cache in place, as ``attention.attn_decode``
-does.  The reference's tensor-parallel hints belong to the next mesh
-slice (``runtime/sharding.py``).
+does.  The reference imports ``constrain`` and ``tp_size`` here but calls
+neither; on a mesh (``sharding.use_mesh``) a Mamba layer runs on each
+rank's rows with its whole parameters (``sharding.param_view``).
 """
 from __future__ import annotations
 

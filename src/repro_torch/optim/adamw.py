@@ -14,6 +14,11 @@ Shampoo's refresh cadence read it without waiting for the device, and a
 Gradient compression (``compress="bf16"|"int8"``) quantizes the gradients
 with a persistent error-feedback residual, as the reference does after its
 reduction.
+
+On a mesh the trees hold this rank's shards and ``shardings`` (the
+parameters' ``NamedSharding`` tree) says how: the update is elementwise,
+so it runs on the shards as they are, and the two whole-tree reductions
+(the global norm, the int8 scale) are summed, or maxed, over the mesh.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from typing import Any
 import torch
 
 from .. import tree
+from ..runtime import sharding as S
 
 
 @dataclass(frozen=True)
@@ -68,21 +74,41 @@ def opt_init(params: Any, cfg: OptConfig) -> dict:
     return state
 
 
-def _quantize(g: torch.Tensor, mode: str) -> torch.Tensor:
+def _sharded_axes(sh) -> tuple[str, ...]:
+    """The mesh axes a leaf's sharding splits it over."""
+    return tuple(a for e in sh.spec for a in S._entry_axes(e))
+
+
+def _quantize(g: torch.Tensor, mode: str, sh=None) -> torch.Tensor:
     if mode == "bf16":
         return g.to(torch.bfloat16).float()
     if mode == "int8":
-        scale = torch.clamp(g.abs().max(), min=1e-12) / 127.0
+        amax = g.abs().max()
+        if sh is not None:  # the whole leaf's max, over its shards
+            S._all_reduce(amax, sh.mesh, _sharded_axes(sh), op=torch.distributed.ReduceOp.MAX)
+        scale = torch.clamp(amax, min=1e-12) / 127.0
         q = torch.clamp(torch.round(g / scale), -127, 127)
         return q * scale
     raise ValueError(mode)
 
 
-def global_norm(t: Any) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(l.float())) for l in tree.leaves(t)))
+def global_norm(t: Any, shardings: Any = None) -> torch.Tensor:
+    """The tree's L2 norm; with ``shardings``, of the whole tree its shards
+    on this rank belong to (each leaf's square sum divided among the ranks
+    that hold the same shard, then summed over the mesh)."""
+    if shardings is None:
+        return torch.sqrt(sum(torch.sum(torch.square(l.float())) for l in tree.leaves(t)))
+    total, mesh = None, None
+    for leaf, sh in zip(tree.leaves(t), tree.leaves(shardings)):
+        mesh = sh.mesh
+        copies = mesh.size() // S._size(mesh, _sharded_axes(sh))
+        part = torch.sum(torch.square(leaf.float())) / copies
+        total = part if total is None else total + part
+    S._all_reduce(total, mesh, S._names(mesh))
+    return torch.sqrt(total)
 
 
-def _compressed(grads: Any, state: dict, cfg: OptConfig):
+def _compressed(grads: Any, state: dict, cfg: OptConfig, shardings: Any = None):
     """``(grads, err, gnorm, scale)``: the gradients, compressed with error
     feedback (in f32) when ``cfg.compress`` says so; the new residual; their
     global norm; the clipping factor.  Each leaf is taken to f32 and scaled
@@ -90,12 +116,16 @@ def _compressed(grads: Any, state: dict, cfg: OptConfig):
     gradient tree is made without compression."""
     if cfg.compress:
         compensated = tree.map(lambda g, e: g.float() + e, grads, state["err"])
-        quant = tree.map(lambda g: _quantize(g, cfg.compress), compensated)
+        if shardings is None:
+            quant = tree.map(lambda g: _quantize(g, cfg.compress), compensated)
+        else:
+            quant = tree.map(lambda g, sh: _quantize(g, cfg.compress, sh), compensated,
+                             shardings)
         new_err = tree.map(lambda c, q: c - q, compensated, quant)
         grads = quant
     else:
         new_err = state.get("err")
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, shardings)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     return grads, new_err, gnorm, scale
 
@@ -116,10 +146,11 @@ def _apply(p: torch.Tensor, u: torch.Tensor, lr, cfg: OptConfig) -> torch.Tensor
 
 @torch.no_grad()
 def opt_update(
-    grads: Any, state: dict, params: Any, cfg: OptConfig
+    grads: Any, state: dict, params: Any, cfg: OptConfig, *, shardings: Any = None,
 ) -> tuple[Any, dict, dict]:
-    """Returns ``(new_params, new_state, metrics)``."""
-    grads, new_err, gnorm, scale = _compressed(grads, state, cfg)
+    """Returns ``(new_params, new_state, metrics)``.  ``shardings``: the
+    parameters' ``NamedSharding`` tree when the trees hold shards."""
+    grads, new_err, gnorm, scale = _compressed(grads, state, cfg, shardings)
     step = state["step"] + 1
     lr = lr_at(cfg, step)
     b1, b2 = cfg.b1, cfg.b2

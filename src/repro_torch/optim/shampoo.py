@@ -32,6 +32,12 @@ scales, as in the reference.
 State: ``{"m", "v", "step"}`` as AdamW plus ``"kron"``, keyed by the
 ``/``-joined leaf paths, with per-layer ``l``/``r`` statistics,
 ``lroot``/``rroot`` roots, ``ok`` flags and ``stale`` counters.
+
+On a mesh (``shardings``) ``m``/``v`` are shards and the ``kron`` subtree
+is replicated: an eligible leaf's clipped gradient and Adam direction are
+gathered whole, every rank computes the same statistics, roots and batched
+``kron_precond_op`` call, and each applies its shard of the grafted
+update.
 """
 from __future__ import annotations
 
@@ -42,7 +48,7 @@ from typing import Any, Callable
 import torch
 
 from .. import tree
-from ..runtime import chaos, guard, telemetry
+from ..runtime import chaos, guard, sharding, telemetry
 from .adamw import (
     OptConfig, _apply, _clipped, _compressed, _moments, lr_at, opt_init, opt_update,
 )
@@ -246,6 +252,13 @@ def shampoo_init(params: Any, cfg: ShampooConfig) -> dict:
     """AdamW state plus the ``kron`` subtree.  Roots start at identity with
     ``ok=True``: the first interval IS the grafted-AdamW step."""
     state = opt_init(params, cfg)
+    state["kron"] = kron_state_init(params, cfg)
+    return state
+
+
+def kron_state_init(params: Any, cfg: ShampooConfig) -> dict:
+    """The ``kron`` subtree of ``shampoo_init``: eligibility by each leaf's
+    (whole) shape; on a mesh, every rank holds all of it."""
     sd = getattr(torch, cfg.state_dtype)
     kron: dict = {}
     for path, leaf in tree.leaves_with_path(params):
@@ -263,8 +276,7 @@ def shampoo_init(params: Any, cfg: ShampooConfig) -> dict:
             "ok": torch.ones(s, dtype=torch.bool, device=dev),
             "stale": torch.zeros(s, dtype=torch.int32, device=dev),
         }
-    state["kron"] = kron
-    return state
+    return kron
 
 
 def _refresh_leaf(entry: dict, l32, r32, cfg: ShampooConfig):
@@ -313,17 +325,27 @@ def _report_refresh_failures(n_bad, policy: str) -> None:
     guard.warn_once(("root_refresh", "nonfinite"), f"kron guard: {msg}")
 
 
+def _whole(t: torch.Tensor, sh) -> torch.Tensor:
+    """A leaf's whole tensor from this rank's shard (as it is off the mesh)."""
+    if sh is None or all(e is None for e in sh.spec):
+        return t
+    return sharding.gather_shards(t, sh)
+
+
 @torch.no_grad()
 def shampoo_update(
-    grads: Any, state: dict, params: Any, cfg: ShampooConfig, *, backend: str = "auto"
+    grads: Any, state: dict, params: Any, cfg: ShampooConfig, *, backend: str = "auto",
+    shardings: Any = None,
 ) -> tuple[Any, dict, dict]:
     """Returns ``(new_params, new_state, metrics)``, AdamW's contract.
 
     Ineligible leaves run the exact AdamW update; eligible leaves swap the
     Adam direction for its grafted Kron-preconditioned image (one batched
     ``KronOp`` call per shape group; ``backend`` is the ops').
+    ``shardings``: the parameters' ``NamedSharding`` tree when the trees
+    hold shards.
     """
-    grads, new_err, gnorm, scale = _compressed(grads, state, cfg)
+    grads, new_err, gnorm, scale = _compressed(grads, state, cfg, shardings)
     step = state["step"] + 1
     lr = lr_at(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
@@ -337,6 +359,7 @@ def shampoo_update(
     # Adam moments + direction for EVERY leaf; an ineligible leaf's update
     # is applied at once, an eligible one's direction waits for its group.
     flat = tree.leaves_with_path(params)
+    shs = [None] * len(flat) if shardings is None else tree.leaves(shardings)
     new_p: list = [None] * len(flat)
     new_m, new_v, u_adam, g_kron = [], [], {}, {}
     for i, ((path, p_), g, m, v) in enumerate(zip(
@@ -347,7 +370,7 @@ def shampoo_update(
         new_v.append(v32.to(sd))
         u = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
         if path in kron:
-            u_adam[path], g_kron[path] = u, g
+            u_adam[path], g_kron[path] = _whole(u, shs[i]), _whole(g, shs[i])
         else:
             new_p[i] = _apply(p_, u, lr, cfg)
 
@@ -408,6 +431,8 @@ def shampoo_update(
                 ok = new_kron[path]["ok"] & torch.isfinite(pnorm) & (pnorm > 0)
                 u = torch.where(ok[:, None, None], grafted, u3).reshape(u_adam[path].shape)
                 i = idx[path]
+                if shs[i] is not None and u.shape != flat[i][1].shape:
+                    u = sharding.local_shard(u, shs[i])
                 new_p[i] = _apply(flat[i][1], u, lr, cfg)
 
     new_state = {
@@ -458,6 +483,7 @@ def state_memory_report(opt_state: Any) -> dict:
 __all__ = [
     "ShampooConfig",
     "shampoo_init",
+    "kron_state_init",
     "shampoo_update",
     "opt_for",
     "shape_groups",

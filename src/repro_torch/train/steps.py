@@ -8,6 +8,19 @@ Python loop (the reference's ``lax.scan``).  ``make_prefill_step`` and
 ``make_serve_step`` are the serving entry points (``model.prefill`` and
 ``model.decode_step``); ``prebuild_kron_ops`` resolves the plans of every
 serving shape before the first request.
+
+On a mesh (``make_train_step(..., mesh=)``, or an ambient
+``sharding.use_mesh``) the step is explicit SPMD: the state holds this
+rank's shards (``train_state_init(mesh=)``; the parameters by
+``model.param_layout``, the optimizer state by ``opt_state_shardings``),
+the batch is the global batch, of which the step takes its rows by
+``token_sharding`` (``data.pipeline.rank_rows``), and every gradient comes
+back as this rank's shard of the global gradient (``sharding.param_view``),
+which ``constrain_like_params`` checks.  The loss is the global batch's:
+each rank adds its rows' part, and the vocabulary-split cross-entropy sums
+its softmax over the model axis.  ``microbatches`` split each rank's own
+rows, so a MoE model's aux loss is taken over a rank's microbatch rather
+than over the global one.
 """
 from __future__ import annotations
 
@@ -17,11 +30,13 @@ from typing import Any, NamedTuple, Sequence
 import torch
 
 from .. import tree
+from ..data.pipeline import rank_rows
 from ..models import model as M
 from ..models.config import ModelConfig
 from ..optim import shampoo as _shampoo
-from ..optim.adamw import OptConfig
+from ..optim.adamw import OptConfig, opt_init
 from ..optim.shampoo import ShampooConfig, opt_for
+from ..runtime import sharding as S
 
 
 class TrainState(NamedTuple):
@@ -108,11 +123,70 @@ def prebuild_kron_ops(
 
 def train_state_init(
     cfg: ModelConfig, opt_cfg: OptConfig, generator: torch.Generator | None, *,
-    device: str | torch.device = "cuda",
+    device: str | torch.device = "cuda", mesh=None,
 ) -> TrainState:
+    """The initial state.  ``mesh``: this rank's shards of it (every rank
+    draws the same parameters from ``generator``, keeps its shards, and
+    makes its optimizer state at their shapes; Shampoo's ``kron`` subtree
+    whole, from the whole parameters), never the whole optimizer state."""
     params = M.init_params(cfg, generator, device=device)
     init_fn, _ = opt_for(opt_cfg)
-    return TrainState(params, init_fn(params, opt_cfg), torch.zeros((), dtype=torch.int32))
+    step = torch.zeros((), dtype=torch.int32)
+    if mesh is None:
+        return TrainState(params, init_fn(params, opt_cfg), step)
+    local = tree.map(S.local_shard, params, M.param_layout(cfg, mesh))
+    opt = opt_init(local, opt_cfg)
+    if isinstance(opt_cfg, ShampooConfig):
+        opt["kron"] = _shampoo.kron_state_init(params, opt_cfg)
+    return TrainState(local, opt, step)
+
+
+def opt_state_shardings(opt_state: Any, param_shardings: Any, replicated) -> Any:
+    """Shardings for an optimizer-state tree: ``m``/``v``/``err`` mirror the
+    parameter shardings (FSDP'd parameters give ZeRO-3 partitioned state),
+    everything else (``step``, Shampoo's ``kron`` statistics subtree) is
+    replicated: the kron subtree is ``O(p^2 + q^2)`` per layer, small next
+    to the ``p*q`` parameters it preconditions."""
+    out = {}
+    for key in opt_state:
+        if key in ("m", "v", "err"):
+            out[key] = param_shardings
+        else:
+            out[key] = tree.map(lambda _: replicated, opt_state[key])
+    return out
+
+
+def state_shardings(state: TrainState, cfg: ModelConfig, mesh) -> dict:
+    """The ``NamedSharding`` tree of a ``TrainState``'s ``_asdict()`` (what
+    ``CheckpointManager.save``/``restore`` take on a mesh; ``local_shard``
+    by it cuts a whole state to this rank's)."""
+    p_sh = M.param_layout(cfg, mesh)
+    rep = S.NamedSharding(mesh, ())
+    return {"params": p_sh, "opt": opt_state_shardings(state.opt, p_sh, rep), "step": rep}
+
+
+def _nll_sum(logits: torch.Tensor, labels: torch.Tensor, split: bool) -> torch.Tensor:
+    """The summed token NLL.  ``split``: the logits are this rank's columns
+    of a vocabulary split over the model axis, whose log-sum-exp and label
+    logit are summed over the axis."""
+    labels = labels.long()
+    n_cols = logits.shape[-1]
+    if not split:
+        ll = torch.log_softmax(logits, dim=-1)
+        return -ll.gather(-1, labels[..., None]).sum()
+    first = S.tp_rank() * n_cols
+    with torch.no_grad():  # the shift: the max over every rank's columns
+        m = torch.zeros((S.tp_size(), *logits.shape[:-1]), dtype=logits.dtype,
+                        device=logits.device)
+        m[S.tp_rank()] = logits.amax(dim=-1)
+        m = S.reduce_tp(m).amax(dim=0)
+    sumexp = S.reduce_tp(torch.exp(logits - m[..., None]).sum(dim=-1))
+    idx = labels - first
+    mine = (idx >= 0) & (idx < n_cols)
+    picked = logits.gather(-1, idx.clamp(0, n_cols - 1)[..., None])[..., 0]
+    target = S.reduce_tp(torch.where(mine, picked, torch.zeros((), dtype=picked.dtype,
+                                                                 device=picked.device)))
+    return (torch.log(sumexp) + m - target).sum()
 
 
 def loss_fn(
@@ -125,11 +199,14 @@ def loss_fn(
     *,
     backend: str = "auto",
 ):
+    """CE loss + MoE aux.  Inside ``sharding.use_mesh`` ``tokens`` are this
+    rank's rows and its loss is its rows' part of the global batch's (the
+    parts add up over the batch axes)."""
     logits, aux = M.forward(cfg, params, tokens, embeds, backend=backend)
     n_fe = cfg.n_frontend_tokens if embeds is not None else 0
     logits = logits[:, n_fe:, :]
-    ll = torch.log_softmax(logits, dim=-1)
-    nll = -ll.gather(-1, labels.long()[..., None]).mean()
+    n_tok = labels.numel() * S.batch_shards()
+    nll = _nll_sum(logits, labels, M.logits_split(cfg, S.ambient_mesh())) / n_tok
     return nll + aux_weight * aux, {"nll": nll, "aux": aux}
 
 
@@ -141,18 +218,26 @@ def make_train_step(
     with_embeds: bool = False,
     acc_dtype: torch.dtype = torch.float32,
     backend: str = "auto",
+    mesh=None,
 ):
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     batch: dict(tokens (B,S), labels (B,S)[, embeds (B,n_fe,D)]).
     ``acc_dtype``: the gradient accumulator's dtype over microbatches.
     ``backend`` reaches every KronOp of the step, the model's and
-    Shampoo's (``"torch"``: the kernels' plain twins).
+    Shampoo's (``"torch"``: the kernels' plain twins).  ``mesh`` (default:
+    the ambient mesh): the state holds this rank's shards
+    (``train_state_init(mesh=)``) and the batch is the global batch.
     """
+    mesh = S.ambient_mesh() if mesh is None else mesh
     prebuild_kron_ops(cfg, opt_cfg=opt_cfg)
     _, update_fn = opt_for(opt_cfg)
     if isinstance(opt_cfg, ShampooConfig):
         update_fn = functools.partial(update_fn, backend=backend)
+    p_sh = None
+    if mesh is not None:
+        p_sh = M.param_layout(cfg, mesh)
+        update_fn = functools.partial(update_fn, shardings=p_sh)
 
     def grads_of(params, tokens, labels, embeds):
         leaves = [p.detach().requires_grad_() for p in tree.leaves(params)]
@@ -162,9 +247,23 @@ def make_train_step(
             grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                         materialize_grads=True)
         parts = {k: v.detach() for k, v in parts.items()}
-        return loss.detach(), parts, tree.unflatten_like(params, grads)
+        loss = loss.detach()
+        if mesh is not None:  # the global batch's loss: every rank's part
+            nll_local = parts["nll"]
+            parts["nll"] = S.batch_sum(nll_local)
+            loss = loss - nll_local + parts["nll"]
+        return loss, parts, S.constrain_like_params(
+            tree.unflatten_like(params, grads), p_sh)
 
     def train_step(state: TrainState, batch: dict):
+        if mesh is None:
+            return _step(state, batch)
+        rows = S.token_sharding(mesh, batch["tokens"].shape[0])
+        local = {k: rank_rows(v, rows) for k, v in batch.items()}
+        with S.use_mesh(mesh, batch_axes=S._entry_axes(rows.spec[0])):
+            return _step(state, local)
+
+    def _step(state: TrainState, batch: dict):
         params = state.params
         tokens, labels = batch["tokens"], batch["labels"]
         embeds = batch.get("embeds") if with_embeds else None
@@ -218,6 +317,8 @@ __all__ = [
     "train_state_init",
     "prebuild_kron_ops",
     "loss_fn",
+    "opt_state_shardings",
+    "state_shardings",
     "make_train_step",
     "make_prefill_step",
     "make_serve_step",

@@ -26,21 +26,24 @@ def _children(node) -> list[tuple[str, Any]] | None:
     return None
 
 
+def _walk(node, prefix: list, out: list) -> None:
+    if node is None:
+        return
+    kids = _children(node)
+    if kids is None:
+        out.append(("/".join(prefix), node))
+        return
+    for k, c in kids:
+        _walk(c, prefix + [k], out)
+
+
 def leaves_with_path(tree) -> list[tuple[str, Any]]:
-    """``[(path, leaf), ...]`` in the reference's flatten order."""
+    """``[(path, leaf), ...]`` in the reference's flatten order.  (The walk
+    is a module function: a recursive closure would be a reference cycle
+    that keeps the list, and every leaf in it, alive until the next garbage
+    collection.)"""
     out: list[tuple[str, Any]] = []
-
-    def walk(node, prefix):
-        if node is None:
-            return
-        kids = _children(node)
-        if kids is None:
-            out.append(("/".join(prefix), node))
-            return
-        for k, c in kids:
-            walk(c, prefix + [k])
-
-    walk(tree, [])
+    _walk(tree, [], out)
     return out
 
 

@@ -16,8 +16,14 @@ max|ref|), the factor gradients summed over the mesh, slabbed bitwise equal
 to serial, the all-to-all counts against ``comm_elems_per_device``, the
 mesh ladder under ``chaos.inject``, ``kron_distributed`` around a
 KronLinear, the GP epoch and MVM (1e-4), the measured plan, elastic meshes
-and the shims.  Each side runs under its own timeout
-(``SIDE_TIMEOUT_S``)."""
+and the shims.  Then the model stack sharded over the mesh
+(``runtime/sharding.py``, the SPMD train step; the reference's on a mesh of
+``AxisType.Auto`` axes): for each case the loss (1e-5), every gradient and
+every parameter after one optimizer step (1e-4 of max|ref|), each rank's
+shard against the reference's addressable shard on the device at the same
+mesh coordinates, a (pod, data) spec's shard order, and a checkpoint saved
+by the sharded port, restored bitwise onto sharded targets and read by the
+reference.  Each side runs under its own timeout (``SIDE_TIMEOUT_S``)."""
 import math
 import os
 import pathlib
@@ -325,6 +331,7 @@ def runs(tmp_path_factory):
             raise
         assert proc.returncode == 0 and "ALL-OK" in log, f"{side} side:\n{log[-6000:]}"
         out[side] = dict(np.load(tmp / f"{side}.npz"))
+    out["ckpt_dir"] = str(tmp / "torch-ckpt")
     return out
 
 
@@ -455,6 +462,89 @@ def test_constructors_shims_and_cost(runs):
     comm = JD.comm_elems_per_device(4, 16, (4, 4, 4), (4, 4, 4), 4)
     hidden = JD.comm_hidden_elems(4, 16, (4, 4, 4), (4, 4, 4), 4, n_slabs=2)
     assert tuple(t["check/cost"]) == (comm, 2, hidden, 2)
+
+
+# ---------------------------------------------------------------------------
+# The model stack sharded over the mesh
+# ---------------------------------------------------------------------------
+
+
+def _n_leaves(side: dict, name: str) -> int:
+    return sum(k.startswith(f"model/{name}/grad/") for k in side)
+
+
+@pytest.mark.parametrize("name", list(DRV.MODEL))
+def test_sharded_loss_matches_reference(runs, name):
+    key = f"model/{name}/loss"
+    assert_close(torch.from_numpy(runs["torch"][key]), runs["jax"][key], 1e-5)
+
+
+@pytest.mark.parametrize("name", list(DRV.MODEL))
+@pytest.mark.parametrize("qty", ["grad", "param"])
+def test_sharded_grads_and_step_match_reference(runs, name, qty):
+    """Every gathered gradient leaf, and every parameter after one step."""
+    t, j = runs["torch"], runs["jax"]
+    n = _n_leaves(j, name)
+    assert n > 0 and _n_leaves(t, name) == n
+    for i in range(n):
+        key = f"model/{name}/{qty}/{i}"
+        assert_close(torch.from_numpy(t[key]), j[key], 1e-4)
+
+
+@pytest.mark.parametrize("name", list(DRV.MODEL))
+def test_each_rank_holds_the_reference_shard(runs, name):
+    """Rank r's shard of every parameter is the reference's addressable shard
+    on device r (the same mesh coordinates), and every rank's gradient,
+    parameter and first-moment shards have the shapes their placements
+    give."""
+    t, j = runs["torch"], runs["jax"]
+    assert t[f"check/model/{name}/shard_shapes"] == 1
+    for i in range(_n_leaves(j, name)):
+        key = f"model/{name}/shard/{i}"
+        assert t[key].shape == j[key].shape, key
+        assert_close(torch.from_numpy(t[key]), j[key], 1e-4)
+
+
+def test_pod_data_entry_shards_in_the_reference_order(runs):
+    assert np.array_equal(runs["torch"]["podspec/shards"], runs["jax"]["podspec/shards"])
+
+
+def test_gather_to_host_puts_the_shards_in_order(runs):
+    """``sharding.gather_to_host`` (the checkpoint's gather) gives the full
+    tensor: a (pod, data) entry's leaf, and every leaf of a sharded train
+    state as ``gather_shards`` gives it."""
+    t = runs["torch"]
+    assert t["check/podspec/gather_to_host"] == 1
+    assert t["check/ckpt/gather_to_host"] == 1
+
+
+def test_sharded_checkpoint_restores_bitwise_and_the_reference_reads_it(runs):
+    """Save gathers the shards one leaf at a time (rank 0 copies each to the
+    host before the next and writes the single-device files); restore cuts
+    each rank's shard back, bitwise; the reference's manager reads the
+    files into the values the port's step produced."""
+    import jax
+
+    from repro.checkpoint.manager import CheckpointManager as JC
+    from repro.configs import get_config as jget
+    from repro.models import model as JM
+    from repro.models.config import reduced as jreduced
+    from repro.optim.adamw import OptConfig
+    from repro.optim.shampoo import ShampooConfig, opt_for
+
+    t = runs["torch"]
+    assert t["check/ckpt/restored_bitwise"] == 1
+    assert t["check/ckpt/one_leaf_at_a_time"] == 1
+    name = DRV.CKPT_CASE
+    cfg = DRV.model_cfg(name, jget, jreduced)
+    oc = DRV.model_opt(name, OptConfig, ShampooConfig)
+    params = jax.eval_shape(lambda: JM.init_params(cfg, jax.random.PRNGKey(0)))
+    target = {"params": params, "opt": jax.eval_shape(lambda p: opt_for(oc)[0](p, oc), params),
+              "step": jax.ShapeDtypeStruct((), np.int32)}
+    back = JC(runs["ckpt_dir"]).restore(target)
+    for i, leaf in enumerate(jax.tree.leaves(back["params"])):
+        assert np.array_equal(np.asarray(leaf), t[f"model/{name}/param/{i}"]), i
+    assert int(back["step"]) == 1
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,10 @@ dropping a request; zero plan-memo misses while serving after ``prewarm``
 and ``compile_shapes`` with ``kron_ffn``; padded prefill positions masked;
 and the launcher, one-shot and continuous, with ``--device cpu`` (its mesh
 flags raise; ``elastic_mesh`` needs an initialised process group)."""
+import contextlib
 import dataclasses
 import json
+import tempfile
 
 import numpy as np
 import pytest
@@ -63,6 +65,21 @@ def jax_report(small_model):
 
     reqs = jtrace(seed=3, rate=0.8, n=6, prompt_lens=(2, 14), max_new=(1, 5))
     return JServe.ServeEngine(jcfg, jp, JSchedCfg(**SCFG), max_new=5).run(reqs)
+
+
+@contextlib.contextmanager
+def _one_rank_world():
+    """A one-rank gloo world over a file store, destroyed on the way out
+    (no pytest worker keeps a process group)."""
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/store", world_size=1,
+                                rank=0)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
 
 
 def test_batch_buckets_equal_reference():
@@ -164,8 +181,11 @@ def test_zero_replans_during_steady_state_serving(small_model):
     assert len(rep.metrics) == 6
     after = (E._resolve_plan.cache_info().misses, E._resolve_batched_plan.cache_info().misses)
     assert after == misses, f"steady-state serving re-planned: misses {misses} -> {after}"
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        eng.prewarm(mesh=object())
+    # prewarm(mesh=) adds each projection's mesh op, on a one-rank gloo world
+    with _one_rank_world():
+        mesh = elastic_mesh(1, want_model=1, device_type="cpu")
+        mesh_ops = [op for op in eng.prewarm(mesh=mesh) if op.mesh == mesh]
+    assert len(mesh_ops) == 2  # up and down
 
 
 def test_engine_masks_padded_prefill_positions(small_model):
@@ -197,8 +217,22 @@ def test_launcher_one_shot_and_continuous_on_cpu(capsys):
     out = capsys.readouterr().out
     assert out.count("kron-ffn KronOp") == 2 * (2 * 2 + 1)
     assert "served 5/5 requests" in out and "ttft_s" in out
+    # The mesh flags run on a one-rank gloo world; the distributed one-shot
+    # serves the tokens the local path serves.
+    argv = ["--arch", "qwen3-4b", "--reduced", "--device", "cpu", "--kron-ffn",
+            "--batch", "2", "--prompt-len", "8", "--gen", "4"]
+    local = TServe.main(argv)
+    with _one_rank_world():
+        for flag in (["--distributed"], ["--want-model-parallel", "4"],
+                     ["--distributed", "--want-model-parallel", "1"]):
+            got = TServe.main(argv + flag)
+            assert torch.equal(got["tokens"], local["tokens"]), flag
+            torch.testing.assert_close(got["prefill_logits"], local["prefill_logits"],
+                                       rtol=0, atol=1e-4)
+        out = capsys.readouterr().out
+        assert "mesh: {'data': 1, 'model': 1}" in out
     for flag in (["--distributed"], ["--want-model-parallel", "4"]):
-        with pytest.raises(NotImplementedError, match="queue 1"):
-            TServe.main(["--arch", "gemma-2b", "--reduced", "--device", "cpu", *flag])
+        with pytest.raises(RuntimeError, match="torch.distributed world"):  # no world
+            TServe.main(argv + flag)
     with pytest.raises(RuntimeError, match="world"):  # built over an initialised world
         elastic_mesh(4, want_model=2)

@@ -186,3 +186,16 @@ def test_launcher_refuses_the_cpu_fallback():
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         launcher.main(["--arch", "qwen3-4b", "--reduced", "--steps", "1"])
+
+
+def test_launcher_cuts_depth_and_sets_dtype():
+    """``--layers`` and ``--dtype`` keep the config's widths and change its
+    depth and dtype."""
+    from repro_torch.launch import train as launcher
+
+    state = launcher.main(["--arch", "qwen3-4b", "--reduced", "--device", "cpu",
+                           "--layers", "1", "--dtype", "bfloat16", "--steps", "1"])
+    stack = state.params["stack"]["pos0"]
+    assert stack["mixer"]["wq"].shape[0] == 1  # one period of one layer
+    assert stack["mixer"]["wq"].dtype == torch.bfloat16
+    assert state.params["embed"].shape[1] == 64  # the reduced width, kept

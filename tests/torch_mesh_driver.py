@@ -7,13 +7,22 @@ inputs through the port's mesh rounds and through the JAX reference's.
 ``torch`` spawns eight ``torch.multiprocessing`` ranks in a gloo process
 group (a ``file://`` store under a temporary directory) and a ``(2, 4)``
 ``DeviceMesh`` named ``("data", "model")`` on the CPU; rank 0 writes every
-output and check to ``OUT.npz``.  ``jax`` sets
+output and check to ``OUT.npz`` (and the model stack's checkpoint under
+``OUT-ckpt/``).  ``jax`` sets
 ``XLA_FLAGS=--xla_force_host_platform_device_count=8`` before importing
 jax and runs the reference's runners inside ``with jax.set_mesh(mesh):``
 (its reshapes and ``jax.grad`` over explicitly sharded arrays need the
 mesh context).  Keys are ``<case>/<quantity>``; the port's own checks are
 0/1 or counts under ``check/...``.  Inputs are made with numpy from the
 case's seed.  A rank's failure prints its traceback and fails the run.
+
+The model stack sharded over the mesh (``MODEL``): both sides start from
+the same numpy parameters, put by ``param_shardings`` and
+``opt_state_shardings``, take the same numpy tokens by ``token_sharding``,
+and record the loss, every gradient, the parameters after one step of the
+train step and each device's shard of them.  The reference runs on a mesh
+of ``AxisType.Auto`` axes inside ``with mesh:``; under jax 0.9 the default
+(explicit) axes fail its vocabulary-sharded embedding gather.
 """
 from __future__ import annotations
 
@@ -45,6 +54,73 @@ ELASTIC = [(n, w) for n in (1, 2, 4, 6, 8) for w in (1, 2, 4, 16)]
 # A third, replicated mesh dim ahead of (data, model), as the multi-pod
 # production mesh has: the same eight ranks as (pod, data, model).
 POD_MESH, POD_AXES, POD_CASE = (2, 2, 2), ("pod", "data", "model"), "sq444-f64"
+# A leaf sharded over (pod, data) on one dim: the shard order on the pod mesh.
+POD_SPEC, POD_LEAF = (("pod", "data"), "model"), (8, 6)
+
+# name -> (arch, reduced() overrides, optimizer): the model stack on the
+# (2, 4) mesh.  "experts": the MoE's expert count (2 of them on a 4-way
+# model axis run tensor-parallel inside each expert; the reduced config's 4
+# run expert-parallel).  d_model 1024 shards the final norm over the model
+# axis; 2 heads on a 4-way axis run context-parallel.
+MODEL = {
+    "qwen3-kron": ("qwen3-4b", dict(kron_ffn=True, kron_factors=2), "adamw"),
+    "qwen3-kron-shampoo": ("qwen3-4b", dict(kron_ffn=True, kron_factors=2), "shampoo"),
+    "deepseek-kron": ("deepseek-moe-16b", dict(kron_ffn=True, kron_factors=2), "adamw"),
+    "deepseek-tp-experts": ("deepseek-moe-16b", dict(experts=2), "adamw"),
+    "mamba2": ("mamba2-130m", {}, "adamw"),
+    "qwen3-d1024": ("qwen3-4b", dict(d_model=1024), "adamw"),
+    "qwen3-context-parallel": ("qwen3-4b", dict(n_heads=2, n_kv_heads=1), "adamw"),
+}
+MODEL_SEED, MODEL_BATCH, MODEL_SEQ = 7, 4, 16
+# eps at 1e-3 keeps the first Adam step a smooth function of the gradient:
+# at 1e-8 it is sign(g), which flips where g sits at the summation-order
+# noise floor.
+MODEL_OPT = dict(lr=1e-2, warmup_steps=1, eps=1e-3)
+CKPT_CASE = "qwen3-kron"
+_VECTORS = ("ln1", "ln2", "final_norm", "q_norm", "k_norm", "norm", "conv_b", "dt_bias",
+            "a_log", "d_skip", "bq", "bk", "bv")
+
+
+def model_cfg(name, get_config, reduced):
+    """The case's config in either package (f32)."""
+    import dataclasses
+
+    arch, over, _ = MODEL[name]
+    over = dict(over)
+    experts = over.pop("experts", None)
+    cfg = reduced(get_config(arch), dtype="float32", **over)
+    if experts is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, n_experts=experts))
+    return cfg
+
+
+def model_opt(name, opt_config, shampoo_config):
+    if MODEL[name][2] == "shampoo":
+        return shampoo_config(precond_every=1, **MODEL_OPT)
+    return opt_config(**MODEL_OPT)
+
+
+def model_arrays(leaves):
+    """f32 parameters for ``[(path, shape), ...]`` in flatten order: fan-in
+    scaled matrices, 0.02 embeddings, 0.1 vectors (norm scales, biases)."""
+    out = []
+    for i, (path, shape) in enumerate(leaves):
+        rng = np.random.default_rng([MODEL_SEED, i])
+        last = path.rsplit("/", 1)[-1]
+        if last == "embed":
+            scale = 0.02
+        elif last in _VECTORS or len(shape) < 2:
+            scale = 0.1
+        else:
+            scale = shape[-2] ** -0.5
+        out.append((rng.standard_normal(shape) * scale).astype(np.float32))
+    return out
+
+
+def model_batch(vocab):
+    rng = np.random.default_rng(MODEL_SEED)
+    toks = rng.integers(0, vocab, (2, MODEL_BATCH, MODEL_SEQ)).astype(np.int32)
+    return toks[0], toks[1]
 
 
 def single_inputs(name):
@@ -161,8 +237,63 @@ def run_jax(out_path: str) -> None:
     for n, w in ELASTIC:
         m = JF.elastic_mesh(n, want_model=w, devices=jax.devices()[:n])
         out[f"elastic/{n}/{w}"] = np.asarray([m.shape["data"], m.shape["model"]])
+    _jax_models(out)
     np.savez(out_path, **out)
     print("ALL-OK", flush=True)
+
+
+def _by_device(arr) -> np.ndarray:
+    """Each device's shard, stacked in device order (device i is rank i)."""
+    return np.stack([np.asarray(s.data) for s in sorted(arr.addressable_shards,
+                                                        key=lambda s: s.device.id)])
+
+
+def _jax_models(out: dict) -> None:
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import AxisType, Mesh, NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from repro.configs import get_config
+    from repro.models import model as JM
+    from repro.models.config import reduced
+    from repro.optim.adamw import OptConfig
+    from repro.optim.shampoo import ShampooConfig, opt_for
+    from repro.runtime import sharding as JSH
+    from repro.train import steps as JT
+
+    devices = np.array(jax.devices()[:G_M * G_K])
+    pod = Mesh(devices.reshape(POD_MESH), POD_AXES)
+    leaf = np.arange(math.prod(POD_LEAF), dtype=np.float32).reshape(POD_LEAF)
+    out["podspec/shards"] = _by_device(jax.device_put(leaf, NamedSharding(pod, P(*POD_SPEC))))
+
+    mesh = Mesh(devices.reshape(G_M, G_K), ("data", "model"),
+                axis_types=(AxisType.Auto,) * 2)
+    for name in MODEL:
+        cfg = model_cfg(name, get_config, reduced)
+        shapes = jax.eval_shape(lambda: JM.init_params(cfg, jax.random.PRNGKey(0)))
+        flat, treedef = jax.tree_util.tree_flatten_with_path(shapes)
+        leaves = [(JSH._path_str(kp), tuple(x.shape)) for kp, x in flat]
+        toks, labels = model_batch(cfg.vocab)
+        oc = model_opt(name, OptConfig, ShampooConfig)
+        with mesh:
+            p_sh = JSH.param_shardings(shapes, mesh, tied_embed=cfg.tie_embeddings)
+            params = jax.device_put(jax.tree_util.tree_unflatten(
+                treedef, [jnp.asarray(a) for a in model_arrays(leaves)]), p_sh)
+            opt = opt_for(oc)[0](params, oc)
+            opt = jax.device_put(opt, JT.opt_state_shardings(opt, p_sh, NamedSharding(mesh, P())))
+            tsh = JSH.token_sharding(mesh, MODEL_BATCH)
+            tj, lj = jax.device_put(jnp.asarray(toks), tsh), jax.device_put(jnp.asarray(labels), tsh)
+            grads = jax.jit(jax.grad(lambda p: JT.loss_fn(cfg, p, tj, lj)[0]))(params)
+            state = JT.TrainState(params, opt, jnp.zeros((), jnp.int32))
+            new, metrics = jax.jit(JT.make_train_step(cfg, oc))(
+                state, {"tokens": tj, "labels": lj})
+            new_params = jax.device_put(new.params, p_sh)
+        out[f"model/{name}/loss"] = np.asarray(metrics["loss"])
+        for i, (g, p) in enumerate(zip(jax.tree.leaves(grads), jax.tree.leaves(new_params))):
+            out[f"model/{name}/grad/{i}"] = np.asarray(g)
+            out[f"model/{name}/param/{i}"] = np.asarray(p)
+            out[f"model/{name}/shard/{i}"] = _by_device(p)
 
 
 # ---------------------------------------------------------------------------
@@ -179,6 +310,7 @@ def _torch_rank(rank: int, world: int, store: str, out_path: str) -> None:
                                 rank=rank)
         torch.set_num_threads(1)
         out = _torch_checks(rank)
+        out.update(_torch_models(rank, os.path.splitext(out_path)[0] + "-ckpt"))
         if rank == 0:
             np.savez(out_path, **out)
         dist.barrier()
@@ -429,6 +561,107 @@ def _torch_checks(rank: int) -> dict:
     cost = engine.KronOp((4, 4, 4), (4, 4, 4), mesh=mesh, n_slabs=2).cost(8)
     out["check/cost"] = np.asarray([cost.comm_elems_per_device, cost.rounds,
                                     cost.comm_hidden_elems, cost.n_slabs])
+    return out
+
+
+def _torch_models(rank: int, ckpt_dir: str) -> dict:
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint import manager as CM
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import rank_rows
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import model as TM
+    from repro_torch.models.config import reduced
+    from repro_torch.optim import OptConfig, ShampooConfig
+    from repro_torch.optim.shampoo import opt_for
+    from repro_torch.runtime import sharding as S
+    from repro_torch.train import steps as TT
+
+    out: dict = {}
+    world = dist.get_world_size()
+
+    def by_rank(local: torch.Tensor) -> np.ndarray:
+        """Every rank's shard, stacked in rank order (on every rank)."""
+        buf = torch.empty(world * local.numel(), dtype=local.dtype)
+        dist.all_gather_into_tensor(buf, local.contiguous().reshape(-1))
+        return buf.reshape(world, *local.shape).numpy()
+
+    def all_ranks(ok: bool) -> int:
+        t = torch.tensor([int(ok)])
+        dist.all_reduce(t, op=dist.ReduceOp.MIN)
+        return int(t.item())
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    pod = init_device_mesh("cpu", POD_MESH, mesh_dim_names=POD_AXES)
+    leaf = torch.arange(math.prod(POD_LEAF), dtype=torch.float32).reshape(POD_LEAF)
+    pod_sh = S.NamedSharding(pod, POD_SPEC)
+    out["podspec/shards"] = by_rank(S.local_shard(leaf, pod_sh))
+    whole, S._GATHER_PIECE = S._GATHER_PIECE, 96  # a few bytes: many pieces a leaf
+    out["check/podspec/gather_to_host"] = all_ranks(
+        torch.equal(S.gather_to_host(S.local_shard(leaf, pod_sh), pod_sh), leaf))
+    S._GATHER_PIECE = whole
+
+    mesh = make_debug_mesh(G_M, G_K, device_type="cpu")
+    for name in MODEL:
+        cfg = model_cfg(name, get_config, reduced)
+        meta = TM.init_params(cfg, None, device="meta")
+        leaves = [(path, tuple(x.shape)) for path, x in tree.leaves_with_path(meta)]
+        params = tree.unflatten_like(meta, [torch.from_numpy(a) for a in model_arrays(leaves)])
+        oc = model_opt(name, OptConfig, ShampooConfig)
+        state = TT.TrainState(params, opt_for(oc)[0](params, oc), torch.zeros((), dtype=torch.int32))
+        state = TT.TrainState(**tree.map(S.local_shard, state._asdict(),
+                                         TT.state_shardings(state, cfg, mesh)))
+        p_sh = tree.leaves(TM.param_layout(cfg, mesh))
+        toks, labels = (torch.from_numpy(a) for a in model_batch(cfg.vocab))
+
+        rows = S.token_sharding(mesh, MODEL_BATCH)
+        mine = [p.detach().requires_grad_() for p in tree.leaves(state.params)]
+        with S.use_mesh(mesh, batch_axes=S._entry_axes(rows.spec[0])):
+            loss, _ = TT.loss_fn(cfg, tree.unflatten_like(meta, mine), rank_rows(toks, rows),
+                                 rank_rows(labels, rows))
+            grads = torch.autograd.grad(loss, mine, allow_unused=True, materialize_grads=True)
+        new, metrics = TT.make_train_step(cfg, oc, mesh=mesh)(
+            state, {"tokens": toks, "labels": labels})
+        out[f"model/{name}/loss"] = metrics["loss"].numpy()
+        shapes_ok = True
+        for i, (g, p, m, sh) in enumerate(zip(grads, tree.leaves(new.params),
+                                              tree.leaves(new.opt["m"]), p_sh)):
+            out[f"model/{name}/grad/{i}"] = S.gather_shards(g, sh).numpy()
+            out[f"model/{name}/param/{i}"] = S.gather_shards(p, sh).numpy()
+            out[f"model/{name}/shard/{i}"] = by_rank(p)
+            shapes_ok &= tuple(g.shape) == tuple(p.shape) == tuple(m.shape) == sh.shard_shape()
+        out[f"check/model/{name}/shard_shapes"] = all_ranks(shapes_ok)
+
+        if name == CKPT_CASE:  # gathered on save, cut back on restore
+            st = new._asdict()
+            shardings = TT.state_shardings(new, cfg, mesh)
+            mgr = CheckpointManager(ckpt_dir, keep=1)
+            # the save gathers one leaf and (rank 0) copies it to the host
+            # before it gathers the next; the host copy is the gathered leaf
+            seen, orig = [], (S.gather_to_host, CM._to_host)
+            S.gather_to_host = lambda *a, **k: (seen.append("g"), orig[0](*a, **k))[1]
+            CM._to_host = lambda t: (seen.append("h"), orig[1](t))[1]
+            try:
+                mgr.save(1, st, shardings=shardings)
+            finally:
+                S.gather_to_host, CM._to_host = orig
+            mgr.wait()
+            n = len(tree.leaves(st))
+            out["check/ckpt/one_leaf_at_a_time"] = all_ranks(
+                "".join(seen) == ("gh" * n if rank == 0 else "g" * n))
+            whole, S._GATHER_PIECE = S._GATHER_PIECE, 4096  # several pieces a leaf
+            out["check/ckpt/gather_to_host"] = all_ranks(all(
+                torch.equal(S.gather_to_host(a, sh), S.gather_shards(a, sh))
+                for a, sh in zip(tree.leaves(st), tree.leaves(shardings))))
+            S._GATHER_PIECE = whole
+            back = mgr.restore(st, shardings=shardings)
+            out["check/ckpt/restored_bitwise"] = all_ranks(all(
+                torch.equal(a, b) for a, b in zip(tree.leaves(back), tree.leaves(st))))
     return out
 
 
