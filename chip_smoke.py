@@ -5,6 +5,7 @@
     python3 chip_smoke.py --alone    # phases 1 and 4 only (A/B of two trees)
     python3 chip_smoke.py --mesh     # phases 1 and 12 only
     python3 chip_smoke.py --shard    # phases 1 and 13 only
+    python3 chip_smoke.py --dryrun   # phases 1 and 14 only
 
 It refuses to run (exit 1) with ``FASTKRON_CHAOS``, ``FASTKRON_NUMERICS`` or
 ``FASTKRON_PLAN_CACHE`` set: the first injects faults into the kernels'
@@ -195,11 +196,26 @@ went through the kernels.  Phases, one line each:
       ``sliced_t``) of (a)-(d) is held against its plain twin
       (``held_tolerance``).  Times are gloo host staging, not a scaling
       number.
-  14. a ``{"kernels": [...]}`` JSON line (launches of phases 3 and 6-13,
+  14. dryrun: the dry-run tooling (``launch/dryrun.py``: ``specs``,
+      ``hlo_cost``) held against the card, each job in a process of its own,
+      all at once (a fake world must not meet phase 12/13's gloo worlds).
+      (a) qwen3-4b's train_4k, prefill_32k and decode_32k cells and train_4k
+      with phase 10's Kron FFN, on fake CUDA tensors in a fake world of 256
+      ranks (the (16, 16) mesh): each record's row and JSON; no launch
+      counter moves, the card keeps at most 64 MiB more allocated, and the
+      Kron cell's counted kernel FLOPs equal its KronOps' planned programs'.
+      (b) phase 10's AdamW step (4 x 1024 tokens, 36 layers) on the card
+      under ``hlo_cost.CostMode``, through the kernels and through
+      ``backend="torch"``, against the same step dry-run in a one-rank
+      world: FLOPs and dot FLOPs equal (relative 1e-9), collectives equal
+      (none), the twins' dot FLOPs equal the kernels'; the dry-run's peak
+      against ``torch.cuda.max_memory_allocated`` of the card's step (0.8 to
+      1.25); phase 10's AdamW step ms against the roofline's largest term.
+  15. a ``{"kernels": [...]}`` JSON line (launches of phases 3 and 6-13,
       phases 12 and 13 summed over their ranks and also given as
       ``mesh_launches`` and ``shard_launches``), then the card's name and
       power limit.
-  15. last line: ``{"ok": true, "device": {...}}``.
+  16. last line: ``{"ok": true, "device": {...}}``.
 
 Any failure exits non-zero.  Needs one CUDA card; imports nothing of JAX.
 """
@@ -4111,6 +4127,256 @@ def run_shard(smi: str) -> tuple[list[dict], dict]:
     return rows, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the dry-run tooling held against the card
+# ---------------------------------------------------------------------------
+
+# (a) qwen3-4b's three published cells on the (16, 16) production mesh, and
+# train_4k once more with phase 10's Kron FFN (train_cfg()): (shape, Kron FFN).
+DRYRUN_CELLS = (("train_4k", False), ("prefill_32k", False), ("decode_32k", False),
+                ("train_4k", True))
+DRYRUN_DEVICE = "cuda"  # the fake tensors' device
+# A dry-run launches nothing and may leave at most this much allocated on
+# the card (its process's CUDA context aside, which memory_allocated omits).
+DRYRUN_CARD_BYTES = 64 * 2 ** 20
+# (b) phase 10's AdamW step (train_cfg(), TRAIN's batch): counted FLOPs, dot
+# FLOPs and HBM bytes of the card's step against the dry-run's, relative; the
+# dry-run's peak against the card's peak of the same step.
+DRYRUN_COUNT_RTOL = 1e-9
+DRYRUN_PEAK_RATIO = (0.8, 1.25)
+DRYRUN_TIMEOUT_S = 600
+
+
+def planned_kron_flops(cfg, rows: int, passes: int) -> float:
+    """FLOPs of the Kron FFN's kernels in ``passes`` forward-and-backward
+    passes over ``rows`` rows each, from the plans' stage programs.  Per
+    KronLinear (w1 and w3 up, w2 down; each layer) of n stages: the chain
+    forward, again in the remat re-forward, the first n-1 stages once more
+    for the stage inputs of the backward, and each stage's backward (dF and
+    dx, twice the chain, plus its chain re-run up to the last factor)."""
+    from repro_torch.core.engine import _lowered, kron_op_for
+    from repro_torch.core.layers import KronLinearSpec
+    from repro_torch.kernels.emit import chain_flops
+
+    up = KronLinearSpec.balanced(cfg.d_model, cfg.d_ff, cfg.kron_factors)
+    down = KronLinearSpec.balanced(cfg.d_ff, cfg.d_model, cfg.kron_factors)
+    per_layer = 0
+    for spec in (up, up, down):
+        op = kron_op_for(spec.ps, spec.qs, backend="auto", plan="auto")
+        prog = _lowered(op._single_plan(rows, getattr(torch, cfg.dtype).itemsize), op.ps, op.qs)
+        k, fwd, bwd = math.prod(spec.ps), [], 0
+        for ins in prog.instrs:
+            fwd.append(chain_flops(1, rows, k, ins.ps, ins.qs))
+            bwd += 2 * fwd[-1] + chain_flops(1, rows, k, ins.ps[:-1], ins.qs[:-1])
+            k = k // ins.pprod * ins.qprod
+        per_layer += (2 if cfg.remat else 1) * sum(fwd) + sum(fwd[:-1]) + bwd
+    return float(passes * cfg.n_layers * per_layer)
+
+
+def _cost_row(cost) -> dict:
+    return {"flops": cost.flops, "dot_flops": cost.dot_flops, "bytes": cost.bytes_accessed,
+            "collective_counts": cost.collective_counts, "kernel_flops": cost.kernel_flops}
+
+
+def dryrun_job(job: str) -> dict:
+    """One process's share of phase 14.  ``cell:<i>``: DRYRUN_CELLS[i] dry-run
+    on the production mesh; ``step-fake``: phase 10's AdamW step dry-run in a
+    one-rank world; ``step-card``: the same step on the card under
+    ``hlo_cost.CostMode``, through the kernels and through their twins
+    (``backend="torch"``), with the peak memory of the first."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.optim import OptConfig
+
+    t = TRAIN
+    ad_cfg = OptConfig(lr=t["lr"], warmup_steps=t["warmup_steps"])
+    reset_counters()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    if job.startswith("cell:"):
+        shape, kron = DRYRUN_CELLS[int(job[5:])]
+        cfg = train_cfg() if kron else get_config("qwen3-4b")
+        out = dryrun.run_cell("qwen3-4b", shape, False, None, device=DRYRUN_DEVICE, cfg=cfg)
+        out["fmt_row"] = dryrun.fmt_row(out)
+        if kron:  # every microbatch of this rank's rows
+            rows = dryrun.SHAPES[shape].global_batch // 16 // out["microbatches_per_rank"]
+            out["planned_kron_flops"] = planned_kron_flops(
+                cfg, rows * dryrun.SHAPES[shape].seq_len, out["microbatches_per_rank"])
+    elif job == "step-fake":
+        out = dryrun.run_cell(
+            "qwen3-4b", "train_4k", False, None, device=DRYRUN_DEVICE, mesh_shape=(1, 1),
+            cfg=train_cfg(), shape=ShapeSpec("phase10", t["seq"], t["batch"], "train"),
+            opt_cfg=ad_cfg, microbatches=1)
+        out["fmt_row"] = dryrun.fmt_row(out)
+    elif job == "step-card":
+        out = _dryrun_card_steps(ad_cfg)
+    else:
+        raise ValueError(f"unknown phase-14 job {job!r}")
+    out["job_s"] = time.perf_counter() - t0
+    out["launches_moved"] = {k: v for k, v in read_counters().items() if v}
+    out["card_bytes_grown"] = torch.cuda.memory_allocated() - mem0
+    return out
+
+
+def _dryrun_card_steps(ad_cfg) -> dict:
+    """Phase 10's AdamW step from a fresh state on the card, under
+    ``CostMode``: through the kernels (peak memory with the stats reset just
+    before it, launches) and through the twins."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import opt_init
+    from repro_torch.runtime.hlo_cost import CostMode
+    from repro_torch.train import TrainState, make_train_step
+
+    t = TRAIN
+    cfg = train_cfg()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(t["seed"])
+    params = M.init_params(cfg, gen, device="cuda")
+    state = TrainState(params, opt_init(params, ad_cfg), torch.zeros((), dtype=torch.int32))
+    toks, labels = SyntheticLM(vocab=cfg.vocab, seq_len=t["seq"], batch=t["batch"],
+                               seed=t["seed"], device="cuda").global_batch(0)
+    batch = {"tokens": toks, "labels": labels}
+    out = {}
+    for backend in ("auto", "torch"):
+        step = make_train_step(cfg, ad_cfg, backend=backend)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        with CostMode() as cm:
+            new_state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        out[backend] = {**_cost_row(cm.cost), "loss": float(metrics["loss"]),
+                        "peak_bytes": torch.cuda.max_memory_allocated(),
+                        "launches": {k: v for k, v in read_counters().items() if v}}
+        del new_state, metrics
+        torch.cuda.empty_cache()
+    reset_counters()
+    del state, params
+    torch.cuda.empty_cache()
+    out["total_memory"] = torch.cuda.get_device_properties(0).total_memory
+    return out
+
+
+def _dryrun_jobs() -> list[str]:
+    return [f"cell:{i}" for i in range(len(DRYRUN_CELLS))] + ["step-fake", "step-card"]
+
+
+def _run_dryrun_jobs(out_dir: str) -> dict:
+    """Every phase-14 job in its own process, all at once (no fake world
+    meets another process's process group); their results by job."""
+    procs = {}
+    for job in _dryrun_jobs():
+        out = os.path.join(out_dir, job.replace(":", "-"))
+        log = open(out + ".log", "w")
+        procs[job] = (subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--dryrun-job", job, out + ".json"],
+            stdout=log, stderr=subprocess.STDOUT), log, out)
+    failed = []
+    deadline = time.monotonic() + DRYRUN_TIMEOUT_S
+    for job, (proc, log, out) in procs.items():
+        try:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log.close()
+        if proc.returncode != 0:
+            failed.append(job)
+    if failed:
+        for job in failed:
+            with open(procs[job][2] + ".log") as f:
+                print(f"dryrun: job {job} failed:\n{f.read()[-4000:]}", file=sys.stderr)
+        raise AssertionError(f"dryrun: jobs {failed} failed")
+    results = {}
+    for job, (_, _, out) in procs.items():
+        with open(out + ".json") as f:
+            results[job] = json.load(f)
+    return results
+
+
+def _rel_diff(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-300)
+
+
+def run_dryrun(smi: str, step_ms: float | None) -> dict:
+    """Phase 14: (a) the DRYRUN_CELLS on fake CUDA tensors in a fake world of
+    256 ranks: each record, no launch, at most DRYRUN_CARD_BYTES left on the
+    card, the Kron cell's kernel FLOPs those of its plans; (b) phase 10's
+    AdamW step counted on the card against its dry-run in a one-rank world
+    (FLOPs, dot FLOPs, HBM bytes, collectives), ``dryrun.HBM_PER_CHIP``
+    against the card's memory, the twins' dot FLOPs against the kernels',
+    the dry-run's peak against the card's, and ``step_ms`` (phase
+    10's AdamW step ms; None when phase 10 did not run) against the
+    roofline's largest term."""
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        res = _run_dryrun_jobs(out_dir)
+    wall = time.perf_counter() - t0
+    failures = []
+    for i, (shape, kron) in enumerate(DRYRUN_CELLS):
+        rec = res[f"cell:{i}"]
+        print(f"dryrun: {rec['fmt_row']}{' (kron_ffn)' if kron else ''}", flush=True)
+        print("dryrun cell " + json.dumps({"card": smi, **{k: v for k, v in rec.items()
+                                                           if k != "fmt_row"}}), flush=True)
+        if rec["launches_moved"] or rec["card_bytes_grown"] > DRYRUN_CARD_BYTES:
+            failures.append(f"{shape}{'-kron' if kron else ''}: launches {rec['launches_moved']}, "
+                            f"card bytes grown {rec['card_bytes_grown']}")
+        if kron:
+            got = sum(rec["per_device"]["kernel_flops"].values())
+            if not got or _rel_diff(got, rec["planned_kron_flops"]) > DRYRUN_COUNT_RTOL:
+                failures.append(f"kron cell: kernel FLOPs {got} against the plans' "
+                                f"{rec['planned_kron_flops']}")
+    fake, card = res["step-fake"], res["step-card"]
+    kern, twin = card["auto"], card["torch"]
+    pd = fake["per_device"]
+    peak_ratio = fake["peak_bytes_per_device"] / kern["peak_bytes"]
+    max_term = max(fake["roofline"][k] for k in ("compute_s", "memory_s", "collective_s"))
+    row = {
+        "case": "dryrun", "device": smi, "wall_s": wall,
+        "jobs_s": {job: r["job_s"] for job, r in res.items()},
+        "step": {"card": kern, "twins": twin, "dryrun": {
+            "flops": pd["hlo_flops"], "dot_flops": pd["hlo_dot_flops"], "bytes": pd["hlo_bytes"],
+            "collective_counts": pd["collective_counts"], "kernel_flops": pd["kernel_flops"],
+            "peak_bytes": fake["peak_bytes_per_device"], "roofline": fake["roofline"],
+            "launches_moved": fake["launches_moved"],
+            "card_bytes_grown": fake["card_bytes_grown"]}},
+        "flops_rel_err": _rel_diff(pd["hlo_flops"], kern["flops"]),
+        "dot_flops_rel_err": _rel_diff(pd["hlo_dot_flops"], kern["dot_flops"]),
+        "bytes_rel_err": _rel_diff(pd["hlo_bytes"], kern["bytes"]),
+        "twin_dot_flops_rel_err": _rel_diff(twin["dot_flops"], kern["dot_flops"]),
+        "twin_flops_gap": twin["flops"] - kern["flops"],
+        "peak_gib": {"dryrun": fake["peak_bytes_per_device"] / 2 ** 30,
+                     "card": kern["peak_bytes"] / 2 ** 30, "ratio": peak_ratio},
+        "card_total_memory": card["total_memory"], "hbm_per_chip": dryrun.HBM_PER_CHIP,
+        "adamw_step_ms": step_ms, "roofline_max_term_ms": max_term * 1e3,
+        "roofline_max_term_over_step": None if step_ms is None else max_term * 1e3 / step_ms,
+    }
+    print("dryrun step " + json.dumps(row), flush=True)
+    print(f"dryrun: phase {wall:.1f} s ({smi})", flush=True)
+    if fake["launches_moved"] or fake["card_bytes_grown"] > DRYRUN_CARD_BYTES:
+        failures.append(f"step dry-run: launches {fake['launches_moved']}, card bytes grown "
+                        f"{fake['card_bytes_grown']}")
+    if (max(row["flops_rel_err"], row["dot_flops_rel_err"], row["bytes_rel_err"])
+            > DRYRUN_COUNT_RTOL or pd["collective_counts"] != kern["collective_counts"]):
+        failures.append(f"step: the dry-run's counts differ from the card's {row}")
+    if dryrun.HBM_PER_CHIP != card["total_memory"]:
+        failures.append(f"dryrun.HBM_PER_CHIP {dryrun.HBM_PER_CHIP} is not this card's "
+                        f"total_memory {card['total_memory']}")
+    if row["twin_dot_flops_rel_err"] > DRYRUN_COUNT_RTOL:
+        failures.append(f"step: the twins' dot FLOPs differ from the kernels' {row}")
+    if not kern["launches"].get("chain_fwd") or not kern["kernel_flops"]:
+        failures.append(f"step: the card's step launched no kernel {kern['launches']}")
+    lo, hi = DRYRUN_PEAK_RATIO
+    if not lo <= peak_ratio <= hi:
+        failures.append(f"step: dry-run peak / card peak {peak_ratio} outside {DRYRUN_PEAK_RATIO}")
+    if failures:
+        raise AssertionError("dryrun: " + "; ".join(failures))
+    return row
+
+
 REFUSED_ENV = ("FASTKRON_CHAOS", "FASTKRON_NUMERICS", "FASTKRON_PLAN_CACHE")
 
 
@@ -4125,6 +4391,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    if "--dryrun-job" in sys.argv[1:]:  # one process of phase 14, started by run_dryrun
+        i = sys.argv.index("--dryrun-job")
+        job, out = sys.argv[i + 1], sys.argv[i + 2]
+        with open(out, "w") as f:
+            json.dump(dryrun_job(job), f)
+        return 0
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -4159,6 +4431,9 @@ def main() -> int:
     if "--shard" in sys.argv[1:]:  # phase 13 only
         run_shard(smi)
         return 0
+    if "--dryrun" in sys.argv[1:]:  # phase 14 only (no phase 10 step time to hold)
+        run_dryrun(smi, None)
+        return 0
     assert_clean("start")
     passed = check_kernels(gen)
     assert_clean("check")
@@ -4183,12 +4458,13 @@ def main() -> int:
     _, ffn_launches = run_ffn_block(gen)
     _, gp_launches = run_gp_epoch(gen)
     assert_clean("consumers")
-    _, train_launches = run_train(gen, smi)
+    train_row, train_launches = run_train(gen, smi)
     assert_clean("train")
     _, serve_launches = run_serve(gen, smi, peaks)
     assert_clean("serve")
     _, mesh_launches = run_mesh(smi)
     _, shard_launches = run_shard(smi)
+    run_dryrun(smi, train_row["adamw_step_ms"])
     consumers = (measure_launches, profile_launches, ffn_launches, gp_launches, train_launches,
                  serve_launches, mesh_launches, shard_launches)
 

@@ -42,6 +42,7 @@ import time
 from typing import Callable, Sequence
 
 import torch
+from torch._guards import detect_fake_mode
 
 from ..kernels import emit as emit_mod
 from ..kernels import kron_sliced
@@ -834,7 +835,10 @@ def measure_device(device: str | torch.device | None) -> torch.device:
 
 
 def device_tag(device: str | torch.device | None) -> str:
-    """``;dev=`` of a plan-cache key: the card's name, or ``cpu``."""
+    """``;dev=`` of a plan-cache key: the card's name, or ``cpu``; ``fake``
+    inside a fake-tensor trace (a dry-run), which asks no device."""
+    if detect_fake_mode() is not None:
+        return "fake"
     dev = measure_device(device)
     return torch.cuda.get_device_name(dev) if dev.type == "cuda" else dev.type
 

@@ -23,6 +23,10 @@ The port of ``repro.kernels.emit``:
   chaos sites, ``check_finite`` on ``run_stage_grad``'s dx and
   ``run_program``'s output, and the ``stage``, ``stage_grad`` and
   ``program`` telemetry spans.
+* every CUDA launcher reports its launch's FLOPs (``chain_flops``) and HBM
+  bytes (inputs, factors, outputs) to the active ``hlo_cost.CostMode``s,
+  and on a ``FakeTensor`` (a dry-run's trace) returns its output without a
+  build, an occupancy query or a launch, and counts no launch.
 """
 from __future__ import annotations
 
@@ -33,8 +37,9 @@ import math
 from typing import Sequence
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
-from ..runtime import chaos, guard, telemetry
+from ..runtime import chaos, guard, hlo_cost, telemetry
 from ..runtime.guard import LoweringError, VmemOverflowError
 from . import _build
 
@@ -901,6 +906,21 @@ _GRAD_ARGS = (_I, _VP, _VP, _VP, _VP, _VP, _VPP, _IP, _IP, _I, _LL, _LL, _LL, _I
 _GRAD_OCC_ARGS = (_I, _VP, _VP, _IP, _IP, _I, _LL, _LL, _I, _I)
 
 
+def chain_flops(b: int, m: int, k: int, ps: Sequence[int], qs: Sequence[int]) -> int:
+    """Multiply-adds x 2 of a chain of factors ``(p_i, q_i)`` (application
+    order) over ``b`` samples of ``m`` rows of ``k`` input columns; its
+    transpose does as many."""
+    cols, flops = k, 0
+    for p, q in zip(ps, qs):
+        flops += 2 * m * cols * q
+        cols = cols // p * q
+    return b * flops
+
+
+def _nbytes(*tensors: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def _ints(values: Sequence[int]):
     return (ctypes.c_int * len(values))(*values)
 
@@ -956,6 +976,11 @@ def chain_cuda(
     y = torch.empty((geo.b, geo.m, geo.out_cols), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
+    if hlo_cost.ACTIVE:
+        hlo_cost.count_kernel("chain_fwd", chain_flops(geo.b, geo.m, geo.k, geo.ps, geo.qs),
+                              _nbytes(x, y, *factors))
+    if isinstance(x, FakeTensor):  # a dry-run's trace: counted, never launched
+        return y
     _chain_launch(x, y, factors, geo, code)
     chain_launches += 1
     return y
@@ -1007,6 +1032,11 @@ def chain_bwd_cuda(
     code = kernel_dtype_code(dy, factors, acc)
     dx = torch.empty((geo.b, geo.m, geo.k), dtype=dy.dtype, device=dy.device)
     if dx.numel() == 0:
+        return dx
+    if hlo_cost.ACTIVE:
+        hlo_cost.count_kernel("chain_bwd", chain_flops(geo.b, geo.m, geo.k, geo.ps, geo.qs),
+                              _nbytes(dy, dx, *factors))
+    if isinstance(dy, FakeTensor):  # a dry-run's trace: counted, never launched
         return dx
     _chain_launch(dy, dx, factors, geo, code)
     chain_bwd_launches += 1
@@ -1138,7 +1168,6 @@ def grad_cuda(
     order.  The tiles are checked as ``grad_pallas`` checks them.  Raises on
     CPU tensors: their path is ``grad_reference``.
     """
-    global grad_launches, grad_reduce_launches
     acc = _resolve_acc(acc_dtype, dy.dtype)
     geo = grad_geometry(
         x.shape, dy.shape, [f.shape for f in factors], t_b=t_b, t_m=t_m,
@@ -1154,22 +1183,35 @@ def grad_cuda(
         df = torch.zeros((geo.b, total), dtype=acc, device=x.device)
     else:
         df = torch.empty((geo.b, total), dtype=acc, device=x.device)
-        per_sm, _ = grad_occupancy(x, dy, geo, code)
-        tiles = (geo.m // geo.block_m) * (geo.k // geo.block_k)
-        nblk = grad_blocks(sm_count(x.device), per_sm, tiles, geo.b)
-        part = torch.empty((geo.b * nblk * total,), dtype=acc, device=x.device)
-        with torch.cuda.device(x.device):
-            err = kernel_fn("grad", _GRAD_ARGS)(
-                code, x.data_ptr(), dy.data_ptr(), dx.data_ptr(), part.data_ptr(),
-                df.data_ptr(), _ptrs(factors), _ints(geo.ps), _ints(geo.qs),
-                len(factors), geo.b, geo.m, geo.k, geo.block_m, geo.block_k, nblk,
-                torch.cuda.current_stream().cuda_stream,
-            )
-        check_launch("grad", err)
-        grad_launches += 1
-        grad_reduce_launches += 1
+        if hlo_cost.ACTIVE:  # dF and dx, and the chain re-run up to the last factor
+            flops = (2 * chain_flops(geo.b, geo.m, geo.k, geo.ps, geo.qs)
+                     + chain_flops(geo.b, geo.m, geo.k, geo.ps[:-1], geo.qs[:-1]))
+            hlo_cost.count_kernel("grad", flops, _nbytes(x, dy, dx, df, *factors))
+        if not isinstance(x, FakeTensor):  # a dry-run's trace: counted, never launched
+            _grad_launch(x, dy, dx, df, factors, geo, code)
     dfs = torch.split(df, sizes, dim=1)
     return dx, tuple(d.reshape(geo.b, p, q) for d, p, q in zip(dfs, geo.ps, geo.qs))
+
+
+def _grad_launch(x, dy, dx, df, factors, geo: GradGeometry, code: int) -> None:
+    """The stage backward's two launches on a persistent grid: each block
+    writes one dF partial, then the partials are reduced into ``df``."""
+    global grad_launches, grad_reduce_launches
+    total = int(df.shape[1])
+    per_sm, _ = grad_occupancy(x, dy, geo, code)
+    tiles = (geo.m // geo.block_m) * (geo.k // geo.block_k)
+    nblk = grad_blocks(sm_count(x.device), per_sm, tiles, geo.b)
+    part = torch.empty((geo.b * nblk * total,), dtype=df.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = kernel_fn("grad", _GRAD_ARGS)(
+            code, x.data_ptr(), dy.data_ptr(), dx.data_ptr(), part.data_ptr(),
+            df.data_ptr(), _ptrs(factors), _ints(geo.ps), _ints(geo.qs),
+            len(factors), geo.b, geo.m, geo.k, geo.block_m, geo.block_k, nblk,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    check_launch("grad", err)
+    grad_launches += 1
+    grad_reduce_launches += 1
 
 
 def grad_reference(
@@ -1183,11 +1225,9 @@ def grad_reference(
     gradient stay in the accumulator dtype through the stage; dx rounds to
     x's dtype once, the grads stay in the accumulator dtype."""
     acc = _resolve_acc(acc_dtype, dy.dtype)
-    us = []
-    y = x.to(acc)
-    for f in factors:
-        us.append(y)
-        y = sliced_apply(y, f, acc)
+    us = [x.to(acc)]
+    for f in factors[:-1]:  # the inputs of the factors after the first
+        us.append(sliced_apply(us[-1], f, acc))
     g = dy.to(acc)
     dfs = [None] * len(factors)
     for idx in reversed(range(len(factors))):

@@ -19,7 +19,9 @@ import ctypes
 import functools
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
+from ..runtime import hlo_cost
 from ..runtime.guard import LoweringError, VmemOverflowError
 from .emit import (
     ASYNC_THREADS,
@@ -27,7 +29,9 @@ from .emit import (
     SMEM_BYTES,
     TWO_BLOCK_SMEM_BYTES,
     _divisors,
+    _nbytes,
     acc_dtype_for,
+    chain_flops,
     check_launch,
     grad_blocks,
     kernel_dtype_code,
@@ -225,7 +229,8 @@ def sliced_multiply_cuda(
     when given (``check_tiles``), the grid from the occupancy query
     (``emit.grad_blocks``).  Output in x's dtype, accumulated in f32 (f64
     for f64).  Raises on CPU tensors: their path is
-    ``sliced_multiply_reference``.
+    ``sliced_multiply_reference``.  A FakeTensor's output returns
+    unlaunched (``emit``'s fake path).
     """
     global sliced_launches
     m, k = (int(d) for d in x.shape)
@@ -241,6 +246,11 @@ def sliced_multiply_cuda(
     code = kernel_dtype_code(x, (f,), acc)
     y = torch.empty((m, q * s), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
+        return y
+    if hlo_cost.ACTIVE:
+        hlo_cost.count_kernel("sliced", chain_flops(1, m, k, (p,), (q,)),
+                              _nbytes(x, f, y))
+    if isinstance(x, FakeTensor):  # a dry-run's trace: counted, never launched
         return y
     per_sm, _ = sliced_occupancy(code, m, s, p, q, t_m, t_s, t_q, x.device)
     nblk = grad_blocks(sm_count(x.device), per_sm, (q // t_q) * (m // t_m) * (s // t_s), 1)

@@ -22,11 +22,15 @@ import ctypes
 import functools
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
+from ..runtime import hlo_cost
 from ..runtime.guard import LoweringError
 from .emit import (
+    _nbytes,
     CODE_BYTES,
     acc_dtype_for,
+    chain_flops,
     check_launch,
     grad_blocks,
     kernel_dtype_code,
@@ -78,7 +82,8 @@ def sliced_multiply_t_cuda(
     (M, S*P).  Tiles come from ``kron_sliced.sliced_tiles(kind="sliced_t")``,
     bounded by ``tiles=(t_m, t_s, t_q)`` when given, the grid from the occupancy query (``emit.grad_blocks``).  Output in dy's
     dtype, accumulated in f32 (f64 for f64).  Raises on CPU tensors: their
-    path is ``sliced_multiply_t_reference``."""
+    path is ``sliced_multiply_t_reference``.  A FakeTensor's output returns
+    unlaunched (``emit``'s fake path)."""
     global sliced_t_launches
     m, s, p, q = _dims(dy, f)
     acc = acc_dtype_for(dy.dtype)
@@ -91,6 +96,11 @@ def sliced_multiply_t_cuda(
     code = kernel_dtype_code(dy, (f,), acc)
     dx = torch.empty((m, s * p), dtype=dy.dtype, device=dy.device)
     if dx.numel() == 0:
+        return dx
+    if hlo_cost.ACTIVE:
+        hlo_cost.count_kernel("sliced_t", chain_flops(1, m, s * p, (p,), (q,)),
+                              _nbytes(dy, f, dx))
+    if isinstance(dy, FakeTensor):  # a dry-run's trace: counted, never launched
         return dx
     per_sm, _ = sliced_t_occupancy(
         code, dy.data_ptr() % 16, m, s, p, q, t_m, t_s, t_q, dy.device

@@ -37,6 +37,18 @@ start, and the head gives this rank's vocabulary columns of the logits.
 Which sites run tensor-parallel is decided once per layer from its
 parameters' shardings (``_tp_layout``, a ``LayerTP``) and passed to the
 attention, FFN and MoE code, which do not infer it from shapes.
+
+``prefill`` and ``decode_step`` serve on one device.  Their mesh forms,
+``prefill_on_mesh`` and ``decode_step_on_mesh`` (inside
+``sharding.use_mesh``), serve this rank's rows with no tensor-parallel
+site: each layer reads its parameters whole (``_serve_views``, gathered for
+that layer) and, in a decode step, its cache gathered over every sharded
+dim but the rows (``sharding.cache_view``), then writes its shards of the
+updated cache back (``cache_write``); ``prefill_on_mesh`` returns this
+rank's shards of the cache (``cache_cut``).  The dry-run's serving cells
+run these steps.  This layout gathers every layer's weights and caches
+each step, which the reference's partitioner does not: the serving cells'
+collective term measures this layout, not tensor-parallel serving.
 """
 from __future__ import annotations
 
@@ -508,6 +520,33 @@ def cache_put(dst: dict, src: dict, slot: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _serve_views(p, sh):
+    """A serving layer's parameters on the ambient mesh: every leaf whole
+    (``param_view``, gathered over its sharded mesh dims).  Serving runs no
+    tensor-parallel site: each rank serves its rows with whole weights, one
+    layer's gathered at a time."""
+    return tree.unflatten_like(p, [S.param_view(leaf, s)
+                                   for leaf, s in zip(tree.leaves(p), tree.leaves(sh))])
+
+
+def _serve_layout(cfg: ModelConfig, params: dict):
+    """(the parameters' shardings, each period's stacked parameters and
+    their per-period shardings) for serving on the ambient mesh."""
+    mesh = S.ambient_mesh()
+    if mesh is None:
+        raise ValueError("serving on a mesh runs inside sharding.use_mesh")
+    sh = param_layout(cfg, mesh)
+    periods, sh_period = _unstack_sharded(params["stack"], sh["stack"], cfg.n_periods)
+    return sh, periods, sh_period
+
+
+def _period_shardings(cache_sh: Any) -> Any:
+    """Per-period cache shardings of stacked cache shardings (the leading
+    ``n_periods`` dim, never sharded, dropped)."""
+    return tree.map(lambda s: S.NamedSharding(s.mesh, tuple(s.spec[1:]), tuple(s.shape[1:])),
+                    cache_sh)
+
+
 @torch.no_grad()
 def prefill(
     cfg: ModelConfig,
@@ -587,6 +626,98 @@ def decode_step(
     return _head(cfg, params, x), cache
 
 
+@torch.no_grad()
+def prefill_on_mesh(
+    cfg: ModelConfig,
+    params: dict,
+    tokens: torch.Tensor,
+    max_len: int,
+    embeds: torch.Tensor | None = None,
+    *,
+    cache_shardings: Any,
+    backend: str = "auto",
+):
+    """``prefill`` inside ``sharding.use_mesh``: ``params`` are this rank's
+    shards (``param_layout``), ``tokens`` its rows, ``cache_shardings`` the
+    global cache's ``sharding.cache_shardings``.  Each layer runs on whole
+    weights gathered for it (``_serve_views``).  Returns this rank's rows of
+    the logits (its vocabulary columns where the head splits them) and its
+    shards of the cache (``sharding.cache_cut``)."""
+    sh, periods, sh_period = _serve_layout(cfg, params)
+    x = _embed(cfg, params, tokens, embeds, sh)
+    positions = torch.arange(x.shape[1], device=x.device)
+    plan = cfg.layer_plan()
+
+    def to_cache(spec: LayerSpec, raw):
+        if spec.kind == "attn":
+            k, v = raw
+            return attn.attn_prefill_cache(cfg, k, v, positions, max_len)
+        conv_tail, h = raw
+        return ssm.MambaCache(conv=conv_tail.contiguous(), h=h)
+
+    prelude_cache = []
+    for i, p_l in enumerate(params["prelude"]):
+        x, _, raw = _layer_forward(cfg, plan[i], _serve_views(p_l, sh["prelude"][i]), x,
+                                   positions, backend)
+        prelude_cache.append(to_cache(plan[i], raw))
+
+    pre, period, n_periods = cfg.prelude_len, cfg.period, cfg.n_periods
+    specs = tuple(plan[pre:pre + period])
+    stack_cache: dict[str, Any] = {}
+    for i, p_period in enumerate(periods):
+        for pos in range(period):
+            key = f"pos{pos}"
+            x, _, raw = _layer_forward(cfg, specs[pos],
+                                       _serve_views(p_period[key], sh_period[key]), x,
+                                       positions, backend)
+            c = to_cache(specs[pos], raw)
+            if key not in stack_cache:  # the stacked leaves, allocated once
+                stack_cache[key] = tree.map(lambda l: l.new_empty((n_periods, *l.shape)), c)
+            tree.map(lambda dst, src: dst[i].copy_(src), stack_cache[key], c)
+    cache = S.cache_cut({"prelude": prelude_cache, "stack": stack_cache}, cache_shardings)
+    return _head(cfg, params, x, sh), cache
+
+
+@torch.no_grad()
+def decode_step_on_mesh(
+    cfg: ModelConfig,
+    params: dict,
+    cache: dict,
+    tokens: torch.Tensor,   # (B, 1), this rank's rows
+    pos,
+    *,
+    cache_shardings: Any,
+    backend: str = "auto",
+):
+    """``decode_step`` inside ``sharding.use_mesh``: ``params`` and
+    ``cache`` are this rank's shards (the cache's by ``cache_shardings``),
+    ``tokens`` its rows.  Each layer reads whole weights and its cache
+    gathered but for the rows (``sharding.cache_view``), and writes its
+    shards of the updated cache back in place (``cache_write``)."""
+    sh, periods, sh_period = _serve_layout(cfg, params)
+    x = _embed(cfg, params, tokens, None, sh)
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+    plan = cfg.layer_plan()
+
+    def layer(spec, p_l, p_sh, c_l, c_sh):
+        nonlocal x
+        view = S.cache_view(c_l, c_sh)
+        x, view = _layer_decode(cfg, spec, _serve_views(p_l, p_sh), x, view, pos, backend)
+        S.cache_write(c_l, view, c_sh)
+
+    for i, (p_l, c_l) in enumerate(zip(params["prelude"], cache["prelude"])):
+        layer(plan[i], p_l, sh["prelude"][i], c_l, cache_shardings["prelude"][i])
+
+    pre, period, n_periods = cfg.prelude_len, cfg.period, cfg.n_periods
+    specs = tuple(plan[pre:pre + period])
+    c_sh = _period_shardings(cache_shardings["stack"])
+    for p_period, c_period in zip(periods, _unstack(cache["stack"], n_periods)):
+        for k in range(period):
+            key = f"pos{k}"
+            layer(specs[k], p_period[key], sh_period[key], c_period[key], c_sh[key])
+    return _head(cfg, params, x, sh), cache
+
+
 __all__ = [
     "init_params",
     "param_layout",
@@ -594,6 +725,8 @@ __all__ = [
     "forward",
     "prefill",
     "decode_step",
+    "prefill_on_mesh",
+    "decode_step_on_mesh",
     "init_cache",
     "cache_to_slots",
     "cache_take",

@@ -37,7 +37,9 @@ the batch axes and cuts this rank's shard, so every gradient a rank sees is
 already its shard of the global gradient.  ``reduce_tp`` (a sum over the
 model axis whose backward is the identity) and ``tp_partial_grad`` (the
 identity, whose backward sums over the model axis) bracket a
-tensor-parallel region, as Megatron's g and f do.
+tensor-parallel region, as Megatron's g and f do.  A serving cache holds
+this rank's rows; ``cache_view`` gathers a layer's cache over its other
+sharded dims and ``cache_write`` cuts the updated view back into the shards.
 
 ``use_mesh(mesh)`` installs the ambient mesh (the reference's ``with
 mesh:``); outside one, ``ambient_mesh()`` is None and ``constrain``,
@@ -482,6 +484,52 @@ def gather_to_host(local: torch.Tensor, sharding: NamedSharding, *,
     return _unstack_chunks(stacked, dims).contiguous()
 
 
+def _beyond_rows(sharding: NamedSharding) -> list[tuple[int, tuple[str, ...]]]:
+    """The (tensor dim, axes) a rank's cache leaf is cut along besides its
+    rows: every sharded dim but the one the ambient batch axes cut (the
+    rows this rank serves).  A leaf whose rows the batch axes do not cut
+    while the rows are split holds other ranks' rows: refused."""
+    rows = batch_axes()
+    full = _plan(sharding.spec)
+    plan = [(d, axes) for d, axes in full if not (rows and axes == rows)]
+    if rows and full and len(plan) == len(full):
+        raise NotImplementedError(
+            f"a cache leaf laid out {sharding.spec} holds rows beyond this rank's "
+            f"{rows} rows")
+    return plan
+
+
+def cache_cut(cache: Any, shardings: Any) -> Any:
+    """A serving cache of this rank's rows, whole otherwise, cut to this
+    rank's shards of ``shardings`` (the global ``cache_shardings``): a
+    local cut, no collective.  Outside a mesh context, ``cache``."""
+    mesh = ambient_mesh()
+    if mesh is None:
+        return cache
+    return tree.map(lambda t, sh: _cut(t, mesh, _beyond_rows(sh)).contiguous(),
+                    cache, shardings)
+
+
+def cache_view(cache: Any, shardings: Any) -> Any:
+    """This rank's cache shards gathered whole but for its rows (an
+    all-gather per sharded mesh dim): what a serving layer reads.  The
+    inverse of ``cache_cut``."""
+    mesh = ambient_mesh()
+    if mesh is None:
+        return cache
+    return tree.map(lambda t, sh: _join(t, mesh, p) if (p := _beyond_rows(sh)) else t,
+                    cache, shardings)
+
+
+def cache_write(cache: Any, view: Any, shardings: Any) -> None:
+    """Write this rank's shards of an updated ``cache_view`` back into the
+    cache shards in place."""
+    mesh = ambient_mesh()
+    for t, v, sh in zip(tree.leaves(cache), tree.leaves(view), tree.leaves(shardings)):
+        if t is not v:
+            t.copy_(_cut(v, mesh, _beyond_rows(sh)))
+
+
 def _all_reduce(t: torch.Tensor, mesh, axes: Sequence[str], op=None) -> torch.Tensor:
     """Sum (or ``op``) ``t`` over ``axes`` of ``mesh`` in place."""
     for a in axes:
@@ -742,6 +790,9 @@ __all__ = [
     "local_shard",
     "gather_shards",
     "gather_to_host",
+    "cache_cut",
+    "cache_view",
+    "cache_write",
     "param_view",
     "tp_dim",
     "reduce_tp",

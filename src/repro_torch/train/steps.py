@@ -293,21 +293,56 @@ def make_train_step(
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig, max_len: int, *, with_embeds: bool = False):
-    """``prefill_step(params, tokens, embeds=None) -> (logits, cache)``."""
+def _serving_rows(mesh, batch: int):
+    """(this rank's rows of a global serving batch, the mesh axes that cut
+    them) by ``token_sharding``."""
+    rows = S.token_sharding(mesh, batch)
+    return rows, S._entry_axes(rows.spec[0])
+
+
+def make_prefill_step(cfg: ModelConfig, max_len: int, *, with_embeds: bool = False,
+                      mesh=None):
+    """``prefill_step(params, tokens, embeds=None) -> (logits, cache)``.
+
+    ``mesh``: ``params`` are this rank's shards (``model.param_layout``),
+    ``tokens`` (and ``embeds``) the global batch, of which the step serves
+    this rank's rows; it returns those rows' logits (this rank's vocabulary
+    columns where the head splits them) and this rank's shards of the
+    cache by ``cache_shardings``."""
 
     def prefill_step(params, tokens, embeds=None):
-        return M.prefill(cfg, params, tokens, max_len, embeds if with_embeds else None)
+        embeds = embeds if with_embeds else None
+        if mesh is None:
+            return M.prefill(cfg, params, tokens, max_len, embeds)
+        b = tokens.shape[0]
+        rows, axes = _serving_rows(mesh, b)
+        cache_sh = S.cache_shardings(M.init_cache(cfg, b, max_len, device="meta"), mesh, b)
+        with S.use_mesh(mesh, batch_axes=axes):
+            return M.prefill_on_mesh(cfg, params, rank_rows(tokens, rows), max_len,
+                                     None if embeds is None else rank_rows(embeds, rows),
+                                     cache_shardings=cache_sh)
 
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, *, mesh=None, cache_shardings: Any = None):
     """``serve_step(params, cache, tokens (B,1), pos) -> (next_token_logits,
-    cache)``; the cache is updated in place (``model.decode_step``)."""
+    cache)``; the cache is updated in place (``model.decode_step``).
+
+    ``mesh``: ``params`` and ``cache`` are this rank's shards (the cache's
+    by ``cache_shardings``, the global cache's ``sharding.cache_shardings``),
+    ``tokens`` the global batch, of which the step serves this rank's
+    rows."""
+    if mesh is not None and cache_shardings is None:
+        raise ValueError("a serve step on a mesh needs the cache's cache_shardings")
 
     def serve_step(params, cache, tokens, pos):
-        return M.decode_step(cfg, params, cache, tokens, pos)
+        if mesh is None:
+            return M.decode_step(cfg, params, cache, tokens, pos)
+        rows, axes = _serving_rows(mesh, tokens.shape[0])
+        with S.use_mesh(mesh, batch_axes=axes):
+            return M.decode_step_on_mesh(cfg, params, cache, rank_rows(tokens, rows), pos,
+                                         cache_shardings=cache_shardings)
 
     return serve_step
 

@@ -3,6 +3,7 @@ inputs through the port's mesh rounds and through the JAX reference's.
 
     python tests/torch_mesh_driver.py torch OUT.npz   # 8 gloo CPU ranks as (2, 4)
     python tests/torch_mesh_driver.py jax OUT.npz     # the reference on 8 host devices
+    python tests/torch_mesh_driver.py serve-jax OUT.npz  # its serving on 4 host devices
 
 ``torch`` spawns eight ``torch.multiprocessing`` ranks in a gloo process
 group (a ``file://`` store under a temporary directory) and a ``(2, 4)``
@@ -15,6 +16,14 @@ jax and runs the reference's runners inside ``with jax.set_mesh(mesh):``
 mesh context).  Keys are ``<case>/<quantity>``; the port's own checks are
 0/1 or counts under ``check/...``.  Inputs are made with numpy from the
 case's seed.  A rank's failure prints its traceback and fails the run.
+
+``serve-jax`` runs the reference's jitted ``make_prefill_step`` and
+``make_serve_step`` on a ``(2, 2)`` mesh of ``AxisType.Auto`` axes for each
+``SERVE`` config, on parameters put by ``param_shardings`` and a cache by
+``cache_shardings``, and writes each device's shard of the logits and of
+every cache leaf after the prefill and after each decode step
+(``serve/<config>/<phase>/...``); ``tests/test_torch_serve_mesh.py`` holds
+the port's ranks against them.
 
 The model stack sharded over the mesh (``MODEL``): both sides start from
 the same numpy parameters, put by ``param_shardings`` and
@@ -77,6 +86,11 @@ MODEL_SEED, MODEL_BATCH, MODEL_SEQ = 7, 4, 16
 # noise floor.
 MODEL_OPT = dict(lr=1e-2, warmup_steps=1, eps=1e-3)
 CKPT_CASE = "qwen3-kron"
+# The serving steps on a (data, model) = (2, 2) mesh: config name ->
+# reduced() overrides of qwen3-4b (f32), and the served batch.
+SERVE = {"dense": {}, "kron_ffn": dict(kron_ffn=True)}
+SERVE_GRID, SERVE_SEED = (2, 2), 8
+SERVE_BATCH, SERVE_PROMPT, SERVE_MAX_LEN, SERVE_STEPS = 4, 12, 16, 2
 _VECTORS = ("ln1", "ln2", "final_norm", "q_norm", "k_norm", "norm", "conv_b", "dt_bias",
             "a_log", "d_skip", "bq", "bk", "bv")
 
@@ -121,6 +135,18 @@ def model_batch(vocab):
     rng = np.random.default_rng(MODEL_SEED)
     toks = rng.integers(0, vocab, (2, MODEL_BATCH, MODEL_SEQ)).astype(np.int32)
     return toks[0], toks[1]
+
+
+def serve_cfg(name, get_config, reduced):
+    """The serving config in either package (f32)."""
+    return reduced(get_config("qwen3-4b"), dtype="float32", **SERVE[name])
+
+
+def serve_tokens(vocab):
+    """The prompt (B, PROMPT) and each decode step's tokens (STEPS, B, 1)."""
+    rng = np.random.default_rng(SERVE_SEED)
+    return (rng.integers(0, vocab, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32),
+            rng.integers(0, vocab, (SERVE_STEPS, SERVE_BATCH, 1)).astype(np.int32))
 
 
 def single_inputs(name):
@@ -294,6 +320,54 @@ def _jax_models(out: dict) -> None:
             out[f"model/{name}/grad/{i}"] = np.asarray(g)
             out[f"model/{name}/param/{i}"] = np.asarray(p)
             out[f"model/{name}/shard/{i}"] = _by_device(p)
+
+
+def run_jax_serve(out_path: str) -> None:
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import AxisType, Mesh
+
+    from repro.configs import get_config
+    from repro.models import model as JM
+    from repro.models.config import reduced
+    from repro.runtime import sharding as JSH
+    from repro.train import steps as JT
+
+    mesh = Mesh(np.array(jax.devices()[:math.prod(SERVE_GRID)]).reshape(SERVE_GRID),
+                ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+    out = {}
+    for name in SERVE:
+        cfg = serve_cfg(name, get_config, reduced)
+        shapes = jax.eval_shape(lambda: JM.init_params(cfg, jax.random.PRNGKey(0)))
+        flat, treedef = jax.tree_util.tree_flatten_with_path(shapes)
+        leaves = [(JSH._path_str(kp), tuple(x.shape)) for kp, x in flat]
+        prompt, steps = serve_tokens(cfg.vocab)
+
+        def record(phase, logits, cache):
+            out[f"serve/{name}/{phase}/logits"] = _by_device(logits)
+            for i, leaf in enumerate(jax.tree.leaves(cache)):
+                out[f"serve/{name}/{phase}/cache/{i}"] = _by_device(leaf)
+
+        with mesh:
+            p_sh = JSH.param_shardings(shapes, mesh, tied_embed=cfg.tie_embeddings)
+            params = jax.device_put(jax.tree_util.tree_unflatten(
+                treedef, [jnp.asarray(a) for a in model_arrays(leaves)]), p_sh)
+            c_sh = JSH.cache_shardings(
+                jax.eval_shape(lambda: JM.init_cache(cfg, SERVE_BATCH, SERVE_MAX_LEN)), mesh,
+                SERVE_BATCH)
+            tsh = JSH.token_sharding(mesh, SERVE_BATCH)
+            logits, cache = jax.jit(JT.make_prefill_step(cfg, SERVE_MAX_LEN),
+                                    out_shardings=(None, c_sh))(
+                params, jax.device_put(jnp.asarray(prompt), tsh))
+            record("prefill", logits, cache)
+            step = jax.jit(JT.make_serve_step(cfg), out_shardings=(None, c_sh))
+            for i in range(SERVE_STEPS):
+                logits, cache = step(params, cache, jax.device_put(jnp.asarray(steps[i]), tsh),
+                                     jnp.int32(SERVE_PROMPT + i))
+                record(f"decode{i}", logits, cache)
+    np.savez(out_path, **out)
+    print("ALL-OK", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -676,4 +750,4 @@ def run_torch(out_path: str) -> None:
 
 if __name__ == "__main__":
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src"))
-    {"torch": run_torch, "jax": run_jax}[sys.argv[1]](sys.argv[2])
+    {"torch": run_torch, "jax": run_jax, "serve-jax": run_jax_serve}[sys.argv[1]](sys.argv[2])
