@@ -1,0 +1,7 @@
+"""``device.idle.call``: ``device.idle`` in a cell whose step is one call into
+the op (it moves ``call_ms``)."""
+from pathlib import Path
+
+from perfbench.harness import load_module
+
+read = load_module(Path(__file__).with_name("device.idle.py"), "metric").read
