@@ -473,29 +473,31 @@ class _KronFunction(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad_out):
-        x, *factors = ctx.saved_tensors
-        factors = tuple(factors)
-        need = ctx.needs_input_grad[5:]
-        f_pert = any(need)
-        g = grad_out.contiguous()
-        if ctx.plan is None:
-            # The unfused loop applied the last factor first.
-            dx, dfs = _per_factor_bwd(x, g, factors[::-1], ctx.backend, f_pert)
-            dfactors = dfs[::-1] if f_pert else None
-        else:
-            dx, dfs_by_id = _program_bwd(
-                ctx.plan, ctx.backend, x, factors, g, f_pert, ctx.batched
-            )
-            nf = len(factors)
-            dfactors = tuple(dfs_by_id[nf - 1 - j] for j in range(nf)) if f_pert else None
-        dx = dx.to(x.dtype) if ctx.needs_input_grad[0] else None
-        if dfactors is None:
-            dfactors = (None,) * len(factors)
-        else:
-            dfactors = tuple(
-                d.to(f.dtype) if n else None for d, f, n in zip(dfactors, factors, need)
-            )
-        return (dx, None, None, None, None, *dfactors)
+        # The backward entry's span, on the autograd engine's thread.
+        with telemetry.span("op_bwd"):
+            x, *factors = ctx.saved_tensors
+            factors = tuple(factors)
+            need = ctx.needs_input_grad[5:]
+            f_pert = any(need)
+            g = grad_out.contiguous()
+            if ctx.plan is None:
+                # The unfused loop applied the last factor first.
+                dx, dfs = _per_factor_bwd(x, g, factors[::-1], ctx.backend, f_pert)
+                dfactors = dfs[::-1] if f_pert else None
+            else:
+                dx, dfs_by_id = _program_bwd(
+                    ctx.plan, ctx.backend, x, factors, g, f_pert, ctx.batched
+                )
+                nf = len(factors)
+                dfactors = tuple(dfs_by_id[nf - 1 - j] for j in range(nf)) if f_pert else None
+            dx = dx.to(x.dtype) if ctx.needs_input_grad[0] else None
+            if dfactors is None:
+                dfactors = (None,) * len(factors)
+            else:
+                dfactors = tuple(
+                    d.to(f.dtype) if n else None for d, f, n in zip(dfactors, factors, need)
+                )
+            return (dx, None, None, None, None, *dfactors)
 
     @staticmethod
     def vmap(info, in_dims, x, plan, backend, pctx, batched, *factors):
@@ -1194,39 +1196,42 @@ class KronOp:
     def __call__(
         self, x: torch.Tensor, factors: Sequence[torch.Tensor]
     ) -> torch.Tensor:
-        factors = tuple(factors)
-        self._check_factors(x, factors)
-        if self.mesh is not None:
-            return self._run_mesh(x, factors)
-        size = x.element_size()
-        dev = x.device if self._measure else None
-        if self.batch is None:
-            lead = x.shape[:-1]
-            rows = math.prod(lead) if lead else 1
-            plan = self._single_plan(rows, size, dev)
-            y = _KronFunction.apply(
-                x.reshape(rows, self.k), plan, self.backend, self._ctx, False, *factors
-            )
-            return y.reshape(*lead, self.k_out)
-        if x.ndim < 2 or int(x.shape[0]) != self.batch:
-            raise ValueError(
-                f"batched op expects x (B={self.batch}, ..., K), got {tuple(x.shape)}"
-            )
-        b = self.batch
-        lead = x.shape[1:-1]
-        m = math.prod(lead) if lead else 1
-        if self.shared_factors:
-            # B folds into M: both are row indices of the same contiguous array.
-            plan = self._single_plan(b * m, size, dev)
-            y = _KronFunction.apply(
-                x.reshape(b * m, self.k), plan, self.backend, self._ctx, False, *factors
-            )
-        else:
-            plan = self._batched_plan(b, m, size, dev)
-            y = _KronFunction.apply(
-                x.reshape(b, m, self.k), plan, self.backend, self._ctx, True, *factors
-            )
-        return y.reshape(b, *lead, self.k_out)
+        # The op layer's span: its self time is the checks, the plan memo, the
+        # autograd entry and the ladder, outside the executor's spans.
+        with telemetry.span("op"):
+            factors = tuple(factors)
+            self._check_factors(x, factors)
+            if self.mesh is not None:
+                return self._run_mesh(x, factors)
+            size = x.element_size()
+            dev = x.device if self._measure else None
+            if self.batch is None:
+                lead = x.shape[:-1]
+                rows = math.prod(lead) if lead else 1
+                plan = self._single_plan(rows, size, dev)
+                y = _KronFunction.apply(
+                    x.reshape(rows, self.k), plan, self.backend, self._ctx, False, *factors
+                )
+                return y.reshape(*lead, self.k_out)
+            if x.ndim < 2 or int(x.shape[0]) != self.batch:
+                raise ValueError(
+                    f"batched op expects x (B={self.batch}, ..., K), got {tuple(x.shape)}"
+                )
+            b = self.batch
+            lead = x.shape[1:-1]
+            m = math.prod(lead) if lead else 1
+            if self.shared_factors:
+                # B folds into M: both are row indices of the same contiguous array.
+                plan = self._single_plan(b * m, size, dev)
+                y = _KronFunction.apply(
+                    x.reshape(b * m, self.k), plan, self.backend, self._ctx, False, *factors
+                )
+            else:
+                plan = self._batched_plan(b, m, size, dev)
+                y = _KronFunction.apply(
+                    x.reshape(b, m, self.k), plan, self.backend, self._ctx, True, *factors
+                )
+            return y.reshape(b, *lead, self.k_out)
 
     # -- the mesh path -------------------------------------------------------
 

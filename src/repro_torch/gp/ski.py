@@ -26,6 +26,7 @@ import torch
 
 from ..core import kron as K
 from ..core.engine import KronOp, kron_op_for
+from ..runtime import telemetry
 
 
 def rbf_kernel_1d(grid: torch.Tensor, lengthscale: float = 0.2) -> torch.Tensor:
@@ -156,22 +157,27 @@ def conjugate_gradient(
     reference's 1e-20 clamps on both divisions; ``iters + 1`` MVMs, the
     first on the zero start.  ``dot(a, c)`` is the per-row dot product,
     keeping the last dim (a sharded solve sums it over the column
-    shards).  Returns (x, final residual norm per row)."""
-    x = torch.zeros_like(b)
-    r = b - matvec(x)
-    p = r
-    rs = dot(r, r)
-    for _ in range(iters):
-        ap = matvec(p)
-        denom = dot(p, ap)
-        alpha = rs / torch.clamp(denom, min=1e-20)
-        x = x + alpha * p
-        r = r - alpha * ap
-        rs_new = dot(r, r)
-        beta = rs_new / torch.clamp(rs, min=1e-20)
-        p = r + beta * p
-        rs = rs_new
-    return x, torch.sqrt(dot(r, r)).squeeze(-1)
+    shards).  Returns (x, final residual norm per row).
+
+    The solve is a ``cg`` telemetry span, the zero start and first
+    residual included, and each iteration a ``cg_iter`` span."""
+    with telemetry.span("cg"):
+        x = torch.zeros_like(b)
+        r = b - matvec(x)
+        p = r
+        rs = dot(r, r)
+        for _ in range(iters):
+            with telemetry.span("cg_iter"):
+                ap = matvec(p)
+                denom = dot(p, ap)
+                alpha = rs / torch.clamp(denom, min=1e-20)
+                x = x + alpha * p
+                r = r - alpha * ap
+                rs_new = dot(r, r)
+                beta = rs_new / torch.clamp(rs, min=1e-20)
+                p = r + beta * p
+                rs = rs_new
+        return x, torch.sqrt(dot(r, r)).squeeze(-1)
 
 
 def _mesh_epoch(matmul, v: torch.Tensor, mesh, *, noise: float, cg_iters: int):

@@ -22,7 +22,8 @@ The port of ``repro.kernels.emit``:
   the reference's points: the ``stage_execute`` and ``pallas_lowering``
   chaos sites, ``check_finite`` on ``run_stage_grad``'s dx and
   ``run_program``'s output, and the ``stage``, ``stage_grad`` and
-  ``program`` telemetry spans.
+  ``program`` telemetry spans; each launcher's body, from its occupancy
+  query to ``check_launch``, is a ``launch`` span.
 * every CUDA launcher reports its launch's FLOPs (``chain_flops``) and HBM
   bytes (inputs, factors, outputs) to the active ``hlo_cost.CostMode``s,
   and on a ``FakeTensor`` (a dry-run's trace) returns its output without a
@@ -934,15 +935,16 @@ def _chain_launch(inp, out, factors, geo, code):
     grid: as many blocks as the card holds at once (``grad_blocks`` from the
     occupancy query), never more than the walk has tiles."""
     name = f"chain_{geo.direction}"
-    per_sm, _ = chain_occupancy(geo, code, inp.device)
-    nblk = grad_blocks(sm_count(inp.device), per_sm, geo.tiles, 1)
-    with torch.cuda.device(inp.device):
-        err = kernel_fn(name, _CHAIN_ARGS)(
-            code, inp.data_ptr(), out.data_ptr(), _ptrs(factors), _ints(geo.ps),
-            _ints(geo.qs), _ints(geo.t_qs), len(factors), geo.b, geo.m, geo.k,
-            geo.block_m, geo.block_k, nblk, torch.cuda.current_stream().cuda_stream,
-        )
-    check_launch(name, err)
+    with telemetry.span("launch"):
+        per_sm, _ = chain_occupancy(geo, code, inp.device)
+        nblk = grad_blocks(sm_count(inp.device), per_sm, geo.tiles, 1)
+        with torch.cuda.device(inp.device):
+            err = kernel_fn(name, _CHAIN_ARGS)(
+                code, inp.data_ptr(), out.data_ptr(), _ptrs(factors), _ints(geo.ps),
+                _ints(geo.qs), _ints(geo.t_qs), len(factors), geo.b, geo.m, geo.k,
+                geo.block_m, geo.block_k, nblk, torch.cuda.current_stream().cuda_stream,
+            )
+        check_launch(name, err)
 
 
 def chain_cuda(
@@ -1198,18 +1200,19 @@ def _grad_launch(x, dy, dx, df, factors, geo: GradGeometry, code: int) -> None:
     writes one dF partial, then the partials are reduced into ``df``."""
     global grad_launches, grad_reduce_launches
     total = int(df.shape[1])
-    per_sm, _ = grad_occupancy(x, dy, geo, code)
-    tiles = (geo.m // geo.block_m) * (geo.k // geo.block_k)
-    nblk = grad_blocks(sm_count(x.device), per_sm, tiles, geo.b)
-    part = torch.empty((geo.b * nblk * total,), dtype=df.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        err = kernel_fn("grad", _GRAD_ARGS)(
-            code, x.data_ptr(), dy.data_ptr(), dx.data_ptr(), part.data_ptr(),
-            df.data_ptr(), _ptrs(factors), _ints(geo.ps), _ints(geo.qs),
-            len(factors), geo.b, geo.m, geo.k, geo.block_m, geo.block_k, nblk,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    check_launch("grad", err)
+    with telemetry.span("launch"):
+        per_sm, _ = grad_occupancy(x, dy, geo, code)
+        tiles = (geo.m // geo.block_m) * (geo.k // geo.block_k)
+        nblk = grad_blocks(sm_count(x.device), per_sm, tiles, geo.b)
+        part = torch.empty((geo.b * nblk * total,), dtype=df.dtype, device=x.device)
+        with torch.cuda.device(x.device):
+            err = kernel_fn("grad", _GRAD_ARGS)(
+                code, x.data_ptr(), dy.data_ptr(), dx.data_ptr(), part.data_ptr(),
+                df.data_ptr(), _ptrs(factors), _ints(geo.ps), _ints(geo.qs),
+                len(factors), geo.b, geo.m, geo.k, geo.block_m, geo.block_k, nblk,
+                torch.cuda.current_stream().cuda_stream,
+            )
+        check_launch("grad", err)
     grad_launches += 1
     grad_reduce_launches += 1
 

@@ -21,7 +21,7 @@ import functools
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
 
-from ..runtime import hlo_cost
+from ..runtime import hlo_cost, telemetry
 from ..runtime.guard import LoweringError, VmemOverflowError
 from .emit import (
     ASYNC_THREADS,
@@ -252,14 +252,15 @@ def sliced_multiply_cuda(
                               _nbytes(x, f, y))
     if isinstance(x, FakeTensor):  # a dry-run's trace: counted, never launched
         return y
-    per_sm, _ = sliced_occupancy(code, m, s, p, q, t_m, t_s, t_q, x.device)
-    nblk = grad_blocks(sm_count(x.device), per_sm, (q // t_q) * (m // t_m) * (s // t_s), 1)
-    with torch.cuda.device(x.device):
-        err = kernel_fn("sliced", _SLICED_ARGS)(
-            code, int(sliced_mma(p, q, t_q, isz)), x.data_ptr(), f.data_ptr(), y.data_ptr(),
-            m, k, p, q, t_m, t_s, t_q, nblk, torch.cuda.current_stream().cuda_stream,
-        )
-    check_launch("sliced", err)
+    with telemetry.span("launch"):
+        per_sm, _ = sliced_occupancy(code, m, s, p, q, t_m, t_s, t_q, x.device)
+        nblk = grad_blocks(sm_count(x.device), per_sm, (q // t_q) * (m // t_m) * (s // t_s), 1)
+        with torch.cuda.device(x.device):
+            err = kernel_fn("sliced", _SLICED_ARGS)(
+                code, int(sliced_mma(p, q, t_q, isz)), x.data_ptr(), f.data_ptr(), y.data_ptr(),
+                m, k, p, q, t_m, t_s, t_q, nblk, torch.cuda.current_stream().cuda_stream,
+            )
+        check_launch("sliced", err)
     sliced_launches += 1
     return y
 

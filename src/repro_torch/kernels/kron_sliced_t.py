@@ -24,7 +24,7 @@ import functools
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
 
-from ..runtime import hlo_cost
+from ..runtime import hlo_cost, telemetry
 from ..runtime.guard import LoweringError
 from .emit import (
     _nbytes,
@@ -102,16 +102,17 @@ def sliced_multiply_t_cuda(
                               _nbytes(dy, f, dx))
     if isinstance(dy, FakeTensor):  # a dry-run's trace: counted, never launched
         return dx
-    per_sm, _ = sliced_t_occupancy(
-        code, dy.data_ptr() % 16, m, s, p, q, t_m, t_s, t_q, dy.device
-    )
-    nblk = grad_blocks(sm_count(dy.device), per_sm, (m // t_m) * (s // t_s), 1)
-    with torch.cuda.device(dy.device):
-        err = kernel_fn("sliced_t", _SLICED_T_ARGS)(
-            code, dy.data_ptr(), f.data_ptr(), dx.data_ptr(), m, s, p, q,
-            t_m, t_s, t_q, nblk, torch.cuda.current_stream().cuda_stream,
+    with telemetry.span("launch"):
+        per_sm, _ = sliced_t_occupancy(
+            code, dy.data_ptr() % 16, m, s, p, q, t_m, t_s, t_q, dy.device
         )
-    check_launch("sliced_t", err)
+        nblk = grad_blocks(sm_count(dy.device), per_sm, (m // t_m) * (s // t_s), 1)
+        with torch.cuda.device(dy.device):
+            err = kernel_fn("sliced_t", _SLICED_T_ARGS)(
+                code, dy.data_ptr(), f.data_ptr(), dx.data_ptr(), m, s, p, q,
+                t_m, t_s, t_q, nblk, torch.cuda.current_stream().cuda_stream,
+            )
+        check_launch("sliced_t", err)
     sliced_t_launches += 1
     return dx
 

@@ -1,10 +1,14 @@
 """The port's KronScope telemetry (repro_torch.runtime.telemetry, .events)
 against repro.runtime.telemetry on the same calls: the registry, the
 percentiles, the JSONL stream and the Chrome trace; the spans the port's
-KronOp records; and the off-path contract, pinned with torch.profiler on
-the CPU: telemetry off enters no record_function range."""
+KronOp, its backward, CG and the launchers record; and the off-path
+contract, pinned with torch.profiler on the CPU: telemetry off enters no
+record_function range."""
+import contextlib
 import json
+import math
 import time
+import types
 import warnings
 
 import numpy as np
@@ -14,6 +18,8 @@ import torch
 from _torch_parity import make_inputs, to_torch
 from repro.runtime import telemetry as JT
 from repro_torch.core import KronOp
+from repro_torch.gp.ski import KronKernel, gp_train_epoch, rbf_kernel_1d
+from repro_torch.kernels import emit, kron_sliced, kron_sliced_t
 from repro_torch.runtime import chaos, guard, telemetry
 from repro_torch.runtime.events import EventSink, get_logger
 
@@ -146,18 +152,154 @@ def _kronscope_ranges(fn) -> set:
     return {e.key for e in prof.key_averages() if e.key.startswith("kronscope.")}
 
 
+def _grad_call(op, x, fs):
+    xt = x.clone().requires_grad_()
+    ft = [f.clone().requires_grad_() for f in fs]
+    return torch.autograd.grad(op(xt, ft).sum(), [xt, *ft])
+
+
+def _gp_epoch(iters=3):
+    grid = torch.linspace(0, 1, 4)
+    kernel = KronKernel((rbf_kernel_1d(grid, 0.3), rbf_kernel_1d(grid, 0.5)))
+    v = torch.randn(3, 16, generator=torch.Generator().manual_seed(0))
+    return lambda: gp_train_epoch(kernel, v, cg_iters=iters)
+
+
 def test_off_enters_no_record_function():
     op, x, fs = _op_call()
-    op(x, fs)  # plans resolved outside the profiled windows
-    assert _kronscope_ranges(lambda: op(x, fs)) == set()
+    epoch = _gp_epoch()
+    calls = {"forward": lambda: op(x, fs), "backward": lambda: _grad_call(op, x, fs),
+             "cg": epoch}
+    for fn in calls.values():
+        fn()  # plans resolved outside the profiled windows
+    for fn in calls.values():
+        assert _kronscope_ranges(fn) == set()
     telemetry.configure()
-    on = _kronscope_ranges(lambda: op(x, fs))
-    assert {"kronscope.program", "kronscope.stage"} <= on
+    on = {name: _kronscope_ranges(fn) for name, fn in calls.items()}
+    assert {"kronscope.op", "kronscope.program", "kronscope.stage"} <= on["forward"]
+    assert {"kronscope.op_bwd", "kronscope.stage_grad"} <= on["backward"]
+    assert {"kronscope.cg", "kronscope.cg_iter", "kronscope.op"} <= on["cg"]
     telemetry.configure(annotate=False)  # timed host-side, no ranges
-    assert _kronscope_ranges(lambda: op(x, fs)) == set()
-    assert telemetry.snapshot()["histograms"]["span.stage"]["count"] == 1
+    for name, fn in calls.items():
+        assert _kronscope_ranges(fn) == set()
+        if name == "forward":  # one call: one op span around one stage
+            hists = telemetry.snapshot()["histograms"]
+            assert hists["span.op"]["count"] == hists["span.stage"]["count"] == 1
+    hists = telemetry.snapshot()["histograms"]
+    assert hists["span.op_bwd"]["count"] == hists["span.cg"]["count"] == 1
+    assert hists["span.cg_iter"]["count"] == 3
     telemetry.reset()
-    assert _kronscope_ranges(lambda: op(x, fs)) == set()
+    for fn in calls.values():
+        assert _kronscope_ranges(fn) == set()
+
+
+def _spans(path) -> list[dict]:
+    return [r for r in _read_jsonl(path) if r["kind"] == "span"]
+
+
+def _encloses(outer, inner) -> bool:
+    return (outer["tid"] == inner["tid"] and outer["depth"] < inner["depth"]
+            and outer["ts"] <= inner["ts"]
+            and inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"])
+
+
+def test_forward_call_records_op_enclosing_program_enclosing_stage(tmp_path):
+    op, x, fs = _op_call()
+    op(x, fs)
+    telemetry.configure(jsonl=str(tmp_path / "fwd.jsonl"), annotate=False)
+    op(x, fs)
+    telemetry.shutdown()
+    spans = _spans(tmp_path / "fwd.jsonl")
+    [o] = [r for r in spans if r["name"] == "op"]
+    [prog] = [r for r in spans if r["name"] == "program"]
+    stages = [r for r in spans if r["name"] == "stage"]
+    assert o["depth"] == 0 and _encloses(o, prog)
+    assert stages and all(_encloses(prog, st) for st in stages)
+    assert not [r for r in spans if r["name"] == "launch"]  # the CPU runs no launcher
+
+
+def test_backward_records_op_bwd_enclosing_stage_grad(tmp_path):
+    op, x, fs = _op_call()
+    _grad_call(op, x, fs)
+    telemetry.configure(jsonl=str(tmp_path / "bwd.jsonl"), annotate=False)
+    _grad_call(op, x, fs)
+    telemetry.shutdown()
+    spans = _spans(tmp_path / "bwd.jsonl")
+    [bwd] = [r for r in spans if r["name"] == "op_bwd"]
+    grads = [r for r in spans if r["name"] == "stage_grad"]
+    assert grads and all(_encloses(bwd, g) for g in grads)
+    [fwd] = [r for r in spans if r["name"] == "op"]
+    assert fwd["ts"] + fwd["dur"] <= bwd["ts"]
+
+
+def test_cg_epoch_records_cg_and_its_iterations_around_the_ops_spans(tmp_path):
+    epoch = _gp_epoch(iters=4)
+    epoch()
+    telemetry.configure(jsonl=str(tmp_path / "cg.jsonl"), annotate=False)
+    epoch()
+    telemetry.shutdown()
+    spans = _spans(tmp_path / "cg.jsonl")
+    [cg] = [r for r in spans if r["name"] == "cg"]
+    iters = [r for r in spans if r["name"] == "cg_iter"]
+    ops = [r for r in spans if r["name"] == "op"]
+    assert len(iters) == 4 and all(_encloses(cg, it) for it in iters)
+    # One MVM on the zero start, then one in each iteration.
+    assert len(ops) == 5 and all(_encloses(cg, o) for o in ops)
+    assert [sum(_encloses(it, o) for o in ops) for it in iters] == [1] * 4
+    assert {r["name"] for r in spans} >= {"program", "stage"}
+
+
+def _stub_card(monkeypatch):
+    """The launchers' ways to the card answer without one: an occupancy of two
+    blocks per SM, 132 SMs, a kernel that returns success, CPU tensors taken
+    as the card's, and no device or stream to enter.  The launch counters
+    the launchers bump are the test's own."""
+    for mod, occ in ((emit, "chain_occupancy"), (emit, "grad_occupancy"),
+                     (kron_sliced, "sliced_occupancy"), (kron_sliced_t, "sliced_t_occupancy")):
+        monkeypatch.setattr(mod, occ, lambda *a: (2, 0))
+    for mod in (emit, kron_sliced, kron_sliced_t):
+        monkeypatch.setattr(mod, "sm_count", lambda device: 132)
+        monkeypatch.setattr(mod, "kernel_fn", lambda name, argtypes: lambda *args: 0)
+    for mod in (kron_sliced, kron_sliced_t):
+        monkeypatch.setattr(mod, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    for mod, counter in ((emit, "grad_launches"), (emit, "grad_reduce_launches"),
+                         (kron_sliced, "sliced_launches"), (kron_sliced_t, "sliced_t_launches")):
+        monkeypatch.setattr(mod, counter, 0)
+
+
+def _launch(kernel):
+    ps, qs, m = (4, 3), (3, 2), 8
+    if kernel == "sliced":
+        kron_sliced.sliced_multiply_cuda(torch.zeros(m, 12), torch.zeros(4, 3))
+        return
+    if kernel == "sliced_t":
+        kron_sliced_t.sliced_multiply_t_cuda(torch.zeros(m, 9), torch.zeros(4, 3))
+        return
+    x = torch.zeros(1, m, math.prod(ps))
+    fs = [torch.zeros(1, p, q) for p, q in zip(ps, qs)]
+    if kernel == "grad":
+        dy = torch.zeros(1, m, math.prod(qs))
+        geo = emit.grad_geometry(x.shape, dy.shape, [f.shape for f in fs])
+        df = torch.zeros(1, sum(p * q for p, q in zip(ps, qs)))
+        emit._grad_launch(x, dy, torch.zeros_like(x), df, fs, geo, 0)
+        return
+    direction = kernel.removeprefix("chain_")
+    geo = emit.chain_geometry(x.shape, [f.shape for f in fs], direction=direction)
+    emit._chain_launch(x, torch.zeros(1, m, geo.out_cols), fs, geo, 0)
+
+
+@pytest.mark.parametrize("kernel", ["chain_fwd", "chain_bwd", "grad", "sliced", "sliced_t"])
+def test_launchers_record_one_launch_span(tmp_path, monkeypatch, kernel):
+    _stub_card(monkeypatch)
+    _launch(kernel)  # off: nothing recorded
+    telemetry.configure(jsonl=str(tmp_path / "launch.jsonl"), annotate=False)
+    _launch(kernel)
+    telemetry.shutdown()
+    [rec] = _spans(tmp_path / "launch.jsonl")
+    assert rec["name"] == "launch" and "attrs" not in rec
 
 
 def test_op_call_records_program_stage_and_grad_spans(tmp_path):
