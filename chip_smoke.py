@@ -37,7 +37,8 @@ went through the kernels.  Phases, one line each:
      precond-64x128 and precond-40x76: ``kron_precond_op`` over 36 layers)
      and ``torch.func.vmap`` (gp16-vmap over x and factors, bitwise equal
      to the per-sample call; fig9-vmap-x over x alone, B=2 folded into
-     rows, bitwise equal to the flat call): launches per call (asserted),
+     rows, bitwise equal to the flat call): launches per call (asserted;
+     every f32 stage backward on ``grad_tf32_kernel``, counted apart),
      error against the plain twins, the backward run twice and asserted
      bitwise equal, the peak device memory (``kernel_peak_mem_gib``: inputs,
      forward and first backward; ``peak_mem_gib``: with the checks against
@@ -52,7 +53,8 @@ went through the kernels.  Phases, one line each:
      and ffn's two stages through plan=None in bf16; sliced_t: one
      fig9-unfused-grad launch), beside its per-launch bound, the blocks per
      SM from the occupancy query (at least two, or the run fails) and one
-     PyTorch call computing the same function.  CUDA events around each
+     PyTorch call computing the same function; the grad rows name the
+     kernel launched and its ptxas registers.  CUDA events around each
      call; the sliced rows add the device time alone (torch.profiler),
      which leaves out the host time between launches.
   5. ladder: the forward degradation ladder under ``chaos.inject``, at
@@ -239,7 +241,9 @@ from pathlib import Path
 import torch
 
 # The card's published peaks (NVIDIA data sheets, SXM parts, dense rates).
-# f32 is the CUDA-core rate (the kernels do not use TF32); bf16 is the
+# f32 is the CUDA-core rate, the bound every f32 row has kept (the stage
+# backward's 3xTF32 products do f32 work on the tensor cores, whose TF32
+# rate is 495 TFLOP/s, three products a multiply-add); bf16 is the
 # tensor-core rate, the fastest the card could do the same operations.
 PEAKS = {
     "H100": {"bw": 3.35e12, torch.float32: 67e12, torch.bfloat16: 989e12},
@@ -312,7 +316,9 @@ def device_ms(fn) -> float:
 
 # The port's kernels, by the names torch.profiler gives their launches.
 PORT_KERNEL_NAMES = ("chain_fwd_kernel", "chain_bwd_kernel", "grad_kernel", "grad_mma_kernel",
-                     "grad_reduce_kernel", "sliced_kernel", "sliced_t_kernel")
+                     "grad_tf32_kernel", "grad_reduce_kernel", "sliced_kernel", "sliced_t_kernel")
+# ptxas's report of each library's kernels ({name: [entry, ...]}), from phase 1.
+PTXAS: dict[str, list[dict]] = {}
 
 
 def device_split(fn) -> tuple[float, float]:
@@ -373,6 +379,15 @@ def ptxas_entries(log: str) -> list[dict]:
         if m:
             entries[-1]["registers"] = int(m.group(1))
     return entries
+
+
+def ptxas_registers(library: str, kernel: str) -> int | None:
+    """Registers ptxas gave ``kernel`` (``name`` or ``name<k>``, matched
+    against the mangled entries of ``library``'s report)."""
+    name, _, k = kernel.partition("<")
+    tag = f"{len(name)}{name}" + (f"ILi{k.rstrip('>')}E" if k else "")  # the mangled identifier
+    regs = [e["registers"] for e in PTXAS.get(library, []) if tag in e["entry"]]
+    return max(regs) if regs else None
 
 
 def stage_tiles(m: int, k: int, ps, qs, t_qs, budget: int, kind: str = "fwd"):
@@ -466,19 +481,31 @@ SLICED_T_CASES = [
 # slices, dtype, batch, t_m, t_k): bf16 single-factor stages on the tensor
 # cores with P and Q not multiples of 16 (padding masked), odd slices and
 # B=2, warps sharing an output tile; a bf16 factor too large for the tensor
-# core path and f32 single-factor stages on the CUDA cores; a grid whose
-# blocks walk many tiles each (the small cases give samples fewer tiles
-# than blocks); a mixed chain.
+# core path; f32 stages on the tensor cores (3xTF32: odd P and Q, a mixed
+# chain); a grid whose blocks walk many tiles each (the small cases give
+# samples fewer tiles than blocks).
 GRAD_CASES = [
     ("mma bf16 40->76", (40,), (76,), 64, 64, torch.bfloat16, 1, 2, 1280),
     ("mma bf16 64->128", (64,), (128,), 64, 38, torch.bfloat16, 1, 2, 1216),
     ("mma bf16 65->20", (65,), (20,), 6, 52, torch.bfloat16, 1, 2, 3380),
     ("mma bf16 odd s 40->76 B=2", (40,), (76,), 3, 7, torch.bfloat16, 2, 3, 280),
-    ("f32 65->20", (65,), (20,), 4, 13, torch.float32, 1, 2, None),
-    ("f32 (32,32) many tiles per block", (32, 32), (32, 32), 64, 64, torch.float32, 1, 1, 8192),
-    ("f32 mixed (32,16,8)", (32, 16, 8), (32, 16, 8), 2, 2, torch.float32, 1, 1, None),
+    ("tf32 f32 65->20", (65,), (20,), 4, 13, torch.float32, 1, 2, None),
+    ("tf32 f32 (32,32) many tiles per block", (32, 32), (32, 32), 64, 64, torch.float32, 1, 1,
+     8192),
+    ("tf32 f32 mixed (32,16,8)", (32, 16, 8), (32, 16, 8), 2, 2, torch.float32, 1, 1, None),
     ("mma bf16 16->16 warps share tiles", (16,), (16,), 8, 64, torch.bfloat16, 1, 2, None),
     ("bf16 128->128 on the CUDA cores", (128,), (128,), 4, 16, torch.bfloat16, 1, 1, None),
+]
+# The f32 stage backward's other paths, on a generator of their own so that
+# the cases above and every later phase draw what they drew before: dF on
+# every warp (64 -> 128: its regions do not fit half of them), warps sharing
+# a region (16 -> 16, B=2); on the CUDA cores, a factor under 8 x 8 and one
+# whose dF regions overflow the registers.
+GRAD_PATH_CASES = [
+    ("tf32 f32 64->128 dF on every warp", (64,), (128,), 8, 4, torch.float32, 1, 2, 256),
+    ("tf32 f32 16->16 warps share regions B=2", (16,), (16,), 8, 64, torch.float32, 2, 2, None),
+    ("f32 (4,4) on the CUDA cores", (4, 4), (4, 4), 16, 64, torch.float32, 1, 2, None),
+    ("f32 128->128 on the CUDA cores", (128,), (128,), 4, 16, torch.float32, 1, 1, None),
 ]
 
 
@@ -538,11 +565,19 @@ def check_kernels(gen) -> dict:
             record("grad", f"{name} dF{i} (vs f64)", d, r, GRAD_TOLERANCE[dtype])
         repeat("grad", name, (dx, *dfs), flat(emit.grad_cuda(x, dy, *fs, t_b=1, t_m=t_m, t_k=t_k)))
 
-    for name, ps, qs, m, s, dtype, b, t_m, t_k in GRAD_CASES:
+    path_gen = torch.Generator(device="cuda")
+    path_gen.manual_seed(26)
+    for case in [(gen, *c) for c in GRAD_CASES] + [(path_gen, *c) for c in GRAD_PATH_CASES]:
+        g, name, ps, qs, m, s, dtype, b, t_m, t_k = case
+        size, acc = dtype.itemsize, emit.acc_dtype_for(dtype).itemsize
+        if (name.startswith("tf32") != emit.grad_uses_tf32(ps, qs, size, acc)
+                or name.startswith("mma") != emit.grad_uses_mma(ps, qs, size)):
+            kernel = emit.grad_kernel_name(ps, qs, size, acc)
+            raise AssertionError(f"grad case {name!r} takes {kernel}")
         k = math.prod(ps) * s
-        x = randn(gen, (b, m, k), dtype)
-        dy = randn(gen, (b, m, math.prod(qs) * s), dtype)
-        fs = [randn(gen, (b, p, q), dtype) for p, q in zip(ps, qs)]
+        x = randn(g, (b, m, k), dtype)
+        dy = randn(g, (b, m, math.prod(qs) * s), dtype)
+        fs = [randn(g, (b, p, q), dtype) for p, q in zip(ps, qs)]
         dx, dfs = emit.grad_cuda(x, dy, *fs, t_m=t_m, t_k=t_k)
         rdx, _ = emit.grad_reference(x, dy, *fs)
         _, rdfs = emit.grad_reference(x.double(), dy.double(), *(f.double() for f in fs))
@@ -795,6 +830,18 @@ BWD_CASES = [
 ]
 
 
+def tf32_stages(op, dtype, batched: bool = False) -> int:
+    """Stages of the op's plan whose backward runs on grad_tf32_kernel (the
+    smoke's backward cases plan no prekron stage)."""
+    from repro_torch.core.engine import _lowered
+    from repro_torch.kernels import emit
+
+    acc = emit.acc_dtype_for(dtype).itemsize
+    size = torch.tensor([], dtype=dtype).element_size()
+    return sum(emit.grad_uses_tf32(ins.ps, ins.qs, size, acc)
+               for ins in _lowered(op.plan, op.ps, op.qs, batched).instrs)
+
+
 def plain_bwd(op, x, fs, g, factors: bool):
     """The op's backward through the kernels' plain twins on the card, in
     the tensors' dtype: (dx, [dF^1 .. dF^N] in the accumulator dtype, or
@@ -875,6 +922,7 @@ def hold_backward(op, x, fs, grads, ct, batched: bool):
 def run_backward(gen, peaks) -> list[dict]:
     from repro_torch.core import KronOp, KronProblem
     from repro_torch.core.engine import _lowered
+    from repro_torch.kernels import emit
 
     rows = []
     for name, m, ps, qs, dtype, plan, factors in BWD_CASES:
@@ -892,9 +940,11 @@ def run_backward(gen, peaks) -> list[dict]:
 
         # The main path's run: counts set to 0 just before, read just after.
         reset_counters()
+        tf32_before = emit.grad_tf32_launches
         grads = backward()
         torch.cuda.synchronize()
         launches = read_counters()
+        tf32 = emit.grad_tf32_launches - tf32_before
         kernel_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         n = len(ps)
         if op.plan is None:
@@ -906,6 +956,10 @@ def run_backward(gen, peaks) -> list[dict]:
                     if factors else expect(chain_bwd=n_stages))
         if launches != want:
             raise AssertionError(f"{name}: launches {launches}, expected {want}")
+        want_tf32 = tf32_stages(op, dtype) if factors and op.plan is not None else 0
+        if tf32 != want_tf32:
+            raise AssertionError(f"{name}: {tf32} stage backwards on grad_tf32_kernel, "
+                                 f"expected {want_tf32}")
         again = backward()
         torch.cuda.synchronize()
         bitwise = all(torch.equal(a, b) for a, b in zip(grads, again))
@@ -951,7 +1005,8 @@ def run_backward(gen, peaks) -> list[dict]:
             "case": name, "describe": op.describe(), "dtype": str(dtype).replace("torch.", ""),
             "m": m, "ps": list(ps), "qs": list(qs), "stages": n_stages,
             "grads": "x and factors" if factors else "x", "launches": launches,
-            "max_abs_err": max(errs), "dx_rel_err": rels[0], "df_rel_err": max(rels[1:], default=0.0),
+            "tf32_launches": tf32, "max_abs_err": max(errs), "dx_rel_err": rels[0],
+            "df_rel_err": max(rels[1:], default=0.0),
             "tol": tol, "bitwise_repeat": bitwise, "peak_mem_gib": peak_gib,
             "kernel_peak_mem_gib": kernel_peak_gib,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -1076,6 +1131,7 @@ def run_batched_backward(gen, peaks) -> list[dict]:
     """gp16-batched-grad: ``torch.autograd.grad`` through the per-sample
     call, x and factor gradients, with a runtime cotangent."""
     from repro_torch.core import KronOp, KronProblem
+    from repro_torch.kernels import emit
 
     name, b, m, ps, qs = BATCHED_GRAD_CASE
     dtype = torch.float32
@@ -1093,14 +1149,19 @@ def run_batched_backward(gen, peaks) -> list[dict]:
 
     # The main path's run: counts set to 0 just before, read just after.
     reset_counters()
+    tf32_before = emit.grad_tf32_launches
     grads = backward()
     torch.cuda.synchronize()
     launches = read_counters()
+    tf32 = emit.grad_tf32_launches - tf32_before
     kernel_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     n = n_stages(op, True)
     want = expect(chain_fwd=n - 1, grad=n, grad_reduce=n)
     if launches != want:
         raise AssertionError(f"{name}: launches {launches}, expected {want}")
+    if tf32 != tf32_stages(op, dtype, True):
+        raise AssertionError(f"{name}: {tf32} stage backwards on grad_tf32_kernel, "
+                             f"expected {tf32_stages(op, dtype, True)}")
     again = backward()
     torch.cuda.synchronize()
     bitwise = all(torch.equal(a, c) for a, c in zip(grads, again))
@@ -1128,7 +1189,8 @@ def run_batched_backward(gen, peaks) -> list[dict]:
     row = {
         "case": name, "describe": op.describe(), "dtype": "float32", "b": b, "m": m,
         "ps": list(ps), "qs": list(qs), "stages": n, "t_b": op.plan.t_b,
-        "grads": "x and factors", "launches": launches, "max_abs_err": max_err,
+        "grads": "x and factors", "launches": launches, "tf32_launches": tf32,
+        "max_abs_err": max_err,
         "dx_rel_err": max(dx_rels), "df_rel_err": max(df_rels), "tol": tol,
         "bitwise_repeat": bitwise, "peak_mem_gib": peak_gib,
         "kernel_peak_mem_gib": kernel_peak_gib, "ms": ms, "plain_ms": plain_ms,
@@ -1364,8 +1426,10 @@ def run_alone(gen, peaks) -> dict:
             fsize = sum(p * q for p, q in zip(ins.ps, ins.qs))
             nbytes = (2 * m * k + m * k_out + fsize) * x.element_size() + fsize * acc.itemsize
             b_ms, b_by = bound(nbytes, 2 * stage_flops(m, k, ins.ps, ins.qs), peaks, dtype)
+            kernel = emit.grad_kernel_name(ins.ps, ins.qs, x.element_size(), acc.itemsize)
             report("grad", {
                 "case": case, "stage": idx, "ps": list(ins.ps), "qs": list(ins.qs),
+                "kernel": kernel, "registers": ptxas_registers("grad", kernel),
                 "block_tile": [geo.block_m, geo.block_k], "smem_bytes": smem,
                 "blocks_per_sm": per_sm, "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": library_ms,
@@ -4406,7 +4470,8 @@ def main() -> int:
     spills = []
     for name in libs:
         log = (_build.build_dir() / f"{name}.log").read_text()
-        for e in ptxas_entries(log):
+        PTXAS[name] = ptxas_entries(log)
+        for e in PTXAS[name]:
             print(f"build: {name}.cu ptxas: {e['entry']}: {e['registers']} registers, "
                   f"{e['spill_bytes']} bytes spilled", flush=True)
             if name in TWO_BLOCK_KERNELS and e["spill_bytes"]:
@@ -4485,6 +4550,8 @@ def main() -> int:
         if name == "grad":
             row["reduce_launches"] = (sum(row["launches"]["grad_reduce"] for row in rows.values())
                                       + sum(c["grad_reduce"] for c in consumers))
+            # Of phase 3's stage backwards, those on grad_tf32_kernel.
+            row["tf32_launches"] = sum(row.get("tf32_launches", 0) for row in rows.values())
         if name in alone:
             row["alone"] = alone[name]
         return row

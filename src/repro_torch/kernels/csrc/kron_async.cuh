@@ -1,14 +1,14 @@
 // Hopper pieces of the persistent kernels (chain_fwd.cu, chain_bwd.cu,
 // grad.cu, sliced.cu, sliced_t.cu): the asynchronous copies of the next tile, the
 // register-tiled contraction step, the chain kernels' launch arguments and
-// walk, the persistent per-thread dF accumulator and the bf16 tensor-core
-// step.
+// walk, the persistent per-thread dF accumulator, the bf16 tensor-core step
+// and the 3xTF32 split of float32 operands.
 //
 // Every piece of inline PTX sits behind one small device function below
 // (cp_async16/8/4, cp_async_commit, cp_async_wait, mma_bf16_16816,
-// ldmatrix_x4_trans).  A host build that defines KRON_PTX_STUB supplies
-// scalar bodies for them instead, so that the index math of the kernels can
-// be rehearsed on a CPU.
+// ldmatrix_x4_trans, mma_tf32_1688).  A host build that defines
+// KRON_PTX_STUB supplies scalar bodies for them instead, so that the index
+// math of the kernels can be rehearsed on a CPU.
 //
 // The copies: a block walks its tiles in a fixed order and keeps the next
 // tile's operands in flight with cp.async while it computes on the current
@@ -87,7 +87,30 @@ __device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* 
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(row)));
 }
+// d += A * B for one 16x8x8 tile: A (16x8, row-major) and B (8x8,
+// column-major) TF32, d f32.  Lane l (g = l / 4, t = l % 4) holds a = {A[g][t],
+// A[g+8][t], A[g][t+4], A[g+8][t+4]}, b = {B[t][g], B[t+4][g]} and d = {C[g][2t],
+// C[g][2t+1], C[g+8][2t], C[g+8][2t+1]}.
+__device__ __forceinline__ void mma_tf32_1688(float (&d)[4], const unsigned (&a)[4],
+                                              const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
 #endif
+
+// The 3xTF32 split: hi is v rounded to TF32 (10 explicit mantissa bits), to
+// nearest with ties away from zero, as cvt.rna.tf32.f32 rounds a finite v
+// (an integer add and mask, where cvt.rna compiles to three instructions;
+// an infinite or NaN v leaves lo non-finite); lo = v - hi is exact and under
+// 2^-11 of |v|, and the mma reads its top 19 bits, so the pair is v to 2^-21
+// of |v| (rounding lo too would gain nothing measurable: the f32 sums round
+// more).
+__device__ __forceinline__ void split_tf32(float v, unsigned& hi, unsigned& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
 
 // One chunk of a run from device to shared memory: `vbytes` of 16, 8 or 4
 // go through cp.async; 0 copies one element with ordinary loads.

@@ -58,11 +58,14 @@ PREKRON = "prekron"
 _KINDS = (MULTIPLY, TRANSPOSED_MULTIPLY, PREKRON)
 
 # Launch counters, +1 per CUDA launch and nowhere else: the forward chain,
-# the transposed chain, the stage backward and its dF reduction.
+# the transposed chain, the stage backward and its dF reduction; of the
+# stage backwards, those that ran the f32 tensor-core kernel
+# (``grad_uses_tf32``).
 chain_launches = 0
 chain_bwd_launches = 0
 grad_launches = 0
 grad_reduce_launches = 0
+grad_tf32_launches = 0
 
 _MAX_FACTORS = 16  # kron::kMaxFactors in csrc/kron_tile.cuh
 _KERNEL_DTYPES = {  # (input dtype, acc dtype) -> code in csrc/kron_tile.cuh
@@ -506,15 +509,113 @@ def grad_uses_mma(ps: Sequence[int], qs: Sequence[int], in_bytes: int) -> bool:
     return len(ps) == 1 and in_bytes == 2 and _mma_tiles(ps[0], qs[0]) <= _MMA_ITEMS * _WARPS
 
 
+_TC_ITEMS = 4  # kTcItems in csrc/grad.cu: 16 x 16 dF regions per warp in registers
+_TC_MIN_DIM = 8  # kTcMinDim in csrc/grad.cu: the smallest p and q on the tensor cores
+
+
+def _tc_regions(p: int, q: int) -> int:
+    """16 x 16 output regions of a (p, q) dF on the f32 tensor-core path."""
+    return _r16(p) // 16 * (_r16(q) // 16)
+
+
+def _tc_groups(p: int, q: int, nw: int) -> int:
+    """Warps (of nw) that split each region's contraction (fewer regions
+    than warps)."""
+    r = _tc_regions(p, q)
+    return 1 if r >= nw else nw // r
+
+
+def _tc_items(p: int, q: int, nw: int) -> int:
+    """Regions of one factor's dF that each of nw warps holds in registers."""
+    return -(-_tc_regions(p, q) // nw)
+
+
+def _tc_owners(ps: Sequence[int], qs: Sequence[int]) -> tuple[list[int], int]:
+    """(warps that own each factor's dF, dF regions a warp holds) on the f32
+    tensor-core path (``tc_owners``): with an even number of factors the
+    two halves of the warps take alternate factors, one factor goes to one
+    half (the other runs dX beside it); otherwise, or where the regions do
+    not fit the halves' registers, every dF runs on every warp."""
+    half, n = _WARPS // 2, len(ps)
+    items = [0, 0]
+    for i, (p, q) in enumerate(zip(ps, qs)):
+        items[1 if n == 1 else (i + 1) % 2] += _tc_items(p, q, half)
+    if (n % 2 == 0 or n == 1) and max(items) <= _TC_ITEMS:
+        return [half] * n, max(items)
+    return [_WARPS] * n, sum(_tc_items(p, q, _WARPS) for p, q in zip(ps, qs))
+
+
+def _tf32_smem_bytes(t_m: int, t_k: int, ps: Sequence[int], qs: Sequence[int]) -> int:
+    """grad.cu's shared memory on the f32 tensor-core path (``tc_layout``),
+    in bytes, every region rounded to 16 bytes: the row-major chain states
+    u_0 (the x slab; twice) and u_1 .. u_{n-1}, ``r16(t_m s_i)`` rows at
+    stride ``r16(p_i) + 4``; the feature-major gradient states G_n
+    (``r16(q_{n-1})`` features at stride ``ld_{n-1}``; twice for one
+    factor) and G_1 .. G_{n-1} (``r16(q_i)`` features at ``ld_i = r16(t_m
+    s_i) + 8``); the TF32-split forward panels of F_0 .. F_{n-2} and
+    transposed panels of every factor, hi and lo (``2 r8(K) r8(N)``
+    floats); and at least the warps' dF sums when they meet (256 floats per
+    region and group of the warps that own each dF, ``_tc_owners``)."""
+    n = len(ps)
+    s, cols = [], t_k
+    for p, q in zip(ps, qs):
+        s.append(cols // p)
+        cols = cols // p * q
+    ld = [_r16(t_m * si) + 8 for si in s]
+    u = [_r16(4 * _r16(t_m * si) * (_r16(p) + 4)) for p, si in zip(ps, s)]
+    gn = _r16(4 * _r16(qs[-1]) * ld[-1])
+    states = (2 * u[0] + sum(u[1:]) + (2 if n == 1 else 1) * gn
+              + sum(_r16(4 * _r16(qs[i]) * ld[i]) for i in range(n - 1)))
+    panels = (sum(_r16(8 * _r8(p) * _r8(q)) for p, q in zip(ps[:-1], qs[:-1]))
+              + sum(_r16(8 * _r8(q) * _r8(p)) for p, q in zip(ps, qs)))
+    owners, _ = _tc_owners(ps, qs)
+    dump = sum(1024 * _tc_regions(p, q) * _tc_groups(p, q, nw)
+               for p, q, nw in zip(ps, qs, owners))
+    return max(states + panels, dump)
+
+
+def grad_uses_tf32(
+    ps: Sequence[int], qs: Sequence[int], in_bytes: int, acc_bytes: int = 4
+) -> bool:
+    """grad.cu runs a stage on the tensor cores in 3xTF32
+    (grad_tf32_kernel) when it is float32 (input and accumulator), every
+    factor is at least 8 x 8 (``_TC_MIN_DIM``: smaller ones pad the mma
+    tiles more than the tensor cores gain), its dF regions fit the warps'
+    registers (``_TC_ITEMS`` a warp, ``_tc_owners``) and its layout fits
+    one block at the smallest tile (``t_m'=1, t_k'=prod(ps)``); other f32
+    stages run on the CUDA cores."""
+    return (
+        in_bytes == 4 and acc_bytes == 4
+        and min(*ps, *qs) >= _TC_MIN_DIM
+        and _tc_owners(ps, qs)[1] <= _TC_ITEMS
+        and _tf32_smem_bytes(1, math.prod(ps), ps, qs) <= SMEM_BYTES
+    )
+
+
+def grad_kernel_name(
+    ps: Sequence[int], qs: Sequence[int], in_bytes: int, acc_bytes: int = 4
+) -> str:
+    """The kernel grad.cu launches for a stage: ``grad_tf32_kernel<k>`` (k the
+    dF regions a warp holds over all factors, 1 or else 4), ``grad_mma_kernel``
+    or ``grad_kernel``."""
+    if grad_uses_tf32(ps, qs, in_bytes, acc_bytes):
+        _, items = _tc_owners(ps, qs)
+        return f"grad_tf32_kernel<{1 if items <= 1 else _TC_ITEMS}>"
+    return "grad_mma_kernel" if grad_uses_mma(ps, qs, in_bytes) else "grad_kernel"
+
+
 def _grad_smem_bytes(t_m, t_k, ps, qs, acc_bytes, in_bytes) -> int:
     """grad.cu's shared memory (``grad_args``), in bytes, every region
-    rounded to 16 bytes: the slot of the raw x slab (and raw dY block) in
-    the input dtype, then either (``grad_uses_mma``) the tensor-core
-    operands x^T, dY^T and F, at least as large as the warps' dF sums
-    when several warps share an output tile, or the forward states, the
-    gradient state G_n (where f32 and f64 multi-factor stages copy dY
-    directly), the two gradient states G_{n-1} .. G_1 in turn, the panels
-    of both orientations and the persistent dF items."""
+    rounded to 16 bytes: on the f32 tensor-core path (``grad_uses_tf32``)
+    ``_tf32_smem_bytes``; else the slot of the raw x slab (and raw dY
+    block) in the input dtype, then either (``grad_uses_mma``) the
+    tensor-core operands x^T, dY^T and F, at least as large as the warps'
+    dF sums when several warps share an output tile, or the forward
+    states, the gradient state G_n (where f32 and f64 multi-factor stages
+    copy dY directly), the two gradient states G_{n-1} .. G_1 in turn, the
+    panels of both orientations and the persistent dF items."""
+    if grad_uses_tf32(ps, qs, in_bytes, acc_bytes):
+        return _tf32_smem_bytes(t_m, t_k, ps, qs)
     n = len(ps)
     s, cols = [], t_k
     for p, q in zip(ps, qs):
@@ -1198,7 +1299,7 @@ def grad_cuda(
 def _grad_launch(x, dy, dx, df, factors, geo: GradGeometry, code: int) -> None:
     """The stage backward's two launches on a persistent grid: each block
     writes one dF partial, then the partials are reduced into ``df``."""
-    global grad_launches, grad_reduce_launches
+    global grad_launches, grad_reduce_launches, grad_tf32_launches
     total = int(df.shape[1])
     with telemetry.span("launch"):
         per_sm, _ = grad_occupancy(x, dy, geo, code)
@@ -1215,6 +1316,8 @@ def _grad_launch(x, dy, dx, df, factors, geo: GradGeometry, code: int) -> None:
         check_launch("grad", err)
     grad_launches += 1
     grad_reduce_launches += 1
+    if grad_uses_tf32(geo.ps, geo.qs, *CODE_BYTES[code]):
+        grad_tf32_launches += 1
 
 
 def grad_reference(
@@ -1439,6 +1542,8 @@ __all__ = [
     "grad_live_elems",
     "grad_blocks",
     "grad_occupancy",
+    "grad_uses_tf32",
+    "grad_kernel_name",
     "chain_occupancy",
     "block_tile",
     "block_smem_bytes",

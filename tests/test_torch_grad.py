@@ -463,18 +463,19 @@ def test_backward_smem_models_count_every_region():
     assert TE.block_smem_bytes(1, 4096, (32, 32), (16, 32), 4, kind="chain_bwd",
                                q_tiled=True) == 4 * (
         2 * 2048 + 2048 + 16 * 32 + 32 * 32 + 512 + 4096)
-    # The stage backward, in bytes: the slot of the raw x slab (4096; an f32
-    # multi-factor stage copies dY straight into G_2); the forward states
-    # u_0, u_1 (32 rows of 128 slices at stride 129); the gradient states
-    # G_2 and G_1 (32 x 129 each); the forward panel of F_0 and the
-    # transposed panels of both factors (32 x 32 each); the persistent dF
-    # items of both factors (64 4x4 tiles x 4 groups x 16 sums).
-    assert TE.block_smem_bytes(1, 4096, (32, 32), (32, 32), 4, kind="grad") == (
-        4096 * 4
-        + 2 * 32 * 129 * 4
-        + 2 * 32 * 129 * 4
-        + 32 * 32 * 4 + 2 * 32 * 32 * 4
-        + 2 * 64 * 4 * 16 * 4)
+    # The stage backward on the CUDA cores (a float64 (32, 32) stage), in
+    # bytes: the slot of the raw x slab (4096; a multi-factor stage copies dY
+    # straight into G_2); the forward states u_0, u_1 (32 rows of 128 slices
+    # at stride 129); the gradient states G_2 and G_1 (32 x 129 each); the
+    # forward panel of F_0 and the transposed panels of both factors (32 x 32
+    # each); the persistent dF items of both factors (64 4x4 tiles x 4 groups
+    # x 16 sums).
+    assert TE.block_smem_bytes(1, 4096, (32, 32), (32, 32), 8, kind="grad") == (
+        4096 * 8
+        + 2 * 32 * 129 * 8
+        + 2 * 32 * 129 * 8
+        + 32 * 32 * 8 + 2 * 32 * 32 * 8
+        + 2 * 64 * 4 * 16 * 8)
     # A bf16 single-factor stage (ffn's 64 -> 128 at t_m'=2, t_k'=1216, 19
     # slices, so 38 contraction rows padded to 48 and rows padded by 8): the
     # slot of raw x (2 x 1216) and dY (2 x 2432) in bf16; the tensor-core
@@ -491,6 +492,99 @@ def test_backward_smem_models_count_every_region():
     # A bf16 factor with more dF tiles than the warps' registers hold
     # (128 x 128: 128 tiles) takes the CUDA-core path.
     assert TE.grad_uses_mma((64,), (128,), 2) and not TE.grad_uses_mma((128,), (128,), 2)
+
+
+@pytest.mark.parametrize(
+    "ps,qs,in_bytes,acc_bytes,want",
+    [
+        ((32, 32), (32, 32), 4, 4, "grad_tf32_kernel<1>"),  # fig9's stage
+        ((16, 16), (16, 16), 4, 4, "grad_tf32_kernel<1>"),  # gp16's stage
+        ((65,), (20,), 4, 4, "grad_tf32_kernel<4>"),  # odd P and Q, padded
+        ((8, 8, 8), (8, 8, 8), 4, 4, "grad_tf32_kernel<4>"),  # the smallest factors it takes
+        ((8,) * 4, (8,) * 4, 4, 4, "grad_kernel"),  # its layout overflows one block
+        ((4, 4), (4, 4), 4, 4, "grad_kernel"),  # under 8 x 8: the CUDA cores
+        ((8, 8), (4, 8), 4, 4, "grad_kernel"),
+        ((128,), (128,), 4, 4, "grad_kernel"),  # 64 dF regions: over the registers
+        ((40, 64), (76, 128), 4, 4, "grad_kernel"),
+        ((64,), (128,), 2, 4, "grad_mma_kernel"),  # bf16 single-factor
+        ((32, 32), (32, 32), 2, 4, "grad_kernel"),  # bf16 multi-factor
+        ((32, 32), (32, 32), 8, 8, "grad_kernel"),  # float64
+    ],
+)
+def test_stage_backward_kernel_follows_dtype_and_factor_shapes(ps, qs, in_bytes, acc_bytes, want):
+    # grad.cu picks its kernel from what the stage shows: f32 stages whose
+    # factors are at least 8 x 8 and whose dF regions fit the warps'
+    # registers run on the tensor cores in 3xTF32; bf16 single-factor
+    # stages on grad_mma_kernel; the rest on the CUDA cores.
+    assert TE.grad_kernel_name(ps, qs, in_bytes, acc_bytes) == want
+    assert TE.grad_uses_tf32(ps, qs, in_bytes, acc_bytes) == want.startswith("grad_tf32")
+    assert TE.grad_uses_mma(ps, qs, in_bytes) == (want == "grad_mma_kernel")
+
+
+def test_per_sample_f32_stage_backwards_take_the_tensor_cores():
+    # gp16-batched's plan: B=4 samples, each stage two (16, 16) factors.
+    ps = qs = (16,) * 6
+    plan = TA.make_batched_plan(TProblem(16, ps, qs), 4, shared_factors=False)
+    instrs = TA.lower(plan, ps, qs, batched=True).instrs
+    assert instrs and all(ins.t_b is not None for ins in instrs)
+    assert all(TE.grad_kernel_name(ins.ps, ins.qs, 4) == "grad_tf32_kernel<1>" for ins in instrs)
+
+
+@pytest.mark.parametrize(
+    "ps,rows,want",
+    [
+        # fig9's stage at t_m'=1, t_k'=4096: 128 rows of 32 slices.  u_0 twice
+        # and u_1 row-major (128 x (32 + 4)); G_2 and G_1 feature-major (32 x
+        # (128 + 8)); the split forward panel of F_0 and transposed panels of
+        # both factors (hi and lo, 32 x 32 each).  The dF sums (2 factors x 4
+        # regions x 256 floats: each factor's on half of the warps) stay
+        # under the states.
+        ((32, 32), 128, 4 * (3 * 128 * 36 + 2 * 32 * 136 + 3 * 2 * 32 * 32)),
+        # gp16's stage at t_m'=1, t_k'=4096: 256 rows of 16 slices.
+        ((16, 16), 256, 4 * (3 * 256 * 20 + 2 * 16 * 264 + 3 * 2 * 16 * 16)),
+    ],
+)
+def test_tf32_smem_model_counts_every_region(ps, rows, want):
+    t_k = rows * ps[0]
+    assert TE.grad_uses_tf32(ps, ps, 4)
+    assert TE.block_smem_bytes(1, t_k, ps, ps, 4, kind="grad") == want
+    assert want <= TE.TWO_BLOCK_SMEM_BYTES
+    # The block tile the stage backward takes inside the plan's (1, 8192).
+    assert TE.block_tile(1, 8192, ps, ps, 4, kind="grad") == (1, t_k)
+
+
+def _tf32_rna(a: np.ndarray) -> np.ndarray:
+    """cvt.rna.tf32.f32 of finite float32 values: the low 13 bits rounded to
+    nearest, ties away from zero, on the int32 view."""
+    bits = a.view(np.int32).astype(np.int64)
+    return ((bits + 0x1000) & ~0x1FFF).astype(np.uint32).view(np.float32)
+
+
+def _tf32_read(a: np.ndarray) -> np.ndarray:
+    """What an mma.sync .tf32 operand reads of a float32: its top 19 bits."""
+    return (a.view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def test_3xtf32_split_is_float32_grade_and_tf32_is_not():
+    # One dF contraction of fig9's stage (u^T G, 32 x 32) over the rows of
+    # four x rows (4 x 2^15 slices), each sum in float32 the same way.  The
+    # grad kernel's split: hi = cvt.rna.tf32(a), lo = a - hi as the mma reads
+    # it, and lo*hi + hi*lo + hi*hi.  Against float64 it reads like plain
+    # float32; one product of the hi parts (TF32) is far worse.
+    rng = np.random.default_rng(26)
+    u = rng.standard_normal((4 * 2 ** 15, 32)).astype(np.float32)
+    g = rng.standard_normal((4 * 2 ** 15, 32)).astype(np.float32)
+    exact = u.astype(np.float64).T @ g.astype(np.float64)
+
+    def err(got):
+        return float(np.abs(got.astype(np.float64) - exact).max() / np.abs(exact).max())
+
+    uh, gh = _tf32_rna(u), _tf32_rna(g)
+    ul, gl = _tf32_read(u - uh), _tf32_read(g - gh)
+    three = (ul.T @ gh + uh.T @ gl) + uh.T @ gh
+    f32, split, tf32 = err(u.T @ g), err(three), err(uh.T @ gh)
+    assert split <= 4 * f32
+    assert tf32 >= 100 * split
 
 
 def test_sliced_t_smem_model_counts_every_region():
@@ -531,10 +625,10 @@ def _stage_block_tiles(m, ps, qs, in_bytes):
 @pytest.mark.parametrize(
     "m,ps,qs,in_bytes,want",
     [
-        (*SMOKE_STAGES[0], [((32, 32), (32, 32), 1, 2048)] * 2),
-        (*SMOKE_STAGES[1], [((16, 16), (16, 16), 1, 2048)] * 3),
+        (*SMOKE_STAGES[0], [((32, 32), (32, 32), 1, 4096)] * 2),
+        (*SMOKE_STAGES[1], [((16, 16), (16, 16), 1, 4096)] * 3),
         (*SMOKE_STAGES[2], [((40,), (76,), 2, 2560), ((64,), (128,), 1, 4864)]),
-        (*SMOKE_STAGES[3], [((65,), (20,), 2, 3380), ((52,), (50,), 2, 1040)]),
+        (*SMOKE_STAGES[3], [((65,), (20,), 1, 3380), ((52,), (50,), 2, 1040)]),
     ],
 )
 def test_stage_backward_block_tiles_at_the_smoke_shapes(m, ps, qs, in_bytes, want):
