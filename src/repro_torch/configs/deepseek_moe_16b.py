@@ -2,7 +2,9 @@
 first layer dense.  [arXiv:2401.06066]
 
 Assigned d_ff=1408 is the per-expert (moe_intermediate) width; the dense
-first layer uses the public 10944 intermediate.  MHA (kv=16).
+first layer uses the public 10944 intermediate.  MHA (kv=16).  The gate is
+the paper's: the top-6 softmax scores, not renormalized (``norm_topk_prob:
+false`` in the public config.json); the JAX package renormalizes.
 """
 from ..models.config import MoEConfig, ModelConfig
 
@@ -16,6 +18,6 @@ CONFIG = ModelConfig(
     head_dim=128,
     d_ff=10944,
     vocab=102400,
-    moe=MoEConfig(n_experts=64, top_k=6, d_expert=1408, n_shared=2),
+    moe=MoEConfig(n_experts=64, top_k=6, d_expert=1408, n_shared=2, norm_topk=False),
     moe_skip_first=1,
 )

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..runtime import telemetry
 from ..runtime.sharding import (
     constrain, reduce_tp, tp_join, tp_partial_grad, tp_pick, tp_rank, tp_size,
 )
@@ -144,9 +145,16 @@ def attn_forward(
     return_kv: bool = False,
     tp: bool = False,
 ):
-    """Causal full-sequence attention (training).  ``tp``: head-parallel,
-    ``p`` holds this rank's heads (``wq``'s and ``bq``'s columns, ``wo``'s
-    rows) and the output is summed over the model axis."""
+    """Causal full-sequence attention (training), in an ``attn`` span.
+    ``tp``: head-parallel, ``p`` holds this rank's heads (``wq``'s and
+    ``bq``'s columns, ``wo``'s rows) and the output is summed over the
+    model axis."""
+    with telemetry.span("attn"):
+        return _attn_forward(cfg, p, x, positions, q_chunk, return_kv, tp)
+
+
+def _attn_forward(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor,
+                  q_chunk: int, return_kv: bool, tp: bool):
     b, s, _ = x.shape
     q, k_all, v_all = _project_qkv(cfg, p, x, positions, tp)
     k, v = _local_kv(cfg, k_all, v_all, tp)
@@ -274,8 +282,13 @@ def attn_decode(
     per row, (B, L) (``model.cache_to_slots``); positions are
     request-relative, so RoPE matches a batch-of-one run.  The new entry
     is written into ``cache``'s buffers in place (slot ``pos % L``: a ring
-    under a sliding window).
+    under a sliding window).  Runs in an ``attn`` span.
     """
+    with telemetry.span("attn"):
+        return _attn_decode(cfg, p, x, cache, pos)
+
+
+def _attn_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, cache, pos):
     b = x.shape[0]
     l = cache.k.shape[1]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)

@@ -19,6 +19,10 @@ class MoEConfig:
     d_expert: int                     # per-expert FFN hidden dim
     n_shared: int = 0                 # DeepSeek-style always-on experts
     capacity_factor: float = 1.25
+    # Top-k gates renormalized to sum to 1 (Mixtral, Jamba and the JAX
+    # package for every model); False: the top-k softmax scores as they
+    # are, DeepSeekMoE's g_i = s_i (its config.json: norm_topk_prob false).
+    norm_topk: bool = True
     every: int = 1                    # MoE layer period (Jamba: 2)
     offset: int = 0                   # first MoE layer index within period
     router_dtype: str = "float32"

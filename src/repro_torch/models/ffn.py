@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..core.layers import KronLinearSpec, kron_linear_apply, kron_linear_init
+from ..runtime import telemetry
 from ..runtime.sharding import reduce_tp, tp_partial_grad
 from .common import act_fn, dense_init
 from .config import ModelConfig
@@ -48,19 +49,20 @@ def ffn_apply(
     cfg: ModelConfig, p: dict, x: torch.Tensor, *, backend: str = "auto",
     tp: bool = False,
 ) -> torch.Tensor:
-    """The block on ``x: (..., d_model)``; ``backend`` reaches the
-    KronLinears' ops (``"torch"``: the kernels' plain twins).  ``tp``: the
-    dense projections are this rank's slice of ``d_ff``."""
+    """The block on ``x: (..., d_model)``, in a ``ffn`` span; ``backend``
+    reaches the KronLinears' ops (``"torch"``: the kernels' plain twins).
+    ``tp``: the dense projections are this rank's slice of ``d_ff``."""
     act = act_fn(cfg.ffn_act)
-    if cfg.kron_ffn:
-        h = act(kron_linear_apply(p["w1"], x, backend=backend)) * kron_linear_apply(
-            p["w3"], x, backend=backend)
-        return kron_linear_apply(p["w2"], h, backend=backend)
-    if tp:
-        xf = tp_partial_grad(x)
-        return reduce_tp((act(xf @ p["w1"]) * (xf @ p["w3"])) @ p["w2"])
-    h = act(x @ p["w1"]) * (x @ p["w3"])
-    return h @ p["w2"]
+    with telemetry.span("ffn"):
+        if cfg.kron_ffn:
+            h = act(kron_linear_apply(p["w1"], x, backend=backend)) * kron_linear_apply(
+                p["w3"], x, backend=backend)
+            return kron_linear_apply(p["w2"], h, backend=backend)
+        if tp:
+            xf = tp_partial_grad(x)
+            return reduce_tp((act(xf @ p["w1"]) * (xf @ p["w3"])) @ p["w2"])
+        h = act(x @ p["w1"]) * (x @ p["w3"])
+        return h @ p["w2"]
 
 
 __all__ = ["ffn_init", "ffn_apply"]

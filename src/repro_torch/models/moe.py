@@ -6,18 +6,27 @@ every other layer).  Tokens are ranked within their expert by a stable
 argsort, their ids written into an ``(E, C)`` index map, gathered into
 ``(E, C, D)`` capacity buckets, run through per-expert stacked-weight
 einsums (``torch.einsum``, as the reference computes them outside any
-Pallas kernel) and gathered back, weighted by the router's renormalized
-top-k probabilities.  Routing is per sequence: no token competes for
-capacity with another row of the batch.  Tokens beyond capacity are
-dropped (Switch-style); a load-balancing aux loss is returned for the
-trainer.  The shared experts are one FFN block (a Kron FFN under
-``kron_ffn``).
+Pallas kernel) and gathered back, weighted by the router's top-k
+probabilities: renormalized over the k (Mixtral, Jamba), or as they are
+under ``norm_topk=False`` (DeepSeekMoE's gate, g_i = s_i).  Routing is per
+sequence: no token competes for capacity with another row of the batch.
+Tokens beyond capacity are dropped (Switch-style); a load-balancing aux
+loss is returned for the trainer.  The shared experts are one FFN block (a
+Kron FFN under ``kron_ffn``).
 
-One difference from the reference, kept: the index map is written only
-from kept slots.  The reference sends a dropped slot's write to expert 0,
+Two differences from the reference, kept.  The index map is written only
+from kept slots: the reference sends a dropped slot's write to expert 0,
 slot 0, an index in range, so whenever a token overflows capacity it
 overwrites the token held there (which then loses that expert's
-contribution).
+contribution).  And the reference renormalizes the top-k gates of every
+model; the port's deepseek-moe-16b keeps the published gate.
+
+Tracing (``runtime/telemetry.py``): ``moe_apply`` runs in a ``moe`` span,
+its router and ``_route`` in ``moe_route``, dispatch, the expert einsums
+and the combine in ``moe_experts``; the counters ``moe.tokens`` (tokens
+routed) and ``moe.slots`` (expert rows computed, B*E*C) come from shapes
+alone.  Inside a ``route_record`` block each call computes its router
+logits into a buffer the caller holds.
 
 On a mesh (``sharding.use_mesh``) routing runs on every rank over its own
 rows, and the reference's expert hints place the expert einsums: with
@@ -30,8 +39,12 @@ means over the global batch.
 """
 from __future__ import annotations
 
+import contextlib
+from typing import Sequence
+
 import torch
 
+from ..runtime import telemetry
 from ..runtime.sharding import (
     batch_shards, batch_sum, constrain, reduce_tp, tp_join, tp_partial_grad,
 )
@@ -63,6 +76,36 @@ def moe_init(
     return p
 
 
+# [buffers, calls so far] while a ``route_record`` block is open.
+_RECORD: list | None = None
+
+
+@contextlib.contextmanager
+def route_record(buffers: Sequence[torch.Tensor]):
+    """Inside the block the ``i``-th ``moe_apply`` call computes its router
+    logits, ``(B, S, E)`` f32, straight into ``buffers[i]`` (the router
+    matmul's ``out=``), so the caller holds them: no added device op, no
+    host sync, no allocation.  ``out=`` takes no gradient: a block is for
+    passes without autograd (``prefill``, ``decode_step``).  Outside any
+    block (the default) a call pays one check.  Blocks do not nest."""
+    global _RECORD
+    if _RECORD is not None:
+        raise RuntimeError("route_record blocks do not nest")
+    _RECORD = [buffers, 0]
+    try:
+        yield
+    finally:
+        _RECORD = None
+
+
+def _next_record() -> torch.Tensor:
+    buffers, i = _RECORD
+    if i >= len(buffers):
+        raise IndexError(f"route_record: {len(buffers)} buffers, call {i + 1}")
+    _RECORD[1] = i + 1
+    return buffers[i]
+
+
 def _capacity(s: int, mc: MoEConfig) -> int:
     c = int(s * mc.top_k * mc.capacity_factor / mc.n_experts) + 1
     return min(max(8, -(-c // 8) * 8), s * mc.top_k)  # mult of 8, <= all slots
@@ -71,13 +114,16 @@ def _capacity(s: int, mc: MoEConfig) -> int:
 def _route(router_logits: torch.Tensor, mc: MoEConfig, capacity: int):
     """router_logits: (B, S, E) f32.  Returns the ``(B, E, C)`` index map
     (token id, -1 = empty) and per slot ``(slot_e, slot_c, w_flat, keep)``,
-    each ``(B, S*k)``; the reference's ``_route_one_seq`` for every row."""
+    each ``(B, S*k)``; the reference's ``_route_one_seq`` for every row.
+    The gates ``w_flat`` are the top-k softmax scores, renormalized to sum
+    to 1 where ``mc.norm_topk``."""
     b, s, e = router_logits.shape
     k = mc.top_k
     dev = router_logits.device
     probs = torch.softmax(router_logits, dim=-1)
     top_p, top_i = torch.topk(probs, k, dim=-1)  # (B, S, k)
-    top_p = top_p / top_p.sum(dim=-1, keepdim=True)  # renormalize
+    if mc.norm_topk:
+        top_p = top_p / top_p.sum(dim=-1, keepdim=True)
 
     e_flat = top_i.reshape(b, s * k)
     w_flat = top_p.reshape(b, s * k)
@@ -108,13 +154,43 @@ def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *, backend: str = "aut
     this rank's experts, ``"tp"`` where they hold its slice of
     ``d_expert``; ``shared_tp``: the shared experts' dense FFN is
     tensor-parallel (``ffn_apply(tp=)``)."""
-    mc = cfg.moe
-    b, s, d = x.shape
-    e = mc.n_experts
-    capacity = _capacity(s, mc)
+    with telemetry.span("moe"):
+        mc = cfg.moe
+        b, s, _ = x.shape
+        capacity = _capacity(s, mc)
+        telemetry.counter_inc("moe.tokens", b * s)
+        telemetry.counter_inc("moe.slots", b * mc.n_experts * capacity)
 
-    router_logits = x.float() @ p["router"]  # (B, S, E)
-    src, (slot_e, slot_c, w_flat, keep) = _route(router_logits, mc, capacity)
+        with telemetry.span("moe_route"):
+            if _RECORD is None:
+                router_logits = x.float() @ p["router"]  # (B, S, E)
+            else:
+                router_logits = torch.matmul(x.float(), p["router"], out=_next_record())
+            src, slots = _route(router_logits, mc, capacity)
+        with telemetry.span("moe_experts"):
+            y = _experts(cfg, p, x, src, slots, capacity, experts)
+
+        # Switch-style load-balance aux: E * sum_e (frac_tokens_e * frac_prob_e)
+        e = mc.n_experts
+        probs = torch.softmax(router_logits, dim=-1)
+        top1 = router_logits.argmax(dim=-1)
+        n_tok = b * s * batch_shards()  # the global batch's tokens
+        frac_tokens = batch_sum(torch.nn.functional.one_hot(top1, e).float().sum(dim=(0, 1))) / n_tok
+        frac_probs = batch_sum(probs.sum(dim=(0, 1))) / n_tok
+        aux = e * torch.sum(frac_tokens * frac_probs)
+
+        if mc.n_shared:
+            y = y + ffn_apply(cfg, p["shared"], x, backend=backend, tp=shared_tp)
+        return y, aux
+
+
+def _experts(cfg: ModelConfig, p: dict, x: torch.Tensor, src: torch.Tensor, slots,
+             capacity: int, experts: str | None) -> torch.Tensor:
+    """Dispatch into the ``(B, E, C, D)`` buckets, the expert einsums, and
+    the gate-weighted combine back to ``(B, S, D)``."""
+    slot_e, slot_c, w_flat, keep = slots
+    b, s, d = x.shape
+    e = cfg.moe.n_experts
 
     # dispatch: (B, E*C, D) gather from token-major x
     valid = src >= 0
@@ -146,19 +222,7 @@ def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *, backend: str = "aut
     gathered = buckets_out.reshape(b, e * capacity, d).gather(
         1, flat_idx[..., None].expand(-1, -1, d))  # (B, S*k, D)
     contrib = gathered * torch.where(keep, w_flat, 0.0)[..., None].to(x.dtype)
-    y = contrib.reshape(b, s, mc.top_k, d).sum(dim=2)
-
-    # Switch-style load-balance aux: E * sum_e (frac_tokens_e * frac_prob_e)
-    probs = torch.softmax(router_logits, dim=-1)
-    top1 = router_logits.argmax(dim=-1)
-    n_tok = b * s * batch_shards()  # the global batch's tokens
-    frac_tokens = batch_sum(torch.nn.functional.one_hot(top1, e).float().sum(dim=(0, 1))) / n_tok
-    frac_probs = batch_sum(probs.sum(dim=(0, 1))) / n_tok
-    aux = e * torch.sum(frac_tokens * frac_probs)
-
-    if mc.n_shared:
-        y = y + ffn_apply(cfg, p["shared"], x, backend=backend, tp=shared_tp)
-    return y, aux
+    return contrib.reshape(b, s, cfg.moe.top_k, d).sum(dim=2)
 
 
-__all__ = ["moe_init", "moe_apply"]
+__all__ = ["moe_init", "moe_apply", "route_record"]

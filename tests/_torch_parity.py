@@ -5,6 +5,7 @@ the JAX reference and the PyTorch port see the same numbers.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import jax.numpy as jnp
@@ -19,6 +20,17 @@ def make_inputs(seed, m, ps, qs, *, batch=None, dtype=np.float64):
     x = rng.standard_normal((*lead, m, math.prod(ps))).astype(dtype)
     fs = [rng.standard_normal((*lead, p, q)).astype(dtype) for p, q in zip(ps, qs)]
     return x, fs
+
+
+def jax_gate(cfg):
+    """The port's config with the JAX package's MoE gate: the reference
+    renormalizes the top-k gates of every model, while the port's
+    deepseek-moe-16b keeps the published unrenormalized gate
+    (``norm_topk=False``), a kept difference.  Held against the reference,
+    a port config takes ``norm_topk=True``."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, norm_topk=True))
 
 
 def to_jax(a, dtype=None):

@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import assert_close, model_params
+from _torch_parity import assert_close, jax_gate, model_params
 from repro.models import moe as JMoE
 from repro.models.config import ModelConfig as JCfg
 from repro.models.config import MoEConfig as JMoECfg
@@ -132,7 +132,7 @@ def test_moe_model_loss_and_grads_equal_reference(arch):
     from repro_torch.models.config import reduced as treduced
 
     jcfg = jreduced(jget(arch), dtype="float32")
-    tcfg = treduced(tget(arch), dtype="float32")
+    tcfg = jax_gate(treduced(tget(arch), dtype="float32"))  # the reference renormalizes
     if arch == "deepseek-moe-16b":  # the prelude's FFN and the shared experts as Kron FFNs
         jcfg = dataclasses.replace(jcfg, kron_ffn=True)
         tcfg = dataclasses.replace(tcfg, kron_ffn=True)

@@ -103,6 +103,10 @@ def model_cfg(name, get_config, reduced):
     over = dict(over)
     experts = over.pop("experts", None)
     cfg = reduced(get_config(arch), dtype="float32", **over)
+    if getattr(cfg.moe, "norm_topk", True) is False:
+        # The port's deepseek-moe-16b keeps the published gate; the JAX
+        # package renormalizes the top-k gates, so both run its rule here.
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, norm_topk=True))
     if experts is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, n_experts=experts))
     return cfg
