@@ -26,6 +26,7 @@ import torch
 
 from ..core import kron as K
 from ..core.engine import KronOp, kron_op_for
+from ..kernels import cg_update
 from ..runtime import telemetry
 
 
@@ -150,41 +151,83 @@ def conjugate_gradient(
     iters: int = 10,
     tol: float = 0.0,
     dot: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = _row_dot,
+    shift: float = 0.0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Batched CG on rows of b: solves A x = b with A given as row-matvec.
+    """Batched CG on rows of b: solves (A + shift I) x = b with A given as
+    row-matvec.
 
     A fixed iteration count (paper: 10 CG iterations per epoch) with the
     reference's 1e-20 clamps on both divisions; ``iters + 1`` MVMs, the
-    first on the zero start.  ``dot(a, c)`` is the per-row dot product,
-    keeping the last dim (a sharded solve sums it over the column
-    shards).  Returns (x, final residual norm per row).
+    first on the zero start.  ``shift`` enters every MVM as ``matvec(p) +
+    shift * p``.  ``dot(a, c)`` is the per-row dot product, keeping the
+    last dim (a sharded solve sums it over the column shards).  Returns (x,
+    final residual norm per row).
+
+    On the card the vector updates run as three fused passes an iteration
+    (``kernels/csrc/cg_update.cu``, float32 or float64; a strided ``b`` is
+    made contiguous first): the same recurrence, with the row sums in
+    another order, no host synchronisation, and no ``p`` update after the
+    last iteration; what the kernels cannot take (another dtype, a ``b``
+    that needs gradients) raises.  CPU tensors run the eager updates, their
+    plain twin.  So does a custom ``dot`` on either device: the sharded
+    solve's all-reduce (``_mesh_epoch``) is a row dot the fused passes
+    cannot compute, the one case that keeps the eager updates on the card.
 
     The solve is a ``cg`` telemetry span, the zero start and first
-    residual included, and each iteration a ``cg_iter`` span."""
+    residual included, and each iteration a ``cg_iter`` span; the counter
+    ``cg.fused_iters`` or ``cg.eager_iters`` counts the iterations of each
+    path."""
     with telemetry.span("cg"):
-        x = torch.zeros_like(b)
-        r = b - matvec(x)
-        p = r
-        rs = dot(r, r)
-        for _ in range(iters):
-            with telemetry.span("cg_iter"):
-                ap = matvec(p)
-                denom = dot(p, ap)
-                alpha = rs / torch.clamp(denom, min=1e-20)
-                x = x + alpha * p
-                r = r - alpha * ap
-                rs_new = dot(r, r)
-                beta = rs_new / torch.clamp(rs, min=1e-20)
-                p = r + beta * p
-                rs = rs_new
-        return x, torch.sqrt(dot(r, r)).squeeze(-1)
+        if b.is_cuda and dot is _row_dot:
+            return _cg_fused(matvec, b.contiguous(), iters, shift)
+        return _cg_eager(matvec, b, iters, shift, dot)
+
+
+def _cg_fused(matvec, b, iters: int, shift: float):
+    x = torch.zeros_like(b)
+    cg = cg_update.FusedCG(b, x, shift)
+    cg.start(matvec(x))
+    for i in range(iters):
+        with telemetry.span("cg_iter"):
+            y = matvec(cg.p)
+            cg.dot(y)
+            cg.step(y)
+            if i + 1 < iters:
+                cg.direction()
+            telemetry.counter_inc("cg.fused_iters")
+    return x, cg.norm()
+
+
+def _cg_eager(matvec, b, iters: int, shift: float, dot):
+    def apply(v):
+        y = matvec(v)
+        return y + shift * v if shift else y
+
+    x = torch.zeros_like(b)
+    r = b - apply(x)
+    p = r
+    rs = dot(r, r)
+    for _ in range(iters):
+        with telemetry.span("cg_iter"):
+            ap = apply(p)
+            denom = dot(p, ap)
+            alpha = rs / torch.clamp(denom, min=1e-20)
+            x = x + alpha * p
+            r = r - alpha * ap
+            rs_new = dot(r, r)
+            beta = rs_new / torch.clamp(rs, min=1e-20)
+            p = r + beta * p
+            rs = rs_new
+            telemetry.counter_inc("cg.eager_iters")
+    return x, torch.sqrt(dot(r, r)).squeeze(-1)
 
 
 def _mesh_epoch(matmul, v: torch.Tensor, mesh, *, noise: float, cg_iters: int):
     """CG on each rank's shard of ``v`` (a DTensor placed rows over
     ``data``, columns over ``model``, or a full tensor every rank holds,
     sliced locally): every MVM is ``matmul(shard, mesh=mesh)``, every row
-    dot product a local sum and one all-reduce over the model axis.
+    dot product a local sum and one all-reduce over the model axis.  That
+    ``dot`` keeps CG's updates eager on the card too (``conjugate_gradient``).
     Returns (x, residual norms) as DTensors, or gathered for a full ``v``."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor, Replicate, Shard
@@ -201,10 +244,9 @@ def _mesh_epoch(matmul, v: torch.Tensor, mesh, *, noise: float, cg_iters: int):
         return s
 
     def matvec(rows):
-        y = matmul(D._from_local(rows, mesh, placements, vd.shape), mesh=mesh)
-        return y.to_local() + noise * rows
+        return matmul(D._from_local(rows, mesh, placements, vd.shape), mesh=mesh).to_local()
 
-    x, res = conjugate_gradient(matvec, vd.to_local(), iters=cg_iters, dot=dot)
+    x, res = conjugate_gradient(matvec, vd.to_local(), iters=cg_iters, dot=dot, shift=noise)
     res_placements = tuple(Replicate() if isinstance(p, Shard) and p.dim == v.ndim - 1 else p
                            for p in placements)
     xd = D._from_local(x, mesh, placements, vd.shape)
@@ -233,10 +275,8 @@ def gp_train_epoch(
             raise ValueError(f"mesh= runs the fastkron op, not {backend!r}")
         return _mesh_epoch(kernel.matmul, v, mesh, noise=noise, cg_iters=cg_iters)
 
-    def matvec(rows):
-        return kernel.matmul(rows, backend=backend) + noise * rows
-
-    return conjugate_gradient(matvec, v, iters=cg_iters)
+    return conjugate_gradient(lambda rows: kernel.matmul(rows, backend=backend), v,
+                              iters=cg_iters, shift=noise)
 
 
 def gp_train_epoch_batched(
@@ -259,10 +299,7 @@ def gp_train_epoch_batched(
     if mesh is not None:
         return _mesh_epoch(kernel.matmul, v, mesh, noise=noise, cg_iters=cg_iters)
 
-    def matvec(rows):
-        return kernel.matmul(rows) + noise * rows
-
-    return conjugate_gradient(matvec, v, iters=cg_iters)
+    return conjugate_gradient(kernel.matmul, v, iters=cg_iters, shift=noise)
 
 
 __all__ = [

@@ -10,6 +10,9 @@ kron_sliced.py  — one sliced multiply: ``sliced_multiply_cuda``
                   (csrc/sliced.cu) and ``sliced_multiply_reference``.
 kron_sliced_t.py — its transpose: ``sliced_multiply_t_cuda``
                   (csrc/sliced_t.cu) and ``sliced_multiply_t_reference``.
+cg_update.py    — conjugate gradients' vector updates as three fused passes
+                  an iteration: ``FusedCG`` (csrc/cg_update.cu); the eager
+                  updates of ``gp.ski.conjugate_gradient`` are its twin.
 ops.py          — sliced-multiply (and transpose) backend dispatch, with
                   the reference's ``tiles=`` limit, and the six deprecated
                   ``fused_kron*`` one-instruction shims over emit.

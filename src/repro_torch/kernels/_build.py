@@ -23,7 +23,7 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
-SOURCES = ("chain_fwd", "chain_bwd", "grad", "sliced", "sliced_t")
+SOURCES = ("chain_fwd", "chain_bwd", "grad", "sliced", "sliced_t", "cg_update")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -2,6 +2,9 @@
 repro.gp.ski: the kernel and interpolation matrices, CG, and one training
 epoch on every MVM backend, on the same numpy inputs (f64, 1e-12 before a
 solve and 1e-4 after one, relative to the largest value)."""
+import contextlib
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -163,3 +166,143 @@ def test_epoch_mvms_go_through_the_op(monkeypatch):
     monkeypatch.setattr(engine.KronOp, "__call__", counted)
     TS.gp_train_epoch(tk, torch.ones(16, 16, dtype=torch.float64), cg_iters=7)
     assert calls == [(16, 16)] * 8
+
+
+@pytest.mark.parametrize("shape", [(5, 12), (2, 3, 12), (12,)])
+def test_cg_shift_equals_the_shift_in_the_matvec(shape):
+    """``shift=s`` solves (A + s I) x = b: the same recurrence as a matvec
+    that adds ``s * r`` itself."""
+    rng = np.random.default_rng(len(shape))
+    a = rng.standard_normal((12, 12))
+    at = to_torch(a @ a.T + np.eye(12))
+    b = to_torch(rng.standard_normal(shape))
+
+    def mv(r):
+        return r @ at
+
+    x, res = TS.conjugate_gradient(mv, b, iters=7, shift=0.3)
+    xs, ress = TS.conjugate_gradient(lambda r: mv(r) + 0.3 * r, b, iters=7)
+    assert_close(x, xs.numpy(), 1e-12)
+    assert_close(res, ress.numpy(), 1e-12)
+    assert res.shape == shape[:-1]
+
+
+class _Rows:
+    """A stand-in right-hand side with the properties the dispatch reads."""
+
+    def __init__(self, is_cuda=True, dtype=torch.float32, contiguous=True):
+        self.is_cuda, self.dtype, self._contiguous = is_cuda, dtype, contiguous
+
+    def is_contiguous(self):
+        return self._contiguous
+
+    def contiguous(self):
+        return self if self._contiguous else _Rows(self.is_cuda, self.dtype)
+
+
+@pytest.mark.parametrize("case,path", [
+    ({}, "fused"),
+    ({"dtype": torch.float64}, "fused"),
+    ({"contiguous": False}, "fused"),
+    ({"is_cuda": False}, "eager"),
+    ({"dot": True}, "eager"),
+])
+def test_cg_fuses_every_cuda_block_with_the_row_dot(monkeypatch, case, path):
+    """On the card every block with the default row dot takes the fused
+    updates (a strided one made contiguous first; what the kernels cannot
+    take raises there); CPU tensors and a custom ``dot=`` (the sharded
+    solve's all-reduce) take the eager ones."""
+    monkeypatch.setattr(TS, "_cg_fused", lambda mv, b, iters, shift: ("fused", b))
+    monkeypatch.setattr(TS, "_cg_eager", lambda mv, b, iters, shift, dot: ("eager", b))
+    case = dict(case)
+    kw = {"dot": lambda a, c: a} if case.pop("dot", False) else {}
+    b = _Rows(**case)
+    got, seen = TS.conjugate_gradient(lambda r: r, b, **kw)
+    assert got == path
+    assert seen.is_contiguous() if path == "fused" else seen is b
+
+
+def _stub_launches(monkeypatch):
+    """Run ``FusedCG`` on CPU tensors: no CUDA check, each launch recorded
+    as its argument list instead of run."""
+    from repro_torch.kernels import cg_update
+
+    calls = []
+    monkeypatch.setattr(cg_update, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(cg_update, "kernel_fn",
+                        lambda name, argtypes: lambda *args: calls.append(args) or 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    return cg_update, calls
+
+
+@pytest.mark.parametrize("case", ["bfloat16", "requires_grad", "empty", "x_dtype"])
+def test_fused_cg_raises_for_what_the_kernels_cannot_take(monkeypatch, case):
+    cg_update, calls = _stub_launches(monkeypatch)
+    b = torch.ones(4, 16, dtype=torch.bfloat16 if case == "bfloat16" else torch.float32)
+    if case == "requires_grad":
+        b.requires_grad_()
+    if case == "empty":
+        b = torch.ones(4, 0)
+    x = torch.zeros_like(b, dtype=torch.float64 if case == "x_dtype" else None).detach()
+    with pytest.raises(ValueError, match="FusedCG"):
+        cg_update.FusedCG(b, x, 0.1)
+    assert calls == []
+
+
+@pytest.mark.parametrize("dtype,vec", [(torch.float32, 4), (torch.float64, 2)])
+def test_fused_cg_passes_dtype_and_vector_width(monkeypatch, dtype, vec):
+    cg_update, calls = _stub_launches(monkeypatch)
+    b = torch.ones(3, 16, dtype=dtype)
+    cg = cg_update.FusedCG(b, torch.zeros_like(b), 0.1)
+    cg.start(torch.ones_like(b))
+    assert cg.vec == vec and cg.res.dtype == dtype
+    assert calls[0][1] == cg_update.DTYPES[dtype] and calls[0][-2] == vec
+
+
+@pytest.mark.parametrize("case", ["strided", "misaligned", "shape", "dtype"])
+def test_fused_cg_copies_a_strided_mvm_output_and_refuses_a_wrong_one(monkeypatch, case):
+    """The kernels read ``y`` as a dense aligned block: a strided or
+    misaligned ``y`` is copied first; a ``y`` of another shape, dtype or
+    device raises."""
+    cg_update, calls = _stub_launches(monkeypatch)
+    b = torch.ones(8, 16)
+    cg = cg_update.FusedCG(b, torch.zeros_like(b), 0.1)
+    if case in ("shape", "dtype"):
+        y = torch.ones(8, 8) if case == "shape" else torch.ones(8, 16, dtype=torch.float64)
+        with pytest.raises(ValueError, match="the MVM gave"):
+            cg.dot(y)
+        assert calls == []
+        return
+    if case == "strided":
+        y = torch.ones(16, 8).T
+    else:
+        base = torch.ones(8 * 16 + 1)
+        y = base[1:].view(8, 16)
+        assert y.data_ptr() % 16
+    cg.dot(y)
+    passed = calls[0][3]
+    assert passed != y.data_ptr() and passed % 16 == 0
+
+
+@pytest.mark.parametrize("kind", ["cpu_f32", "f64", "dot"])
+def test_cpu_f64_and_a_custom_dot_run_the_eager_updates(kind):
+    """CPU tensors, float32 or float64, and a custom ``dot=`` (the mesh's
+    all-reduce) take the eager updates: ``cg.eager_iters`` counts each
+    iteration once and no CG kernel launches."""
+    from repro_torch.kernels import cg_update
+    from repro_torch.runtime import telemetry
+
+    dtype = torch.float64 if kind == "f64" else torch.float32
+    b = torch.ones(3, 8, dtype=dtype)
+    kw = {"dot": lambda a, c: torch.sum(a * c, dim=-1, keepdim=True)} if kind == "dot" else {}
+    launches = cg_update.cg_update_launches
+    telemetry.configure()
+    try:
+        TS.conjugate_gradient(lambda r: 2 * r, b, iters=5, shift=0.1, **kw)
+        counters = telemetry.snapshot()["counters"]
+    finally:
+        telemetry.reset()
+    assert counters.get("cg.eager_iters") == 5 and "cg.fused_iters" not in counters
+    assert cg_update.cg_update_launches == launches

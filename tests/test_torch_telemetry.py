@@ -19,7 +19,7 @@ from _torch_parity import make_inputs, to_torch
 from repro.runtime import telemetry as JT
 from repro_torch.core import KronOp
 from repro_torch.gp.ski import KronKernel, gp_train_epoch, rbf_kernel_1d
-from repro_torch.kernels import emit, kron_sliced, kron_sliced_t
+from repro_torch.kernels import cg_update, emit, kron_sliced, kron_sliced_t
 from repro_torch.runtime import chaos, guard, telemetry
 from repro_torch.runtime.events import EventSink, get_logger
 
@@ -259,14 +259,16 @@ def _stub_card(monkeypatch):
         monkeypatch.setattr(mod, occ, lambda *a: (2, 0))
     for mod in (emit, kron_sliced, kron_sliced_t):
         monkeypatch.setattr(mod, "sm_count", lambda device: 132)
+    for mod in (emit, kron_sliced, kron_sliced_t, cg_update):
         monkeypatch.setattr(mod, "kernel_fn", lambda name, argtypes: lambda *args: 0)
-    for mod in (kron_sliced, kron_sliced_t):
+    for mod in (kron_sliced, kron_sliced_t, cg_update):
         monkeypatch.setattr(mod, "require_cuda", lambda *a: None)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda: types.SimpleNamespace(cuda_stream=0))
     for mod, counter in ((emit, "grad_launches"), (emit, "grad_reduce_launches"),
-                         (kron_sliced, "sliced_launches"), (kron_sliced_t, "sliced_t_launches")):
+                         (kron_sliced, "sliced_launches"), (kron_sliced_t, "sliced_t_launches"),
+                         (cg_update, "cg_update_launches")):
         monkeypatch.setattr(mod, counter, 0)
 
 
@@ -277,6 +279,10 @@ def _launch(kernel):
         return
     if kernel == "sliced_t":
         kron_sliced_t.sliced_multiply_t_cuda(torch.zeros(m, 9), torch.zeros(4, 3))
+        return
+    if kernel == "cg_update":
+        b = torch.zeros(m, 12)
+        cg_update.FusedCG(b, torch.zeros_like(b), 0.1).start(torch.zeros_like(b))
         return
     x = torch.zeros(1, m, math.prod(ps))
     fs = [torch.zeros(1, p, q) for p, q in zip(ps, qs)]
@@ -291,7 +297,8 @@ def _launch(kernel):
     emit._chain_launch(x, torch.zeros(1, m, geo.out_cols), fs, geo, 0)
 
 
-@pytest.mark.parametrize("kernel", ["chain_fwd", "chain_bwd", "grad", "sliced", "sliced_t"])
+@pytest.mark.parametrize("kernel", ["chain_fwd", "chain_bwd", "grad", "sliced", "sliced_t",
+                                    "cg_update"])
 def test_launchers_record_one_launch_span(tmp_path, monkeypatch, kernel):
     _stub_card(monkeypatch)
     _launch(kernel)  # off: nothing recorded
