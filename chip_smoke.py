@@ -108,8 +108,8 @@ went through the kernels.  Phases, one line each:
       planted fault (factor gradients less an eighth of the rows); 6
       Shampoo steps (``precond_every=5``) and
       3 AdamW steps, each step's launches asserted against the plans'
-      prediction (model: chain_fwd 540 with the remat re-forwards, grad and
-      grad_reduce 216; Shampoo's 5 precondition calls: chain_fwd 10),
+      prediction (model: chain_fwd 540 with the remat re-forwards, grad
+      216; Shampoo's 5 precondition calls: chain_fwd 10),
       finite losses and grad norms, the last Shampoo loss below the first;
       ms per step (CUDA events), tokens/s, the refresh steps' excess, peak
       memory, the profiled step's device time and idle share
@@ -697,7 +697,7 @@ def check_cg_update(record, failures: list) -> None:
     short must fail.  A generator of its own keeps the later phases'
     draws."""
     from repro_torch.gp import KronKernel, ski
-    from repro_torch.kernels import cg_update
+    from repro_torch.kernels import _launch, cg_update
 
     e = GP_EPOCH
     shape, shift, f64 = (e["m"], e["points"] ** e["dims"]), e["noise"], torch.float64
@@ -753,10 +753,10 @@ def check_cg_update(record, failures: list) -> None:
 
     kernel = KronKernel(_gp_factors(e["dims"], e["points"], GP_LENGTHSCALES))
     v = randn(g, shape, torch.float32)
-    before = cg_update.cg_update_launches
+    before = _launch.launches["cg_update"]
     x, res = ski.conjugate_gradient(kernel.matmul, v, iters=e["cg_iters"], shift=shift)
     torch.cuda.synchronize()
-    if cg_update.cg_update_launches - before != 3 * e["cg_iters"] + 1:
+    if _launch.launches["cg_update"] - before != 3 * e["cg_iters"] + 1:
         failures.append("cg_update ski16x6 solve launches")
     xe, rese = ski._cg_eager(kernel.matmul, v, e["cg_iters"], shift, ski._row_dot)
     record("cg_update", "ski16x6 solve x (vs eager)", x, xe, CG_SOLVE_TOL["x"])
@@ -780,35 +780,34 @@ def check_cg_update(record, failures: list) -> None:
 # Phase 3: the main path at full size
 # ---------------------------------------------------------------------------
 
-def _counter_sites():
-    """(counter name, module, attribute) of every launch counter."""
-    from repro_torch.core import engine
-    from repro_torch.kernels import cg_update, emit, kron_sliced, kron_sliced_t
-
-    return (
-        ("chain_fwd", emit, "chain_launches"),
-        ("chain_bwd", emit, "chain_bwd_launches"),
-        ("grad", emit, "grad_launches"),
-        ("grad_reduce", emit, "grad_reduce_launches"),
-        ("sliced", kron_sliced, "sliced_launches"),
-        ("sliced_t", kron_sliced_t, "sliced_t_launches"),
-        ("cg_update", cg_update, "cg_update_launches"),
-        ("bwd_per_factor_fallbacks", engine, "bwd_per_factor_fallbacks"),
-    )
+# The counters the phases assert: the launches of each library
+# (``_launch.launches``; a stage backward, grad.cu's kernel and its dF
+# reduction, counts once under ``grad``) and the per-factor backward
+# fallbacks (``engine.bwd_per_factor_fallbacks``).
+LAUNCH_COUNTERS = ("chain_fwd", "chain_bwd", "grad", "sliced", "sliced_t", "cg_update")
+COUNTERS = (*LAUNCH_COUNTERS, "bwd_per_factor_fallbacks")
 
 
 def reset_counters() -> None:
-    for _, mod, attr in _counter_sites():
-        setattr(mod, attr, 0)
+    from repro_torch.core import engine
+    from repro_torch.kernels import _launch
+
+    for name in _launch.launches:
+        _launch.launches[name] = 0
+    engine.bwd_per_factor_fallbacks = 0
 
 
 def read_counters() -> dict:
-    return {name: getattr(mod, attr) for name, mod, attr in _counter_sites()}
+    from repro_torch.core import engine
+    from repro_torch.kernels import _launch
+
+    return {**{name: _launch.launches[name] for name in LAUNCH_COUNTERS},
+            "bwd_per_factor_fallbacks": engine.bwd_per_factor_fallbacks}
 
 
 def expect(**counts) -> dict:
     """The full counter dict: the given counts, every other counter 0."""
-    return {name: counts.get(name, 0) for name, _, _ in _counter_sites()}
+    return {name: counts.get(name, 0) for name in COUNTERS}
 
 
 def assert_clean(phase: str) -> None:
@@ -1042,7 +1041,7 @@ def hold_backward(op, x, fs, grads, ct, batched: bool):
 def run_backward(gen, peaks) -> list[dict]:
     from repro_torch.core import KronOp, KronProblem
     from repro_torch.core.engine import _lowered
-    from repro_torch.kernels import emit
+    from repro_torch.kernels import _launch
 
     rows = []
     for name, m, ps, qs, dtype, plan, factors in BWD_CASES:
@@ -1060,11 +1059,10 @@ def run_backward(gen, peaks) -> list[dict]:
 
         # The main path's run: counts set to 0 just before, read just after.
         reset_counters()
-        tf32_before = emit.grad_tf32_launches
         grads = backward()
         torch.cuda.synchronize()
         launches = read_counters()
-        tf32 = emit.grad_tf32_launches - tf32_before
+        tf32 = _launch.launches["grad_tf32"]
         kernel_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         n = len(ps)
         if op.plan is None:
@@ -1072,7 +1070,7 @@ def run_backward(gen, peaks) -> list[dict]:
             want = expect(sliced=n - 1, sliced_t=n) if factors else expect(sliced_t=n)
         else:
             n_stages = len(_lowered(op.plan, op.ps, op.qs).instrs)
-            want = (expect(chain_fwd=n_stages - 1, grad=n_stages, grad_reduce=n_stages)
+            want = (expect(chain_fwd=n_stages - 1, grad=n_stages)
                     if factors else expect(chain_bwd=n_stages))
         if launches != want:
             raise AssertionError(f"{name}: launches {launches}, expected {want}")
@@ -1251,7 +1249,7 @@ def run_batched_backward(gen, peaks) -> list[dict]:
     """gp16-batched-grad: ``torch.autograd.grad`` through the per-sample
     call, x and factor gradients, with a runtime cotangent."""
     from repro_torch.core import KronOp, KronProblem
-    from repro_torch.kernels import emit
+    from repro_torch.kernels import _launch
 
     name, b, m, ps, qs = BATCHED_GRAD_CASE
     dtype = torch.float32
@@ -1269,14 +1267,13 @@ def run_batched_backward(gen, peaks) -> list[dict]:
 
     # The main path's run: counts set to 0 just before, read just after.
     reset_counters()
-    tf32_before = emit.grad_tf32_launches
     grads = backward()
     torch.cuda.synchronize()
     launches = read_counters()
-    tf32 = emit.grad_tf32_launches - tf32_before
+    tf32 = _launch.launches["grad_tf32"]
     kernel_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     n = n_stages(op, True)
-    want = expect(chain_fwd=n - 1, grad=n, grad_reduce=n)
+    want = expect(chain_fwd=n - 1, grad=n)
     if launches != want:
         raise AssertionError(f"{name}: launches {launches}, expected {want}")
     if tf32 != tf32_stages(op, dtype, True):
@@ -1461,7 +1458,7 @@ def run_alone(gen, peaks) -> dict:
     from the occupancy query, and one PyTorch call computing the same
     function.  Fails when a kernel of TWO_BLOCK_KERNELS fits fewer than two
     blocks per SM."""
-    from repro_torch.kernels import cg_update, emit, kron_sliced, kron_sliced_t
+    from repro_torch.kernels import _launch, cg_update, emit, kron_sliced, kron_sliced_t
 
     out = {"chain_fwd": [], "chain_bwd": [], "grad": [], "sliced": [], "sliced_t": [],
            "cg_update": []}
@@ -1484,8 +1481,9 @@ def run_alone(gen, peaks) -> dict:
             tiles = dict(t_m=ins.t_m, t_k=ins.t_k, t_qs=ins.t_qs)
             geo = emit.chain_geometry(x.shape, [f.shape for f in fs], acc_bytes=acc.itemsize,
                                       in_bytes=x.element_size(), **tiles)
-            per_sm, smem = emit.chain_occupancy(geo, emit.kernel_dtype_code(x, fs, acc),
-                                                x.device)
+            per_sm, smem = _launch.occupancy(
+                "chain_fwd", x.device, _launch.kernel_dtype_code(x, fs, acc), geo.ps, geo.qs,
+                geo.t_qs, len(geo.ps), geo.m, geo.k, geo.block_m, geo.block_k)
             ms = time_ms(lambda: emit.chain_cuda(x, *fs, **tiles))
             xl, fl = x[0], [f[0] for f in fs]
             library_ms = time_ms(lambda: stage_einsum(xl, fl, m, k // ins.pprod))
@@ -1508,8 +1506,9 @@ def run_alone(gen, peaks) -> dict:
         fs = [randn(gen, (1, p, q), dtype) for p, q in zip(ins.ps, ins.qs)]
         tiles = dict(t_m=t_ins.t_m, t_k=t_ins.t_k, t_qs=t_ins.t_qs)
         geo = emit.chain_geometry(dy.shape, [f.shape for f in fs], direction="bwd", **tiles)
-        per_sm, smem = emit.chain_occupancy(geo, emit.kernel_dtype_code(dy, fs, torch.float32),
-                                            dy.device)
+        per_sm, smem = _launch.occupancy(
+            "chain_bwd", dy.device, _launch.kernel_dtype_code(dy, fs, torch.float32), geo.ps,
+            geo.qs, geo.t_qs, len(geo.ps), geo.m, geo.k, geo.block_m, geo.block_k)
         ms = time_ms(lambda: emit.chain_bwd_cuda(dy, *fs, **tiles))
         dyl, fl = dy[0], [f[0] for f in fs]
         library_ms = time_ms(lambda: stage_einsum_t(dyl, fl, m, k // ins.pprod))
@@ -1538,7 +1537,10 @@ def run_alone(gen, peaks) -> dict:
             geo = emit.grad_geometry(
                 x.shape, dy.shape, [f.shape for f in fs], t_m=t_m, t_k=t_k,
                 acc_bytes=acc.itemsize, in_bytes=x.element_size())
-            per_sm, smem = emit.grad_occupancy(x, dy, geo, emit.kernel_dtype_code(x, fs, acc))
+            per_sm, smem = _launch.occupancy(
+                "grad", x.device, _launch.kernel_dtype_code(x, fs, acc), x.data_ptr() % 16,
+                dy.data_ptr() % 16, geo.ps, geo.qs, len(geo.ps), geo.m, geo.k, geo.block_m,
+                geo.block_k)
             ms = time_ms(lambda: emit.grad_cuda(x, dy, *fs, t_m=t_m, t_k=t_k))
             xl = x[0].detach().clone().requires_grad_()
             fl = [f[0].detach().clone().requires_grad_() for f in fs]
@@ -1569,10 +1571,12 @@ def run_alone(gen, peaks) -> dict:
         x = randn(gen, (m, s_ * p), dtype)
         f = randn(gen, (p, q), dtype)
         acc = emit.acc_dtype_for(dtype)
-        code = emit.kernel_dtype_code(x, (f,), acc)
+        code = _launch.kernel_dtype_code(x, (f,), acc)
         t_m, t_s, t_q = kron_sliced.sliced_tiles(m, s_, p, q, acc.itemsize,
                                                  in_bytes=x.element_size())
-        per_sm, smem = kron_sliced.sliced_occupancy(code, m, s_, p, q, t_m, t_s, t_q, x.device)
+        mma = int(kron_sliced.sliced_mma(p, q, t_q, x.element_size()))
+        per_sm, smem = _launch.occupancy("sliced", x.device, code, mma, m, s_ * p, p, q, t_m, t_s,
+                                         t_q)
         call = lambda: kron_sliced.sliced_multiply_cuda(x, f)  # noqa: E731
         ms, dev_ms = time_ms(call), device_ms(call)
         xv = x.view(m, s_, p)
@@ -1594,8 +1598,8 @@ def run_alone(gen, peaks) -> dict:
     b_ms, b_by = bound((2 * m * q * s_ + p * q) * 4, 2 * m * s_ * p * q, peaks, torch.float32)
     dy = randn(gen, (m, q * s_), torch.float32)
     t_m, t_s, t_q = kron_sliced.sliced_tiles(m, s_, p, q, 4, kind="sliced_t", in_bytes=4)
-    per_sm, smem = kron_sliced_t.sliced_t_occupancy(
-        0, dy.data_ptr() % 16, m, s_, p, q, t_m, t_s, t_q, dy.device)
+    per_sm, smem = _launch.occupancy(
+        "sliced_t", dy.device, 0, dy.data_ptr() % 16, m, s_, p, q, t_m, t_s, t_q)
     ms = time_ms(lambda: kron_sliced_t.sliced_multiply_t_cuda(dy, f))
     dyv = dy.view(m, q, s_)
     library_ms = time_ms(lambda: torch.einsum("mqs,pq->msp", dyv, f))
@@ -1854,7 +1858,7 @@ def run_measure(gen, cache_dir: str) -> tuple[list[dict], dict]:
             grads = torch.autograd.grad(y, [x, *fs], ct)
             torch.cuda.synchronize()
             launches = read_counters()
-            want = expect(chain_fwd=2 * n - 1, grad=n, grad_reduce=n)
+            want = expect(chain_fwd=2 * n - 1, grad=n)
             if launches != want:
                 raise AssertionError(f"measure {name}: launches {launches}, expected {want}")
             launches_total = {k: launches_total[k] + v for k, v in launches.items()}
@@ -2046,7 +2050,7 @@ def run_ffn_block(gen) -> tuple[dict, dict]:
     bwd_launches = read_counters()
     if fwd_launches != expect(chain_fwd=6):
         raise AssertionError(f"ffn-block forward launches {fwd_launches}")
-    if bwd_launches != expect(chain_fwd=3, grad=6, grad_reduce=6):
+    if bwd_launches != expect(chain_fwd=3, grad=6):
         raise AssertionError(f"ffn-block backward launches {bwd_launches}")
     grads = [x.grad] + [f.grad for f in leaves]
     ref_params = {k: {"factors": tuple(f.detach().requires_grad_() for f in v["factors"])}
@@ -2303,7 +2307,7 @@ def train_expected(cfg, groups, batch: int = TRAIN["batch"],
     """The launches of one train step as the plans predict them: (model,
     optimizer).  Per KronLinear of n stages (the plan of the batch's rows):
     n chain_fwd forward, n more in the remat re-forward, n-1 stage inputs
-    rematerialized for the factor gradients, n grad and n grad_reduce; three
+    rematerialized for the factor gradients, n grad (each two kernels); three
     KronLinears per layer (w1 and w3 up, w2 down).  Per Shampoo shape group,
     one per-sample batched op: its stages' chain_fwd.  ``batch``: the rows
     of the batch one rank runs (all of them off the mesh)."""
@@ -2321,8 +2325,7 @@ def train_expected(cfg, groups, batch: int = TRAIN["batch"],
         n = n_stages(op, False)
         fwd += (2 if cfg.remat else 1) * n + n - 1
         grad += n
-    model = expect(chain_fwd=cfg.n_layers * fwd, grad=cfg.n_layers * grad,
-                   grad_reduce=cfg.n_layers * grad)
+    model = expect(chain_fwd=cfg.n_layers * fwd, grad=cfg.n_layers * grad)
     opt = expect(chain_fwd=sum(
         n_stages(kron_precond_op(p, q, sum(s for _, s in members)), True)
         for (p, q), members in groups.items()))
@@ -4018,7 +4021,7 @@ def _merge_ranks(phase: str, per_rank: list[list[dict]], smi: str) -> tuple[list
     """One line per check: rank 0's row, the launches of every rank asserted
     equal (and summed over the ranks), the slowest rank's times, the worst
     rank's errors, every rank's peak memory."""
-    launches = {name: 0 for name, _, _ in _counter_sites()}
+    launches = dict.fromkeys(COUNTERS, 0)
     rows = []
     for i, row in enumerate(per_rank[0]):
         others = [rr[i] for rr in per_rank]
@@ -4772,8 +4775,8 @@ def main() -> int:
         row["mesh_launches"] = mesh_launches[name]  # phase 12, summed over its ranks
         row["shard_launches"] = shard_launches[name]  # phase 13, summed over its ranks
         if name == "grad":
-            row["reduce_launches"] = (sum(row["launches"]["grad_reduce"] for row in rows.values())
-                                      + sum(c["grad_reduce"] for c in consumers))
+            # Each stage backward is two kernels: grad.cu's and its dF reduction.
+            row["reduce_launches"] = row["launches"]
             # Of phase 3's stage backwards, those on grad_tf32_kernel.
             row["tf32_launches"] = sum(row.get("tf32_launches", 0) for row in rows.values())
         if name in alone:

@@ -208,8 +208,8 @@ def _round_tiles(
     pprod = math.prod(ps)
     s = k // pprod
     fs = [(1, p, q) for p, q in zip(ps, qs)]
-    for t_m in sorted((d for d in emit._divisors(m) if d <= 8), reverse=True):
-        for d in sorted(emit._divisors(s), reverse=True):
+    for t_m in sorted((d for d in emit.divisors(m) if d <= 8), reverse=True):
+        for d in sorted(emit.divisors(s), reverse=True):
             try:
                 emit.chain_geometry((1, m, k), fs, t_m=t_m, t_k=d * pprod,
                                     acc_bytes=acc_bytes, in_bytes=in_bytes)

@@ -58,7 +58,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from ..kernels import emit, ops
-from ..kernels.emit import _divisors
+from ..kernels.emit import divisors
 from ..runtime import chaos, guard, telemetry
 from ..runtime.guard import LoweringError, VmemOverflowError
 from . import autotune
@@ -187,10 +187,10 @@ def _conservative_batched_tiles(m: int, k: int, p: int, q: int) -> tuple[int, in
     the geometry check, not this function, reports the overflow."""
     budget = emit.SMEM_BUDGET_ELEMS
     growth = max(1.0, q / p)
-    rows = [d for d in _divisors(m) if d <= 8]
+    rows = [d for d in divisors(m) if d <= 8]
     t_m = max((d for d in rows if d * p * growth <= budget), default=1)
     s = k // p
-    t_s = max((d for d in _divisors(s) if t_m * d * p * growth <= budget), default=1)
+    t_s = max((d for d in divisors(s) if t_m * d * p * growth <= budget), default=1)
     return t_m, t_s * p
 
 

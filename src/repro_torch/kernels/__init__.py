@@ -20,7 +20,11 @@ kron_fused.py   — DEPRECATED shims: the reference's fused forward entry
                   points, over emit (no kernel of their own).
 kron_fused_t.py — DEPRECATED shims: its transposed/backward entry points.
 ref.py          — plain PyTorch oracles for the tests.
-_build.py       — builds csrc/*.cu with nvcc at the first launch; ctypes.
+_launch.py      — the one boundary with the libraries: ctypes, dtype codes,
+                  occupancy queries, the persistent grid, the ``launch``
+                  span, the dry-run short-cut and the launch counts.
+_build.py       — builds csrc/*.cu with nvcc at the first launch and loads
+                  them.
 
 csrc/kron_async.cuh holds the Hopper pieces all five kernels share (the
 cp.async copies, the register-tiled step, the chain kernels' arguments and

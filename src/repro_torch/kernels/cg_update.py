@@ -11,25 +11,14 @@ the MVM's ``y``; alpha, beta and the residual norms never leave the device.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from ..runtime import telemetry
-from .emit import check_launch, kernel_fn, require_cuda
-
-# Launch counter of the CG update kernels: +1 per launch, nowhere else.
-cg_update_launches = 0
+from . import _launch
 
 START, DOT, STEP, DIRECTION, NORM = range(5)  # the stages of csrc/cg_update.cu
 DTYPES = {torch.float32: 0, torch.float64: 2}  # the kernels' dtype codes
 CHUNK_UNIT = 1024  # a chunk is a multiple of this many elements
 MAX_CHUNKS = 256  # chunks a row, at most: one partial per thread of a block
-
-_LL, _I, _VP, _D = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_double
-# kron_cg_update(stage, dtype, b, y, x, r, p, part, res, rows, k, chunk, shift,
-# cur, vec, stream)
-_ARGS = (_I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _LL, _D, _I, _I, _VP)
 
 
 def cg_chunk(k: int) -> int:
@@ -53,7 +42,7 @@ class FusedCG:
     current residual's."""
 
     def __init__(self, b: torch.Tensor, x: torch.Tensor, shift: float):
-        require_cuda("FusedCG", b, x)
+        _launch.require_cuda("FusedCG", b, x)
         if b.dtype not in DTYPES:
             raise ValueError(f"FusedCG takes float32 or float64, not {b.dtype}")
         if b.requires_grad:
@@ -76,8 +65,7 @@ class FusedCG:
         aligned = all(t.data_ptr() % 16 == 0 for t in (b, x, self.r, self.p))
         self.vec = wide if self.k % wide == 0 and aligned else 1
 
-    def _launch(self, stage: int, y: torch.Tensor | None = None) -> None:
-        global cg_update_launches
+    def _pass(self, stage: int, y: torch.Tensor | None = None) -> None:
         if y is not None:
             if y.shape != self.b.shape or y.dtype != self.b.dtype or y.device != self.b.device:
                 raise ValueError(f"FusedCG: the MVM gave {tuple(y.shape)} {y.dtype} on "
@@ -85,39 +73,33 @@ class FusedCG:
                                  f"{self.b.device}")
             if not y.is_contiguous() or (self.vec > 1 and y.data_ptr() % 16):
                 y = y.clone(memory_format=torch.contiguous_format)
-        with telemetry.span("launch"):
-            with torch.cuda.device(self.b.device):
-                err = kernel_fn("cg_update", _ARGS)(
-                    stage, DTYPES[self.b.dtype], self.b.data_ptr(),
-                    0 if y is None else y.data_ptr(), self.x.data_ptr(), self.r.data_ptr(),
-                    self.p.data_ptr(), self.part.data_ptr(), self.res.data_ptr(), self.rows,
-                    self.k, self.chunk, self.shift, self.cur, self.vec,
-                    torch.cuda.current_stream().cuda_stream,
-                )
-            check_launch("cg_update", err)
-        cg_update_launches += 1
+        _launch.launch("cg_update", self.b.device, lambda: (
+            stage, DTYPES[self.b.dtype], self.b.data_ptr(), 0 if y is None else y.data_ptr(),
+            self.x.data_ptr(), self.r.data_ptr(), self.p.data_ptr(), self.part.data_ptr(),
+            self.res.data_ptr(), self.rows, self.k, self.chunk, self.shift, self.cur, self.vec,
+        ))
 
     def start(self, y: torch.Tensor) -> None:
         """``r = b - y``, ``p = r`` and the partials of r . r."""
-        self._launch(START, y)
+        self._pass(START, y)
 
     def dot(self, y: torch.Tensor) -> None:
         """The partials of p . (y + shift p)."""
-        self._launch(DOT, y)
+        self._pass(DOT, y)
 
     def step(self, y: torch.Tensor) -> None:
         """alpha; ``x += alpha p``, ``r -= alpha (y + shift p)``; the new
         residual's partials of r . r, which become the current ones."""
-        self._launch(STEP, y)
+        self._pass(STEP, y)
         self.cur ^= 1
 
     def direction(self) -> None:
         """beta; ``p = r + beta p``."""
-        self._launch(DIRECTION)
+        self._pass(DIRECTION)
 
     def norm(self) -> torch.Tensor:
         """The current residual's norm per row, of ``b``'s leading shape."""
-        self._launch(NORM)
+        self._pass(NORM)
         return self.res
 
 

@@ -22,27 +22,22 @@ The port of ``repro.kernels.emit``:
   the reference's points: the ``stage_execute`` and ``pallas_lowering``
   chaos sites, ``check_finite`` on ``run_stage_grad``'s dx and
   ``run_program``'s output, and the ``stage``, ``stage_grad`` and
-  ``program`` telemetry spans; each launcher's body, from its occupancy
-  query to ``check_launch``, is a ``launch`` span.
-* every CUDA launcher reports its launch's FLOPs (``chain_flops``) and HBM
-  bytes (inputs, factors, outputs) to the active ``hlo_cost.CostMode``s,
-  and on a ``FakeTensor`` (a dry-run's trace) returns its output without a
-  build, an occupancy query or a launch, and counts no launch.
+  ``program`` telemetry spans.  Each launcher crosses into its library
+  through ``_launch`` (FLOPs and bytes for a dry-run, the ``launch`` span,
+  the occupancy query, the launch counts).
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import functools
 import math
 from typing import Sequence
 
 import torch
-from torch._subclasses.fake_tensor import FakeTensor
 
-from ..runtime import chaos, guard, hlo_cost, telemetry
+from ..runtime import chaos, guard, telemetry
 from ..runtime.guard import LoweringError, VmemOverflowError
-from . import _build
+from . import _launch
 
 # Shared memory one block may hold on an H100: 227 KB of the SM's 256 KB
 # (232,448 bytes, opt-in above 48 KB).  The planner's per-stage budget is
@@ -57,22 +52,7 @@ TRANSPOSED_MULTIPLY = "transposed_multiply"
 PREKRON = "prekron"
 _KINDS = (MULTIPLY, TRANSPOSED_MULTIPLY, PREKRON)
 
-# Launch counters, +1 per CUDA launch and nowhere else: the forward chain,
-# the transposed chain, the stage backward and its dF reduction; of the
-# stage backwards, those that ran the f32 tensor-core kernel
-# (``grad_uses_tf32``).
-chain_launches = 0
-chain_bwd_launches = 0
-grad_launches = 0
-grad_reduce_launches = 0
-grad_tf32_launches = 0
-
 _MAX_FACTORS = 16  # kron::kMaxFactors in csrc/kron_tile.cuh
-_KERNEL_DTYPES = {  # (input dtype, acc dtype) -> code in csrc/kron_tile.cuh
-    (torch.float32, torch.float32): 0,
-    (torch.bfloat16, torch.float32): 1,
-    (torch.float64, torch.float64): 2,
-}
 
 
 def resolve_backend(backend: str, x: torch.Tensor) -> str:
@@ -409,7 +389,7 @@ def max_n_fused(t_k: int, p: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _divisors(n: int) -> list[int]:
+def divisors(n: int) -> list[int]:
     small = [d for d in range(1, math.isqrt(n) + 1) if n % d == 0]
     return sorted(set(small + [n // d for d in small]))
 
@@ -736,9 +716,9 @@ def block_tile(
     pprod = math.prod(ps)
     ib = acc_bytes if in_bytes is None else in_bytes
     fits = []
-    for d in _divisors(t_k // pprod):
+    for d in divisors(t_k // pprod):
         tk = d * pprod
-        for tm in _divisors(t_m):
+        for tm in divisors(t_m):
             nbytes = block_smem_bytes(
                 tm, tk, ps, t_qs, acc_bytes, kind=kind, q_tiled=q_tiled, in_bytes=ib
             )
@@ -949,65 +929,6 @@ def _grad_geometry(
     return GradGeometry(b, m, k, ps, qs, block_m, block_k)
 
 
-def kernel_dtype_code(
-    x: torch.Tensor, factors: Sequence[torch.Tensor], acc: torch.dtype
-) -> int:
-    """The kernels' dtype code for (x's dtype, acc); factors must match x."""
-    for f in factors:
-        if f.dtype != x.dtype:
-            raise LoweringError(f"factor dtype {f.dtype} != x dtype {x.dtype}")
-    code = _KERNEL_DTYPES.get((x.dtype, acc))
-    if code is None:
-        raise LoweringError(
-            f"the CUDA kernels take float32, bfloat16 (acc float32) and "
-            f"float64 (acc float64); got {x.dtype} with acc {acc}"
-        )
-    return code
-
-
-def require_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """A kernel wrapper takes contiguous tensors on one CUDA device."""
-    dev = tensors[0].device
-    for t in tensors:
-        if not t.is_cuda:
-            raise ValueError(f"{name} needs CUDA tensors, got {t.device}")
-        if t.device != dev:
-            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} needs contiguous tensors")
-
-
-def kernel_fn(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
-    """``kron_<name>`` of ``csrc/<name>.cu`` (built on first use), with its
-    ctypes signature set once; every pointer and the stream are
-    ``c_void_p`` so no 64-bit value is cut."""
-    fn = getattr(_build.library(name), f"kron_{name}")
-    if fn.argtypes is None:
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def check_launch(name: str, err: int) -> None:
-    """Raise ``RuntimeError`` for a kernel's nonzero launch status."""
-    if err:
-        raise RuntimeError(
-            f"{name} launch failed: {_build.error_string(_build.library(name), err)}"
-        )
-
-
-_LL, _I, _VP = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
-_IP, _VPP = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p)
-# kron_chain_fwd / kron_chain_bwd(dtype, in, out, fs, ps, qs, tqs, n, B, M,
-# K, t_m, t_k, nblk, stream).
-_CHAIN_ARGS = (_I, _VP, _VP, _VPP, _IP, _IP, _IP, _I, _LL, _LL, _LL, _I, _I, _I, _VP)
-# kron_grad(dtype, x, dy, dx, part, df, fs, ps, qs, n, B, M, K, t_m, t_k,
-# nblk, stream).
-_GRAD_ARGS = (_I, _VP, _VP, _VP, _VP, _VP, _VPP, _IP, _IP, _I, _LL, _LL, _LL, _I, _I, _I, _VP)
-# kron_grad_occupancy(dtype, x, dy, ps, qs, n, M, K, t_m, t_k, &blocks, &smem).
-_GRAD_OCC_ARGS = (_I, _VP, _VP, _IP, _IP, _I, _LL, _LL, _I, _I)
-
-
 def chain_flops(b: int, m: int, k: int, ps: Sequence[int], qs: Sequence[int]) -> int:
     """Multiply-adds x 2 of a chain of factors ``(p_i, q_i)`` (application
     order) over ``b`` samples of ``m`` rows of ``k`` input columns; its
@@ -1019,33 +940,29 @@ def chain_flops(b: int, m: int, k: int, ps: Sequence[int], qs: Sequence[int]) ->
     return b * flops
 
 
-def _nbytes(*tensors: torch.Tensor) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def _ints(values: Sequence[int]):
-    return (ctypes.c_int * len(values))(*values)
-
-
-def _ptrs(tensors: Sequence[torch.Tensor]):
-    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
-
-
-def _chain_launch(inp, out, factors, geo, code):
+def _chain(wrapper, inp, factors, geo: ChainGeometry, acc, out_cols: int) -> torch.Tensor:
     """One launch of the chain kernel of ``geo.direction`` on a persistent
-    grid: as many blocks as the card holds at once (``grad_blocks`` from the
-    occupancy query), never more than the walk has tiles."""
+    grid (as many blocks as the card holds at once, never more than the walk
+    has tiles), into a new ``(B, M, out_cols)`` output in the input's
+    dtype."""
+    _launch.require_cuda(wrapper, inp, *factors)
+    code = _launch.kernel_dtype_code(inp, factors, acc)
+    out = torch.empty((geo.b, geo.m, out_cols), dtype=inp.dtype, device=inp.device)
     name = f"chain_{geo.direction}"
-    with telemetry.span("launch"):
-        per_sm, _ = chain_occupancy(geo, code, inp.device)
-        nblk = grad_blocks(sm_count(inp.device), per_sm, geo.tiles, 1)
-        with torch.cuda.device(inp.device):
-            err = kernel_fn(name, _CHAIN_ARGS)(
-                code, inp.data_ptr(), out.data_ptr(), _ptrs(factors), _ints(geo.ps),
-                _ints(geo.qs), _ints(geo.t_qs), len(factors), geo.b, geo.m, geo.k,
-                geo.block_m, geo.block_k, nblk, torch.cuda.current_stream().cuda_stream,
-            )
-        check_launch(name, err)
+    flops = lambda: chain_flops(geo.b, geo.m, geo.k, geo.ps, geo.qs)  # noqa: E731
+    if _launch.skip(name, out, flops, inp, out, *factors):
+        return out
+    _launch.launch(
+        name, inp.device,
+        lambda nblk: (
+            code, inp.data_ptr(), out.data_ptr(), _launch.ptrs(factors), _launch.ints(geo.ps),
+            _launch.ints(geo.qs), _launch.ints(geo.t_qs), len(factors), geo.b, geo.m, geo.k,
+            geo.block_m, geo.block_k, nblk,
+        ),
+        (code, geo.ps, geo.qs, geo.t_qs, len(geo.ps), geo.m, geo.k, geo.block_m, geo.block_k),
+        geo.tiles,
+    )
+    return out
 
 
 def chain_cuda(
@@ -1067,26 +984,13 @@ def chain_cuda(
     tile is ``block_tile``'s, the persistent grid from the occupancy query.
     Raises on CPU tensors: their path is ``chain_reference``.
     """
-    global chain_launches
     acc = _resolve_acc(acc_dtype, x.dtype)
     geo = chain_geometry(
         x.shape, [f.shape for f in factors], t_b=t_b, t_m=t_m, t_k=t_k,
         t_qs=t_qs, acc_bytes=acc.itemsize, vmem_budget_elems=vmem_budget_elems,
         in_bytes=x.element_size(),
     )
-    require_cuda("chain_cuda", x, *factors)
-    code = kernel_dtype_code(x, factors, acc)
-    y = torch.empty((geo.b, geo.m, geo.out_cols), dtype=x.dtype, device=x.device)
-    if y.numel() == 0:
-        return y
-    if hlo_cost.ACTIVE:
-        hlo_cost.count_kernel("chain_fwd", chain_flops(geo.b, geo.m, geo.k, geo.ps, geo.qs),
-                              _nbytes(x, y, *factors))
-    if isinstance(x, FakeTensor):  # a dry-run's trace: counted, never launched
-        return y
-    _chain_launch(x, y, factors, geo, code)
-    chain_launches += 1
-    return y
+    return _chain("chain_cuda", x, factors, geo, acc, geo.out_cols)
 
 
 def chain_reference(
@@ -1124,26 +1028,13 @@ def chain_bwd_cuda(
     grid from the occupancy query.  Raises on CPU tensors: their path is
     ``chain_bwd_reference``.
     """
-    global chain_bwd_launches
     acc = _resolve_acc(acc_dtype, dy.dtype)
     geo = chain_geometry(
         dy.shape, [f.shape for f in factors], t_b=t_b, t_m=t_m, t_k=t_k,
         t_qs=t_qs, acc_bytes=acc.itemsize, vmem_budget_elems=vmem_budget_elems,
         direction="bwd", in_bytes=dy.element_size(),
     )
-    require_cuda("chain_bwd_cuda", dy, *factors)
-    code = kernel_dtype_code(dy, factors, acc)
-    dx = torch.empty((geo.b, geo.m, geo.k), dtype=dy.dtype, device=dy.device)
-    if dx.numel() == 0:
-        return dx
-    if hlo_cost.ACTIVE:
-        hlo_cost.count_kernel("chain_bwd", chain_flops(geo.b, geo.m, geo.k, geo.ps, geo.qs),
-                              _nbytes(dy, dx, *factors))
-    if isinstance(dy, FakeTensor):  # a dry-run's trace: counted, never launched
-        return dx
-    _chain_launch(dy, dx, factors, geo, code)
-    chain_bwd_launches += 1
-    return dx
+    return _chain("chain_bwd_cuda", dy, factors, geo, acc, geo.k)
 
 
 def chain_bwd_reference(
@@ -1157,97 +1048,6 @@ def chain_bwd_reference(
     for f in reversed(factors):
         g = sliced_apply_t(g, f, acc)
     return g.to(dy.dtype)
-
-
-def grad_blocks(sms: int, per_sm: int, tiles: int, b: int) -> int:
-    """Blocks per batch sample of a persistent launch (grad.cu; the chain
-    kernels and sliced_t.cu with ``b=1``): as many as the card holds at once
-    (``sms`` SMs times the ``per_sm`` blocks the occupancy query reports),
-    shared among the ``b`` samples, never more than a sample has tiles and
-    at least one.  Each block of the stage backward writes one dF partial."""
-    return max(1, min(tiles, sms * per_sm // b))
-
-
-def occupancy(name: str, argtypes: Sequence, *args) -> tuple[int, int]:
-    """``kron_<name>_occupancy(*args, &blocks, &smem)`` of ``csrc/<name>.cu``:
-    (blocks of the kernel per SM at the launch's threads and shared memory,
-    that shared memory in bytes).  Raises when the kernel cannot launch."""
-    fn = getattr(_build.library(name), f"kron_{name}_occupancy")
-    if fn.argtypes is None:
-        fn.argtypes = [*argtypes, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)]
-        fn.restype = ctypes.c_int
-    blocks, smem = ctypes.c_int(0), ctypes.c_longlong(0)
-    check_launch(name, fn(*args, ctypes.byref(blocks), ctypes.byref(smem)))
-    if blocks.value < 1:
-        raise RuntimeError(f"{name}: no block fits an SM at {smem.value} bytes of shared memory")
-    return blocks.value, smem.value
-
-
-# dtype code -> (input, accumulator) bytes
-CODE_BYTES = {code: (i.itemsize, a.itemsize) for (i, a), code in _KERNEL_DTYPES.items()}
-
-
-@functools.lru_cache(maxsize=256)
-def _grad_occupancy(code, x_align, dy_align, ps, qs, m, k, t_m, t_k, device):
-    with torch.cuda.device(device):
-        per_sm, smem = occupancy(
-            "grad", _GRAD_OCC_ARGS, code, x_align, dy_align, _ints(ps), _ints(qs),
-            len(ps), m, k, t_m, t_k,
-        )
-    in_bytes, acc_bytes = CODE_BYTES[code]
-    model = block_smem_bytes(t_m, t_k, ps, qs, acc_bytes, kind="grad", in_bytes=in_bytes)
-    if smem != model:
-        raise RuntimeError(f"grad.cu lays out {smem} bytes of shared memory, the model {model}")
-    return per_sm, smem
-
-
-def grad_occupancy(x: torch.Tensor, dy: torch.Tensor, geo: GradGeometry, code: int) -> tuple[int, int]:
-    """(blocks per SM, shared-memory bytes) of the stage backward at ``geo``'s
-    block tile, from the kernel's occupancy query; memoized.  The pointers'
-    residues mod 16 set the ring's copy width, so they are part of the key.
-    Raises when the kernel's layout and ``block_smem_bytes`` disagree."""
-    return _grad_occupancy(
-        code, x.data_ptr() % 16, dy.data_ptr() % 16, geo.ps, geo.qs, geo.m, geo.k,
-        geo.block_m, geo.block_k, x.device,
-    )
-
-
-# kron_chain_fwd_occupancy / kron_chain_bwd_occupancy(dtype, ps, qs, tqs, n,
-# M, K, t_m, t_k, &blocks, &smem).
-_CHAIN_OCC_ARGS = (_I, _IP, _IP, _IP, _I, _LL, _LL, _I, _I)
-
-
-@functools.lru_cache(maxsize=256)
-def _chain_occupancy(direction, code, ps, qs, t_qs, m, k, t_m, t_k, device):
-    name = f"chain_{direction}"
-    with torch.cuda.device(device):
-        per_sm, smem = occupancy(
-            name, _CHAIN_OCC_ARGS, code, _ints(ps), _ints(qs), _ints(t_qs), len(ps), m, k,
-            t_m, t_k,
-        )
-    in_bytes, acc_bytes = CODE_BYTES[code]
-    model = block_smem_bytes(
-        t_m, t_k, ps, t_qs, acc_bytes, kind=name, q_tiled=t_qs != qs, in_bytes=in_bytes,
-    )
-    if smem != model:
-        raise RuntimeError(f"{name}.cu lays out {smem} bytes of shared memory, the model {model}")
-    return per_sm, smem
-
-
-def chain_occupancy(geo: ChainGeometry, code: int, device: torch.device) -> tuple[int, int]:
-    """(blocks per SM, shared-memory bytes) of the chain kernel of
-    ``geo.direction`` at ``geo``'s block tile, from the kernel's occupancy
-    query (``kron_chain_fwd_occupancy`` / ``kron_chain_bwd_occupancy``);
-    memoized.  Raises when the kernel's layout and ``block_smem_bytes``
-    disagree."""
-    return _chain_occupancy(
-        geo.direction, code, geo.ps, geo.qs, geo.t_qs, geo.m, geo.k, geo.block_m,
-        geo.block_k, device,
-    )
-
-
-def sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def grad_cuda(
@@ -1277,8 +1077,8 @@ def grad_cuda(
         t_k=t_k, acc_bytes=acc.itemsize, vmem_budget_elems=vmem_budget_elems,
         in_bytes=x.element_size(),
     )
-    require_cuda("grad_cuda", x, dy, *factors)
-    code = kernel_dtype_code(x, (dy, *factors), acc)
+    _launch.require_cuda("grad_cuda", x, dy, *factors)
+    code = _launch.kernel_dtype_code(x, (dy, *factors), acc)
     sizes = [p * q for p, q in zip(geo.ps, geo.qs)]
     total = sum(sizes)
     dx = torch.empty((geo.b, geo.m, geo.k), dtype=x.dtype, device=x.device)
@@ -1286,38 +1086,32 @@ def grad_cuda(
         df = torch.zeros((geo.b, total), dtype=acc, device=x.device)
     else:
         df = torch.empty((geo.b, total), dtype=acc, device=x.device)
-        if hlo_cost.ACTIVE:  # dF and dx, and the chain re-run up to the last factor
-            flops = (2 * chain_flops(geo.b, geo.m, geo.k, geo.ps, geo.qs)
+    # dF and dx, and the chain re-run up to the last factor.
+    flops = lambda: (2 * chain_flops(geo.b, geo.m, geo.k, geo.ps, geo.qs)  # noqa: E731
                      + chain_flops(geo.b, geo.m, geo.k, geo.ps[:-1], geo.qs[:-1]))
-            hlo_cost.count_kernel("grad", flops, _nbytes(x, dy, dx, df, *factors))
-        if not isinstance(x, FakeTensor):  # a dry-run's trace: counted, never launched
-            _grad_launch(x, dy, dx, df, factors, geo, code)
+    if not _launch.skip("grad", dx, flops, x, dy, dx, df, *factors):
+        part = None
+
+        def args(nblk):
+            nonlocal part  # each block's dF partial, held until the launch is on the stream
+            part = torch.empty((geo.b * nblk * total,), dtype=acc, device=x.device)
+            return (
+                code, x.data_ptr(), dy.data_ptr(), dx.data_ptr(), part.data_ptr(),
+                df.data_ptr(), _launch.ptrs(factors), _launch.ints(geo.ps),
+                _launch.ints(geo.qs), len(factors), geo.b, geo.m, geo.k, geo.block_m,
+                geo.block_k, nblk,
+            )
+
+        _launch.launch(
+            "grad", x.device, args,
+            (code, x.data_ptr() % 16, dy.data_ptr() % 16, geo.ps, geo.qs, len(geo.ps), geo.m,
+             geo.k, geo.block_m, geo.block_k),
+            (geo.m // geo.block_m) * (geo.k // geo.block_k), geo.b,
+        )
+        if grad_uses_tf32(geo.ps, geo.qs, *_launch.CODE_BYTES[code]):
+            _launch.launches["grad_tf32"] += 1
     dfs = torch.split(df, sizes, dim=1)
     return dx, tuple(d.reshape(geo.b, p, q) for d, p, q in zip(dfs, geo.ps, geo.qs))
-
-
-def _grad_launch(x, dy, dx, df, factors, geo: GradGeometry, code: int) -> None:
-    """The stage backward's two launches on a persistent grid: each block
-    writes one dF partial, then the partials are reduced into ``df``."""
-    global grad_launches, grad_reduce_launches, grad_tf32_launches
-    total = int(df.shape[1])
-    with telemetry.span("launch"):
-        per_sm, _ = grad_occupancy(x, dy, geo, code)
-        tiles = (geo.m // geo.block_m) * (geo.k // geo.block_k)
-        nblk = grad_blocks(sm_count(x.device), per_sm, tiles, geo.b)
-        part = torch.empty((geo.b * nblk * total,), dtype=df.dtype, device=x.device)
-        with torch.cuda.device(x.device):
-            err = kernel_fn("grad", _GRAD_ARGS)(
-                code, x.data_ptr(), dy.data_ptr(), dx.data_ptr(), part.data_ptr(),
-                df.data_ptr(), _ptrs(factors), _ints(geo.ps), _ints(geo.qs),
-                len(factors), geo.b, geo.m, geo.k, geo.block_m, geo.block_k, nblk,
-                torch.cuda.current_stream().cuda_stream,
-            )
-        check_launch("grad", err)
-    grad_launches += 1
-    grad_reduce_launches += 1
-    if grad_uses_tf32(geo.ps, geo.qs, *CODE_BYTES[code]):
-        grad_tf32_launches += 1
 
 
 def grad_reference(
@@ -1540,11 +1334,8 @@ __all__ = [
     "chain_tile_coords",
     "grad_geometry",
     "grad_live_elems",
-    "grad_blocks",
-    "grad_occupancy",
     "grad_uses_tf32",
     "grad_kernel_name",
-    "chain_occupancy",
     "block_tile",
     "block_smem_bytes",
     "fused_growth",

@@ -15,35 +15,21 @@ is its plain twin.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
-from torch._subclasses.fake_tensor import FakeTensor
 
-from ..runtime import hlo_cost, telemetry
 from ..runtime.guard import LoweringError, VmemOverflowError
+from . import _launch
 from .emit import (
     ASYNC_THREADS,
-    CODE_BYTES,
     SMEM_BYTES,
     TWO_BLOCK_SMEM_BYTES,
-    _divisors,
-    _nbytes,
     acc_dtype_for,
     chain_flops,
-    check_launch,
-    grad_blocks,
-    kernel_dtype_code,
-    kernel_fn,
-    occupancy,
-    require_cuda,
+    divisors,
     sliced_apply,
-    sm_count,
 )
-
-# Launch counter of the sliced kernel: +1 per launch, nowhere else.
-sliced_launches = 0
 
 SLICED_STAGES = 3  # the ring slots of csrc/sliced.cu and csrc/sliced_t.cu (kStages)
 _SLICES = 4  # slices of one thread's register tile (sliced.cu's CUDA cores, sliced_t.cu)
@@ -169,9 +155,9 @@ def sliced_tiles(
     fits = []
     if kind == "fwd":
         mma = sliced_mma(p, q, lim_q, ib)
-        for t_q in [q] if mma else _divisors(lim_q):
-            for t_s in _divisors(lim_s):
-                for t_m in _divisors(lim_m):
+        for t_q in [q] if mma else divisors(lim_q):
+            for t_s in divisors(lim_s):
+                for t_m in divisors(lim_m):
                     nbytes = sliced_smem_bytes(t_m, t_s, p, q, t_q, ib, acc_bytes, mma)
                     if nbytes <= TWO_BLOCK_SMEM_BYTES:
                         fits.append((t_q, t_s * ib >= 32, t_m * t_s, t_s, t_m))
@@ -179,9 +165,9 @@ def sliced_tiles(
             best = max(fits)
             return best[4], best[3], best[0]
     elif kind == "sliced_t":
-        for t_q in _divisors(lim_q):
-            for t_s in _divisors(lim_s):
-                for t_m in _divisors(lim_m):
+        for t_q in divisors(lim_q):
+            for t_s in divisors(lim_s):
+                for t_m in divisors(lim_m):
                     if not sliced_t_fits_threads(t_m, t_s, p):
                         continue
                     nbytes = sliced_t_smem_bytes(t_m, t_s, p, q, t_q, ib, acc_bytes)
@@ -198,28 +184,6 @@ def sliced_tiles(
     )
 
 
-_LL, _I, _VP = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
-# kron_sliced(dtype, mma, x, f, y, M, K, p, q, t_m, t_s, t_q, nblk, stream)
-_SLICED_ARGS = (_I, _I, _VP, _VP, _VP, _LL, _LL, _I, _I, _I, _I, _I, _I, _VP)
-# kron_sliced_occupancy(dtype, mma, M, K, p, q, t_m, t_s, t_q, &blocks, &smem)
-_OCC_ARGS = (_I, _I, _LL, _LL, _I, _I, _I, _I, _I)
-
-
-@functools.lru_cache(maxsize=256)
-def sliced_occupancy(code, m, s, p, q, t_m, t_s, t_q, device):
-    """(blocks per SM, shared-memory bytes) of ``csrc/sliced.cu``'s kernel at
-    these tiles, from its occupancy query; memoized.  Raises when the
-    kernel's layout and ``sliced_smem_bytes`` disagree."""
-    in_bytes, acc_bytes = CODE_BYTES[code]
-    mma = sliced_mma(p, q, t_q, in_bytes)
-    with torch.cuda.device(device):
-        per_sm, smem = occupancy("sliced", _OCC_ARGS, code, int(mma), m, s * p, p, q, t_m, t_s, t_q)
-    model = sliced_smem_bytes(t_m, t_s, p, q, t_q, in_bytes, acc_bytes, mma)
-    if smem != model:
-        raise RuntimeError(f"sliced.cu lays out {smem} bytes of shared memory, the model {model}")
-    return per_sm, smem
-
-
 def sliced_multiply_cuda(
     x: torch.Tensor, f: torch.Tensor, *, tiles: tuple | None = None
 ) -> torch.Tensor:
@@ -227,12 +191,11 @@ def sliced_multiply_cuda(
 
     Tiles come from ``sliced_tiles``, bounded by ``tiles=(t_m, t_s, t_q)``
     when given (``check_tiles``), the grid from the occupancy query
-    (``emit.grad_blocks``).  Output in x's dtype, accumulated in f32 (f64
+    (``_launch.grad_blocks``).  Output in x's dtype, accumulated in f32 (f64
     for f64).  Raises on CPU tensors: their path is
     ``sliced_multiply_reference``.  A FakeTensor's output returns
-    unlaunched (``emit``'s fake path).
+    unlaunched (``_launch.skip``).
     """
-    global sliced_launches
     m, k = (int(d) for d in x.shape)
     p, q = (int(d) for d in f.shape)
     if k % p:
@@ -242,26 +205,18 @@ def sliced_multiply_cuda(
     isz = x.element_size()
     limit = None if tiles is None else check_tiles(m, s, q, tiles)
     t_m, t_s, t_q = sliced_tiles(m, s, p, q, acc.itemsize, in_bytes=isz, limit=limit)
-    require_cuda("sliced_multiply_cuda", x, f)
-    code = kernel_dtype_code(x, (f,), acc)
+    _launch.require_cuda("sliced_multiply_cuda", x, f)
+    code = _launch.kernel_dtype_code(x, (f,), acc)
     y = torch.empty((m, q * s), dtype=x.dtype, device=x.device)
-    if y.numel() == 0:
+    if _launch.skip("sliced", y, lambda: chain_flops(1, m, k, (p,), (q,)), x, f, y):
         return y
-    if hlo_cost.ACTIVE:
-        hlo_cost.count_kernel("sliced", chain_flops(1, m, k, (p,), (q,)),
-                              _nbytes(x, f, y))
-    if isinstance(x, FakeTensor):  # a dry-run's trace: counted, never launched
-        return y
-    with telemetry.span("launch"):
-        per_sm, _ = sliced_occupancy(code, m, s, p, q, t_m, t_s, t_q, x.device)
-        nblk = grad_blocks(sm_count(x.device), per_sm, (q // t_q) * (m // t_m) * (s // t_s), 1)
-        with torch.cuda.device(x.device):
-            err = kernel_fn("sliced", _SLICED_ARGS)(
-                code, int(sliced_mma(p, q, t_q, isz)), x.data_ptr(), f.data_ptr(), y.data_ptr(),
-                m, k, p, q, t_m, t_s, t_q, nblk, torch.cuda.current_stream().cuda_stream,
-            )
-        check_launch("sliced", err)
-    sliced_launches += 1
+    mma = int(sliced_mma(p, q, t_q, isz))
+    _launch.launch(
+        "sliced", x.device,
+        lambda nblk: (code, mma, x.data_ptr(), f.data_ptr(), y.data_ptr(), m, k, p, q, t_m, t_s,
+                      t_q, nblk),
+        (code, mma, m, k, p, q, t_m, t_s, t_q), (q // t_q) * (m // t_m) * (s // t_s),
+    )
     return y
 
 
@@ -277,7 +232,6 @@ def sliced_multiply_reference(x: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
 __all__ = [
     "sliced_multiply_cuda",
     "sliced_multiply_reference",
-    "sliced_occupancy",
     "sliced_smem_bytes",
     "sliced_t_smem_bytes",
     "sliced_tiles",

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from repro_torch.gp import ski
+from repro_torch.kernels import _launch
 from repro_torch.kernels import cg_update as CU
 
 SHAPES = [(16, 16 ** 4), (1, 4099), (3, 16, 4096)]
@@ -165,9 +166,9 @@ def _problem(shape, device, dtype=torch.float32):
 @pytest.mark.parametrize("shape", SHAPES)
 def test_fused_solve_equals_the_eager_solve(card, shape):
     matvec, b = _problem(shape, card)
-    before = CU.cg_update_launches
+    before = _launch.launches["cg_update"]
     x, res = ski.conjugate_gradient(matvec, b, iters=10, shift=SHIFT)
-    assert CU.cg_update_launches - before == 1 + 3 * 10 - 1 + 1
+    assert _launch.launches["cg_update"] - before == 1 + 3 * 10 - 1 + 1
     xe, rese = _eager(matvec, b)
     assert res.shape == rese.shape == shape[:-1]
     assert float((x - xe).abs().max()) <= 1e-4 * float(xe.abs().max())

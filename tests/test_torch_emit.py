@@ -18,7 +18,7 @@ from repro.runtime import guard as JG
 from repro_torch.core import autotune as TA
 from repro_torch.core.kron import KronProblem as TProblem
 from repro_torch.kernels import emit as TE
-from repro_torch.kernels import kron_sliced, ops
+from repro_torch.kernels import _launch, kron_sliced, ops
 from repro_torch.runtime import guard as TG
 
 jax.config.update("jax_enable_x64", True)
@@ -191,9 +191,9 @@ def test_torch_backend_runs_the_twins_on_cuda_tensors():
     x, fs = make_inputs(19, 8, (8, 8), (8, 8))
     xc = to_torch(x).cuda()
     fc = [to_torch(f).cuda() for f in fs]
-    before = TE.chain_launches
+    before = _launch.launches["chain_fwd"]
     got = KronOp((8, 8), (8, 8), backend="torch")(xc, fc)
-    assert TE.chain_launches == before and got.is_cuda
+    assert _launch.launches["chain_fwd"] == before and got.is_cuda
     want = KronOp((8, 8), (8, 8))(to_torch(x), [to_torch(f) for f in fs])
     assert_close(got.cpu(), want.numpy(), 1e-12)
     assert_close(ops.sliced_multiply(xc, fc[0], backend="torch").cpu(),

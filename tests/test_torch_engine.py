@@ -1,7 +1,9 @@
 """The port's KronOp (repro_torch.core.engine) against repro.core.KronOp on
 both JAX backends, the autograd contract without gradient inputs, the
-device rule, and the import boundary of the port and chip_smoke.py.  The
-gradients are in test_torch_grad.py."""
+device rule, the import boundary of the port and chip_smoke.py, and the
+one module that calls the CUDA libraries.  The gradients are in
+test_torch_grad.py."""
+import ast
 import os
 import subprocess
 import sys
@@ -163,3 +165,17 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("clean")
+
+
+def test_only_the_launch_boundary_touches_ctypes():
+    """The CUDA libraries are loaded by kernels/_build.py and called by
+    kernels/_launch.py; no other module of the port imports ctypes."""
+    root = REPO / "src" / "repro_torch"
+    users = set()
+    for path in root.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            if any(n.split(".")[0] == "ctypes" for n in names):
+                users.add(path.relative_to(root).as_posix())
+    assert users == {"kernels/_build.py", "kernels/_launch.py"}

@@ -225,12 +225,11 @@ def test_cg_fuses_every_cuda_block_with_the_row_dot(monkeypatch, case, path):
 def _stub_launches(monkeypatch):
     """Run ``FusedCG`` on CPU tensors: no CUDA check, each launch recorded
     as its argument list instead of run."""
-    from repro_torch.kernels import cg_update
+    from repro_torch.kernels import _launch, cg_update
 
     calls = []
-    monkeypatch.setattr(cg_update, "require_cuda", lambda *a: None)
-    monkeypatch.setattr(cg_update, "kernel_fn",
-                        lambda name, argtypes: lambda *args: calls.append(args) or 0)
+    monkeypatch.setattr(_launch, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(_launch, "kernel_fn", lambda name: lambda *args: calls.append(args) or 0)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda: types.SimpleNamespace(cuda_stream=0))
@@ -291,13 +290,13 @@ def test_cpu_f64_and_a_custom_dot_run_the_eager_updates(kind):
     """CPU tensors, float32 or float64, and a custom ``dot=`` (the mesh's
     all-reduce) take the eager updates: ``cg.eager_iters`` counts each
     iteration once and no CG kernel launches."""
-    from repro_torch.kernels import cg_update
+    from repro_torch.kernels import _launch
     from repro_torch.runtime import telemetry
 
     dtype = torch.float64 if kind == "f64" else torch.float32
     b = torch.ones(3, 8, dtype=dtype)
     kw = {"dot": lambda a, c: torch.sum(a * c, dim=-1, keepdim=True)} if kind == "dot" else {}
-    launches = cg_update.cg_update_launches
+    launches = _launch.launches["cg_update"]
     telemetry.configure()
     try:
         TS.conjugate_gradient(lambda r: 2 * r, b, iters=5, shift=0.1, **kw)
@@ -305,4 +304,4 @@ def test_cpu_f64_and_a_custom_dot_run_the_eager_updates(kind):
     finally:
         telemetry.reset()
     assert counters.get("cg.eager_iters") == 5 and "cg.fused_iters" not in counters
-    assert cg_update.cg_update_launches == launches
+    assert _launch.launches["cg_update"] == launches

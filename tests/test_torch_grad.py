@@ -26,7 +26,7 @@ from repro_torch.core import KronOp, engine, kron_matrix
 from repro_torch.core import autotune as TA
 from repro_torch.core.kron import KronProblem as TProblem
 from repro_torch.kernels import emit as TE
-from repro_torch.kernels import kron_sliced, kron_sliced_t, ops
+from repro_torch.kernels import _launch, kron_sliced, kron_sliced_t, ops
 from repro_torch.runtime import guard as TG
 
 jax.config.update("jax_enable_x64", True)
@@ -657,7 +657,7 @@ def test_sliced_t_tiles_at_the_smoke_shapes():
      (132, 1, 100, 300, 1), (132, 2, 1000, 4, 66), (132, 3, 4096, 1, 396)],
 )
 def test_grad_blocks_is_a_function_of_sms_occupancy_tiles_and_batch(sms, per_sm, tiles, b, want):
-    assert TE.grad_blocks(sms, per_sm, tiles, b) == want
+    assert _launch.grad_blocks(sms, per_sm, tiles, b) == want
 
 
 def test_backward_wrappers_on_cpu_tensors_raise():

@@ -16,7 +16,7 @@ from repro.core import KronOp as JKronOp
 from repro.runtime import chaos as JC
 from repro.runtime import guard as JG
 from repro_torch.core import engine
-from repro_torch.kernels import emit, kron_sliced, ops
+from repro_torch.kernels import _launch, emit, kron_sliced, ops
 from repro_torch.runtime import chaos, guard
 
 jax.config.update("jax_enable_x64", True)
@@ -301,8 +301,7 @@ def _on_the_card(monkeypatch):
     before one).  The plain twins are replaced by a tripwire."""
     monkeypatch.setattr(emit, "resolve_backend", lambda backend, x: "cuda")
     monkeypatch.setattr(ops, "resolve_backend", lambda backend, x: "cuda")
-    monkeypatch.setattr(emit, "require_cuda", lambda *a: None)
-    monkeypatch.setattr(kron_sliced, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(_launch, "require_cuda", lambda *a: None)
 
     def tripwire(*a, **k):
         raise AssertionError("a plain twin ran in place of a kernel")

@@ -39,7 +39,7 @@ from repro.train import steps as JT
 from repro_torch.configs import get_config as tget
 from repro_torch.core.engine import _lowered, kron_op_for
 from repro_torch.core.layers import KronLinearSpec
-from repro_torch.kernels import _build, emit, kron_sliced, kron_sliced_t
+from repro_torch.kernels import _build, _launch, emit, kron_sliced, kron_sliced_t
 from repro_torch.models import model as TM
 from repro_torch.models.config import reduced as treduced
 from repro_torch.optim import OptConfig as TOpt
@@ -137,23 +137,13 @@ def _refuse(*args, **kwargs):
 
 @pytest.fixture
 def no_card(monkeypatch):
-    """Every way to the card refuses; the launch counters start at 0."""
+    """Every way to the card refuses; the launch counts start at 0."""
     monkeypatch.setattr(_build, "library", _refuse)
     monkeypatch.setattr(_build, "build_all", _refuse)
-    for mod in (emit, kron_sliced, kron_sliced_t):
-        monkeypatch.setattr(mod, "sm_count", _refuse)
-    for name in ("grad_occupancy", "chain_occupancy", "occupancy", "kernel_fn"):
-        monkeypatch.setattr(emit, name, _refuse)
-    monkeypatch.setattr(kron_sliced, "sliced_occupancy", _refuse)
-    monkeypatch.setattr(kron_sliced_t, "sliced_t_occupancy", _refuse)
-    monkeypatch.setattr(kron_sliced, "kernel_fn", _refuse)
-    monkeypatch.setattr(kron_sliced_t, "kernel_fn", _refuse)
-    counters = [(emit, "chain_launches"), (emit, "chain_bwd_launches"), (emit, "grad_launches"),
-                (emit, "grad_reduce_launches"), (kron_sliced, "sliced_launches"),
-                (kron_sliced_t, "sliced_t_launches")]
-    for mod, attr in counters:
-        monkeypatch.setattr(mod, attr, 0)
-    yield lambda: {attr: getattr(mod, attr) for mod, attr in counters}
+    for name in ("launch", "occupancy", "kernel_fn", "sm_count"):
+        monkeypatch.setattr(_launch, name, _refuse)
+    monkeypatch.setattr(_launch, "launches", dict.fromkeys(_launch.launches, 0))
+    yield lambda: dict(_launch.launches)
 
 
 # name -> (wrapper, twin, operand shapes (x or dy first, then factors), dtype)

@@ -19,7 +19,7 @@ from _torch_parity import make_inputs, to_torch
 from repro.runtime import telemetry as JT
 from repro_torch.core import KronOp
 from repro_torch.gp.ski import KronKernel, gp_train_epoch, rbf_kernel_1d
-from repro_torch.kernels import cg_update, emit, kron_sliced, kron_sliced_t
+from repro_torch.kernels import _build, _launch, cg_update, emit, kron_sliced, kron_sliced_t
 from repro_torch.runtime import chaos, guard, telemetry
 from repro_torch.runtime.events import EventSink, get_logger
 
@@ -250,63 +250,48 @@ def test_cg_epoch_records_cg_and_its_iterations_around_the_ops_spans(tmp_path):
 
 
 def _stub_card(monkeypatch):
-    """The launchers' ways to the card answer without one: an occupancy of two
+    """The launch boundary answers without a card: an occupancy of two
     blocks per SM, 132 SMs, a kernel that returns success, CPU tensors taken
-    as the card's, and no device or stream to enter.  The launch counters
-    the launchers bump are the test's own."""
-    for mod, occ in ((emit, "chain_occupancy"), (emit, "grad_occupancy"),
-                     (kron_sliced, "sliced_occupancy"), (kron_sliced_t, "sliced_t_occupancy")):
-        monkeypatch.setattr(mod, occ, lambda *a: (2, 0))
-    for mod in (emit, kron_sliced, kron_sliced_t):
-        monkeypatch.setattr(mod, "sm_count", lambda device: 132)
-    for mod in (emit, kron_sliced, kron_sliced_t, cg_update):
-        monkeypatch.setattr(mod, "kernel_fn", lambda name, argtypes: lambda *args: 0)
-    for mod in (kron_sliced, kron_sliced_t, cg_update):
-        monkeypatch.setattr(mod, "require_cuda", lambda *a: None)
+    as the card's, and no device or stream to enter.  The launch counts are
+    the test's own."""
+    monkeypatch.setattr(_launch, "occupancy", lambda *a: (2, 0))
+    monkeypatch.setattr(_launch, "sm_count", lambda device: 132)
+    monkeypatch.setattr(_launch, "kernel_fn", lambda name: lambda *args: 0)
+    monkeypatch.setattr(_launch, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(_launch, "launches", dict.fromkeys(_launch.launches, 0))
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda: types.SimpleNamespace(cuda_stream=0))
-    for mod, counter in ((emit, "grad_launches"), (emit, "grad_reduce_launches"),
-                         (kron_sliced, "sliced_launches"), (kron_sliced_t, "sliced_t_launches"),
-                         (cg_update, "cg_update_launches")):
-        monkeypatch.setattr(mod, counter, 0)
 
 
-def _launch(kernel):
+def _launch_one(kernel):
+    """One call of the launcher of ``kernel`` (a library of ``_build.SOURCES``)."""
     ps, qs, m = (4, 3), (3, 2), 8
-    if kernel == "sliced":
-        kron_sliced.sliced_multiply_cuda(torch.zeros(m, 12), torch.zeros(4, 3))
-        return
-    if kernel == "sliced_t":
-        kron_sliced_t.sliced_multiply_t_cuda(torch.zeros(m, 9), torch.zeros(4, 3))
-        return
-    if kernel == "cg_update":
-        b = torch.zeros(m, 12)
-        cg_update.FusedCG(b, torch.zeros_like(b), 0.1).start(torch.zeros_like(b))
-        return
     x = torch.zeros(1, m, math.prod(ps))
     fs = [torch.zeros(1, p, q) for p, q in zip(ps, qs)]
-    if kernel == "grad":
-        dy = torch.zeros(1, m, math.prod(qs))
-        geo = emit.grad_geometry(x.shape, dy.shape, [f.shape for f in fs])
-        df = torch.zeros(1, sum(p * q for p, q in zip(ps, qs)))
-        emit._grad_launch(x, dy, torch.zeros_like(x), df, fs, geo, 0)
-        return
-    direction = kernel.removeprefix("chain_")
-    geo = emit.chain_geometry(x.shape, [f.shape for f in fs], direction=direction)
-    emit._chain_launch(x, torch.zeros(1, m, geo.out_cols), fs, geo, 0)
+    b = torch.zeros(m, 12)
+    {
+        "chain_fwd": lambda: emit.chain_cuda(x, *fs),
+        "chain_bwd": lambda: emit.chain_bwd_cuda(torch.zeros(1, m, math.prod(qs)), *fs),
+        "grad": lambda: emit.grad_cuda(x, torch.zeros(1, m, math.prod(qs)), *fs),
+        "sliced": lambda: kron_sliced.sliced_multiply_cuda(torch.zeros(m, 12), torch.zeros(4, 3)),
+        "sliced_t": lambda: kron_sliced_t.sliced_multiply_t_cuda(torch.zeros(m, 9),
+                                                                 torch.zeros(4, 3)),
+        "cg_update": lambda: cg_update.FusedCG(b, torch.zeros_like(b), 0.1).start(
+            torch.zeros_like(b)),
+    }[kernel]()
 
 
-@pytest.mark.parametrize("kernel", ["chain_fwd", "chain_bwd", "grad", "sliced", "sliced_t",
-                                    "cg_update"])
+@pytest.mark.parametrize("kernel", _build.SOURCES)
 def test_launchers_record_one_launch_span(tmp_path, monkeypatch, kernel):
     _stub_card(monkeypatch)
-    _launch(kernel)  # off: nothing recorded
+    _launch_one(kernel)  # off: nothing recorded
     telemetry.configure(jsonl=str(tmp_path / "launch.jsonl"), annotate=False)
-    _launch(kernel)
+    _launch_one(kernel)
     telemetry.shutdown()
     [rec] = _spans(tmp_path / "launch.jsonl")
     assert rec["name"] == "launch" and "attrs" not in rec
+    assert _launch.launches[kernel] == 2
 
 
 def test_op_call_records_program_stage_and_grad_spans(tmp_path):
