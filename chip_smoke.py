@@ -6,6 +6,7 @@
     python3 chip_smoke.py --mesh     # phases 1 and 12 only
     python3 chip_smoke.py --shard    # phases 1 and 13 only
     python3 chip_smoke.py --dryrun   # phases 1 and 14 only
+    python3 chip_smoke.py --serve    # phases 1 and 11 only
 
 It refuses to run (exit 1) with ``FASTKRON_CHAOS``, ``FASTKRON_NUMERICS`` or
 ``FASTKRON_PLAN_CACHE`` set: the first injects faults into the kernels'
@@ -154,7 +155,16 @@ went through the kernels.  Phases, one line each:
       are counted and printed.  (d)
       mamba2-130m, 24 layers, 4 x 1024 prefill and 64 decode steps against
       prefill (bf16 1e-1, f32 copy 1e-3); no Kron kernel on its path (d_ff
-      = 0).  An empty guard report after it.
+      = 0).  An empty guard report after it.  Decode steps whose key repeats
+      run from CUDA graphs (``models/decode_graph.py``): in (a), (c) and (d)
+      the first step runs eager, the second captures and every later one
+      replays, each step's path counted and asserted; the eager and the
+      capturing step call the launch wrappers as the plans predict, a
+      replay calls none, and one profiled replay runs as many
+      ``chain_fwd_kernel``s on the card as the plans predict.  (b) counts
+      the engine's replays (some, asserted) and holds the other calls'
+      launches to the plans.  The checks that patch the step with Python
+      state per call (``held_launches``, ``recorded_routes``) run eager.
   12. mesh: the distributed Kron-Matmul on one card.  Four processes
       (``torch.multiprocessing``, ``spawn``), each ``torch.cuda.set_device(0)``,
       in a gloo process group (a ``file://`` store in a temporary directory);
@@ -2612,9 +2622,9 @@ SLOT_CHECK = {"seed": 3, "stale": (1000,) * 4, "live": ((512, (300, 450)), (128,
 # (c) deepseek-moe-16b (dense prelude FFN and shared experts as Kron FFNs)
 # and (d) mamba2-130m (no FFN: no Kron kernel), at full width and depth.
 SERVE_MOE = {"arch": "deepseek-moe-16b", "batch": 4, "prompt": 512, "gen": 16, "seed": 1,
-             "check_steps": (3, 15), "f32_layers": 4}
+             "check_steps": (3, 15), "f32_layers": 4, "profile_step": 8}
 SERVE_SSM = {"arch": "mamba2-130m", "batch": 4, "prompt": 1024, "gen": 64, "seed": 2,
-             "check_steps": (15, 63), "f32_layers": None}
+             "check_steps": (15, 63), "f32_layers": None, "profile_step": 32}
 # Logits relative to max|ref|.  bf16 (the main path): kernels against
 # twins and decode against prefill.  bf16 rounding flips that differ
 # between two orders of summation (the twins', a prefill's GEMM shapes)
@@ -2749,7 +2759,11 @@ def held_launches(kernels=("chain_fwd",)):
     """Inside the block every launch of ``kernels`` (names of
     ``HELD_WRAPPERS``) is also computed by its plain twin on the same
     inputs; yields the list of ``Held`` it fills, one per launch.  The twins
-    launch no kernel, so the launch counters are untouched."""
+    launch no kernel, so the launch counters are untouched.  Decode steps
+    inside run eager (``decode_graph.eager``): a graph replay would launch
+    without calling the wrappers."""
+    from repro_torch.models import decode_graph
+
     saved, out = [], []
 
     def wrap(name, cuda, twin):
@@ -2773,7 +2787,8 @@ def held_launches(kernels=("chain_fwd",)):
         saved.append((mod, wrapper, cuda))
         setattr(mod, wrapper, wrap(name, cuda, getattr(mod, twin)))
     try:
-        yield out
+        with decode_graph.eager():
+            yield out
     finally:
         for mod, wrapper, cuda in saved:
             setattr(mod, wrapper, cuda)
@@ -2809,38 +2824,95 @@ def held_stages(cfg, params, prompts, max_len: int) -> dict:
     return {k: {"launches": n, "rows": rows, "rel_err": e} for k, (n, rows, e) in out.items()}
 
 
+DECODE_PATHS = ("eager_steps", "graph_steps", "graph_captures")
+
+
+@contextlib.contextmanager
+def counting_decode_paths():
+    """Telemetry on inside the block (in memory, no annotation), so that
+    ``decode_paths`` reads the decode step's path counters."""
+    from repro_torch.runtime import telemetry
+
+    telemetry.configure(annotate=False)
+    try:
+        yield
+    finally:
+        telemetry.disable()
+
+
+def decode_paths() -> dict | None:
+    """The path counters of ``models/decode_graph.py`` so far; None outside
+    ``counting_decode_paths``."""
+    from repro_torch.runtime import telemetry
+
+    if not telemetry.active():
+        return None
+    counters = telemetry.snapshot().get("counters", {})
+    return {name: counters.get(f"decode.{name}", 0) for name in DECODE_PATHS}
+
+
+def decode_path(before: dict | None) -> str | None:
+    """The path of the one decode step made since ``decode_paths()`` read
+    ``before``: "eager", "capture" (which also replays) or "replay"; None
+    where ``before`` is (not counted)."""
+    if before is None:
+        return None
+    d = {k: v - before[k] for k, v in decode_paths().items()}
+    if d["eager_steps"] + d["graph_steps"] != 1 or d["graph_captures"] > d["graph_steps"]:
+        raise AssertionError(f"one decode step counted {d}")
+    return "capture" if d["graph_captures"] else "replay" if d["graph_steps"] else "eager"
+
+
 def decode_run(cfg, params, cache, first, prompt_len: int, steps: int, want: dict,
-               profile_step=None):
+               profile_step: int):
     """The main path's ``steps`` greedy decode steps from ``cache`` (in
-    place), fed ``first`` at the first.  Returns the tokens fed, each
-    step's CUDA-event ms, the launches summed over the steps (each step's
-    asserted against ``want``) and the profiled step's (device ms, event
-    ms, {kernel name: (device ms, count)})."""
+    place), fed ``first`` at the first.  Step 0 runs eager, step 1 captures
+    the step's CUDA graphs and every later step replays them, each step's
+    path asserted; the eager and the capturing step's wrapper launches are
+    asserted against ``want``, a replay's against none (it calls no
+    wrapper); ``profile_step``, a replay, runs under the profiler, and its
+    ``chain_fwd_kernel`` count on the card is asserted against ``want``.
+    Returns the tokens fed, each unprofiled step's CUDA-event ms, the
+    wrapper launches summed over the steps and the profiled step's (device
+    ms, event ms, {kernel name: (device ms, count)})."""
     from repro_torch.models import model as M
 
+    paths = ("eager", "capture") + ("replay",) * (steps - 2)
+    if not 2 <= profile_step < steps:
+        raise ValueError(f"profile step {profile_step} of {steps} is not a replay")
     pos = torch.tensor(prompt_len, dtype=torch.int32, device="cuda")
     tok, fed, ms, total, prof_row = first, [], [], {}, None
-    for j in range(steps):
-        fed.append(tok)
-        reset_counters()
-        profiled = j == profile_step
-        with (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
-              if profiled else contextlib.nullcontext()) as prof:
-            (logits, cache), t = event_ms(lambda: M.decode_step(cfg, params, cache, tok, pos))
-        launches = read_counters()
-        if launches != want:
-            raise AssertionError(f"serve {cfg.name}: decode step {j} launches {launches}, "
-                                 f"expected {want}")
-        for name, n in launches.items():
-            total[name] = total.get(name, 0) + n
-        if profiled:
-            by_name = {e.key: (getattr(e, "device_time_total", 0) / 1e3, e.count)
-                       for e in prof.key_averages()}
-            prof_row = (sum(ms for ms, _ in by_name.values()), t, by_name)
-        else:
-            ms.append(t)
-        tok = greedy(logits, cfg.vocab)
-        pos += 1
+    with counting_decode_paths():
+        for j in range(steps):
+            fed.append(tok)
+            reset_counters()
+            before = decode_paths()
+            profiled = j == profile_step
+            with (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+                  if profiled else contextlib.nullcontext()) as prof:
+                (logits, cache), t = event_ms(lambda: M.decode_step(cfg, params, cache, tok,
+                                                                    pos))
+            path, launches = decode_path(before), read_counters()
+            if path != paths[j]:
+                raise AssertionError(f"serve {cfg.name}: decode step {j} ran {path}, "
+                                     f"expected {paths[j]}")
+            if launches != (expect() if path == "replay" else want):
+                raise AssertionError(f"serve {cfg.name}: decode step {j} ({path}) launches "
+                                     f"{launches}, expected {want} or none for a replay")
+            for name, n in launches.items():
+                total[name] = total.get(name, 0) + n
+            if profiled:
+                by_name = {e.key: (getattr(e, "device_time_total", 0) / 1e3, e.count)
+                           for e in prof.key_averages()}
+                prof_row = (sum(ms for ms, _ in by_name.values()), t, by_name)
+                ran = sum(n for name, (_, n) in by_name.items() if "chain_fwd_kernel" in name)
+                if ran != want["chain_fwd"]:
+                    raise AssertionError(f"serve {cfg.name}: replayed step {j} ran {ran} "
+                                         f"chain_fwd kernels, expected {want['chain_fwd']}")
+            else:
+                ms.append(t)
+            tok = greedy(logits, cfg.vocab)
+            pos += 1
     return fed, ms, total, prof_row
 
 
@@ -2857,7 +2929,7 @@ def late_kv(orig):
         s = (torch.as_tensor(pos, device=x.device).long() % l).expand(x.shape[0])
         for buf in (cache.k, cache.v):
             buf[rows, (s + 1) % l] = buf[rows, s]
-            buf[rows, s] = 0
+            buf[rows, s] = buf.new_zeros(())  # on the device: a graph captures it
         return y, cache
 
     return decode
@@ -3073,7 +3145,7 @@ def run_serve_continuous(cfg, params, smi: str) -> tuple[dict, dict]:
         eng = ServeEngine(cfg, params, SchedulerConfig(
             buckets=spec["buckets"], max_slots=slots, max_prefill=group,
             max_wait=spec["max_wait"]), max_new=max_new)
-        eng.rows, eng.calls, eng.decode_ms = {}, [], []
+        eng.rows, eng.calls, eng.decode_ms, eng.replays = {}, [], [], 0
         sample, pf, decode = eng._sample, eng._pf, eng._decode
 
         def record_sample(lg, rid, index):
@@ -3086,11 +3158,15 @@ def run_serve_continuous(cfg, params, smi: str) -> tuple[dict, dict]:
             return pf(p, tokens)
 
         def timed_decode(*args):
+            before = decode_paths()
             t0 = time.perf_counter()
             out = decode(*args)
             torch.cuda.synchronize()
             eng.decode_ms.append((time.perf_counter() - t0) * 1e3)
-            eng.calls.append((slots, 1))
+            if decode_path(before) == "replay":  # calls no launch wrapper
+                eng.replays += 1
+            else:
+                eng.calls.append((slots, 1))
             return out
 
         eng._sample, eng._pf, eng._decode = record_sample, record_pf, timed_decode
@@ -3107,12 +3183,13 @@ def run_serve_continuous(cfg, params, smi: str) -> tuple[dict, dict]:
         n, worst = held.get(h.rows, (0, 0.0))
         held[h.rows] = (n + 1, max(worst, h.rel_err))
     misses = (E._resolve_plan.cache_info().misses, E._resolve_batched_plan.cache_info().misses)
-    eng.rows, eng.calls, eng.decode_ms = {}, [], []
+    eng.rows, eng.calls, eng.decode_ms, eng.replays = {}, [], [], 0
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
-    rep = eng.run(reqs)
-    torch.cuda.synchronize()
+    with counting_decode_paths():
+        rep = eng.run(reqs)
+        torch.cuda.synchronize()
     launches = read_counters()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     after = (E._resolve_plan.cache_info().misses, E._resolve_batched_plan.cache_info().misses)
@@ -3138,7 +3215,7 @@ def run_serve_continuous(cfg, params, smi: str) -> tuple[dict, dict]:
                                                                  zip(after, misses)],
         "finished": len(done), "requests": len(reqs), "steps": rep.steps,
         "prefill_calls": sum(1 for c in eng.calls if c[1] != 1),
-        "decode_steps": len(eng.decode_ms),
+        "decode_steps": len(eng.decode_ms), "decode_steps_replayed": eng.replays,
         "launches": {k: v for k, v in launches.items() if v},
         "expected_launches": {k: v for k, v in want.items() if v},
         "total_tokens": rep.total_tokens, "duration_s": rep.duration_s,
@@ -3159,6 +3236,8 @@ def run_serve_continuous(cfg, params, smi: str) -> tuple[dict, dict]:
         raise AssertionError(f"serve continuous: re-planned while serving: {misses} -> {after}")
     if launches != want:
         raise AssertionError(f"serve continuous: launches {launches}, expected {want}")
+    if not eng.replays:
+        raise AssertionError("serve continuous: no decode step ran from graphs")
     if max(row_err.values()) > SERVE_TOL:
         raise AssertionError(f"serve continuous: prefill rows against batch-of-one {row_err}")
     if len(errs) != warm_want or max(e for _, e in held.values()) > TOLERANCE[torch.bfloat16]:
@@ -3180,8 +3259,10 @@ def recorded_routes(replay=None):
     takes in place of its router's pick, with the gates the router gives
     them: the router's logits masked to them, which renormalizes their
     scores, and under the published gate (``norm_topk`` False: g_i = s_i)
-    the scores scaled back to the full softmax's."""
-    from repro_torch.models import moe
+    the scores scaled back to the full softmax's.  Its decode steps run
+    eager (``decode_graph.eager``): a graph replay runs no Python, so it
+    would neither record nor replace a route."""
+    from repro_torch.models import decode_graph, moe
 
     route, calls = moe._route, []
 
@@ -3202,7 +3283,8 @@ def recorded_routes(replay=None):
 
     moe._route = recorded
     try:
-        yield calls
+        with decode_graph.eager():
+            yield calls
     finally:
         moe._route = route
 
@@ -3332,7 +3414,7 @@ def run_serve_model(gen, smi: str, spec: dict) -> tuple[dict, dict]:
     first = greedy(logits, cfg.vocab)
     del logits
     fed, step_ms, decode_launches, _ = decode_run(cfg, params, cache, first, s, steps,
-                                                  want_decode)
+                                                  want_decode, spec["profile_step"])
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     cache_bytes = tree_bytes(cache)
     del cache
@@ -4719,6 +4801,10 @@ def main() -> int:
         return 0
     if "--dryrun" in sys.argv[1:]:  # phase 14 only (no phase 10 step time to hold)
         run_dryrun(smi, None)
+        return 0
+    if "--serve" in sys.argv[1:]:  # phase 11 only
+        run_serve(gen, smi, peaks)
+        assert_clean("serve")
         return 0
     assert_clean("start")
     passed = check_kernels(gen)

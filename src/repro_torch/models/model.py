@@ -62,6 +62,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import tree
 from ..runtime import sharding as S
 from . import attention as attn
+from . import decode_graph
 from . import ffn as ffn_mod
 from . import moe as moe_mod
 from . import ssm
@@ -590,7 +591,6 @@ def prefill(
     return _head(cfg, params, x), {"prelude": prelude_cache, "stack": stack_cache}
 
 
-@torch.no_grad()
 def decode_step(
     cfg: ModelConfig,
     params: dict,
@@ -607,7 +607,18 @@ def decode_step(
     Vector ``pos`` (B,): each decode slot on its own clock; the cache must
     be in slot form (``cache_to_slots``); see ``attention.attn_decode``.
     ``pos`` may be a Python int or a device tensor; a device tensor keeps
-    the step free of host syncs."""
+    the step free of host syncs.
+
+    On the card a call whose config, shapes, parameters and cache were also
+    the previous call's runs from CUDA graphs of the step, captured once
+    (``decode_graph``); the logits are then a fresh tensor all the same."""
+    return decode_graph.step(_decode_step, cfg, params, cache, tokens, pos, backend)
+
+
+@torch.no_grad()
+def _decode_step(cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Tensor, pos, *,
+                 backend: str = "auto"):
+    """``decode_step``, eager."""
     x = _embed(cfg, params, tokens, None)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     plan = cfg.layer_plan()

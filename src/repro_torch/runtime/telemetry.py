@@ -30,6 +30,7 @@ that enters no ``record_function`` and no NVTX range (pinned by
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -213,6 +214,61 @@ def span(name: str, **attrs):
     if st is None:
         return _NULL_SPAN
     return _Span(st, name, attrs)
+
+
+_plain_span = span
+
+
+class _ObservedSpan:
+    """A ``span()`` inside an ``observed`` block: tells the hook, no more."""
+
+    __slots__ = ("hook", "name", "attrs")
+
+    def __init__(self, hook, name: str, attrs: dict):
+        self.hook, self.name, self.attrs = hook, name, attrs
+
+    def __enter__(self):
+        self.hook.enter(self.name, self.attrs)
+        return self
+
+    def __exit__(self, *exc):
+        self.hook.exit(self.name)
+        return False
+
+
+@contextlib.contextmanager
+def observed(hook):
+    """While open, every ``span()`` entered and left on this thread and every
+    ``counter_inc()`` made on it is handed to ``hook`` (``hook.enter(name,
+    attrs)``, ``hook.exit(name)``, ``hook.counter(name, n)``) in place of
+    what it does outside the block, whether telemetry is active or not.  A
+    decode step's capture pass (``models/decode_graph.py``) cuts its graphs
+    at the spans and keeps its counters this way, for its replays to make.
+    The block rebinds ``span`` and ``counter_inc`` and puts them back on
+    leaving it, so outside any block the inactive ``span()`` stays one
+    check.  Blocks do not nest."""
+    global span, counter_inc
+    plain_span, plain_inc = span, counter_inc
+    if plain_span is not _plain_span:
+        raise RuntimeError("observed blocks do not nest")
+    owner = threading.get_ident()
+
+    def observed_span(name: str, **attrs):
+        if threading.get_ident() != owner:
+            return plain_span(name, **attrs)
+        return _ObservedSpan(hook, name, attrs)
+
+    def observed_inc(name: str, n: int = 1) -> None:
+        if threading.get_ident() != owner:
+            plain_inc(name, n)
+        else:
+            hook.counter(name, n)
+
+    span, counter_inc = observed_span, observed_inc
+    try:
+        yield
+    finally:
+        span, counter_inc = plain_span, plain_inc
 
 
 def record_span(name: str, start: float, dur: float, **attrs) -> None:
@@ -476,6 +532,7 @@ __all__ = [
     "shutdown",
     "span",
     "record_span",
+    "observed",
     "event",
     "counter_inc",
     "gauge_set",
