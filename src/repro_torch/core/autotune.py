@@ -625,6 +625,8 @@ def choose_n_slabs(
     batch: int = 1,
     dtype_bytes: int = 4,
     candidates: Sequence[int] = (1, 2, 4),
+    memory_budget: int | None = None,
+    per_iteration: bool = False,
 ) -> int:
     """Analytic slab count of the distributed round pipeline.
 
@@ -633,22 +635,75 @@ def choose_n_slabs(
     to a divisor of the rows and scored with ``_slab_schedule_seconds``;
     the serial schedule wins ties, so small problems plan serial.
     ``make_batched_plan(tune="measure", mesh=...)`` overrules the model
-    with times on the mesh."""
+    with times on the mesh.
+
+    With a ``memory_budget`` (bytes of one card) only counts whose working
+    set (``distributed.round_working_set_bytes``) fits are scored; where no
+    candidate fits, the fewest slabs beyond them that fit (doubling up to
+    the rows), and where none does, ``PlanError`` naming the sizes."""
     if g_k <= 1 or prob.m <= 1:
         return 1
     try:
         costs = _dist_round_costs(prob, g_k, batch, dtype_bytes)
     except PlanError:
         return 1
-    best_n, best_t = 1, _slab_schedule_seconds(costs, 1)
-    for n in candidates:
+    need = _working_set(prob, g_k, batch, dtype_bytes, per_iteration)
+
+    def fits(n: int) -> bool:
+        return memory_budget is None or need(n) <= memory_budget
+
+    best_n, best_t = None, math.inf
+    for n in (1, *candidates):
         n_eff = emit_mod.effective_slabs(prob.m, n)
-        if n_eff == best_n:
+        if n_eff == best_n or not fits(n_eff):
             continue
         t = _slab_schedule_seconds(costs, n_eff)
         if t < best_t:
             best_n, best_t = n_eff, t
+    n = max(candidates, default=1) * 2
+    while best_n is None and n <= 2 * prob.m:
+        n_eff = emit_mod.effective_slabs(prob.m, n)
+        if fits(n_eff):
+            best_n = n_eff
+        n *= 2
+    if best_n is None:
+        raise PlanError(
+            f"the distributed rounds of {prob.m} rows x {prob.k // g_k} columns per rank "
+            f"(batch {batch}, {dtype_bytes}-byte elements) need "
+            f"{need(prob.m)} bytes at "
+            f"{prob.m} slabs, over the budget of {memory_budget}"
+        )
     return best_n
+
+
+def _working_set(prob: KronProblem, g_k: int, batch: int, dtype_bytes: int,
+                 per_iteration: bool) -> Callable[[int], int]:
+    """``need(n)``: one rank's bytes of the round pipeline at ``n`` slabs
+    (``distributed.round_working_set_bytes``)."""
+    from .distributed import round_working_set_bytes
+
+    def need(n: int) -> int:
+        return round_working_set_bytes(
+            prob.m, prob.k // g_k, list(reversed(prob.ps)), list(reversed(prob.qs)), g_k,
+            n_slabs=n, batch=batch, dtype_bytes=dtype_bytes, per_iteration=per_iteration)
+
+    return need
+
+
+# Bytes of a card's memory the round pipeline leaves to the CUDA context,
+# the collectives' own buffers and the caching allocator's slack.
+MEMORY_RESERVE_BYTES = 4 * 2**30
+
+
+def device_memory_budget(device) -> int | None:
+    """Bytes the mesh path may plan to hold on ``device``: a card's memory
+    less ``MEMORY_RESERVE_BYTES``; None (no bound) off the card.  From the
+    card's size, not what is free, so that every rank of a mesh plans the
+    same schedule."""
+    if device is None or torch.device(device).type != "cuda":
+        return None
+    total = torch.cuda.get_device_properties(torch.device(device)).total_memory
+    return max(0, int(total) - MEMORY_RESERVE_BYTES)
 
 
 def make_batched_plan(
@@ -1318,6 +1373,7 @@ __all__ = [
     "make_plan",
     "make_batched_plan",
     "choose_n_slabs",
+    "device_memory_budget",
     "measure_best",
     "peak_flops",
     "plan_cache_key",

@@ -43,19 +43,31 @@ elements with ``ceil(N/L)`` rounds, against ``N`` rounds for the
 per-iteration baseline (``per_iteration=True``, CTF/DISTAL).  Per-sample
 batches move one ``(B, M_loc, C_loc)`` slab per round.
 
-Slab pipeline: ``n_slabs > 1`` splits the local rows into slabs once, and
-each round issues slab ``s-1``'s all-to-all (``async_op=True``) only after
-slab ``s``'s chain is launched, and waits for every relocation before the
-next round reads it.  The backward mirrors it with the inverse relocations.
+Slab pipeline: ``n_slabs > 1`` splits the local rows into slabs, and each
+round issues slab ``s``'s all-to-all (``async_op=True``) right after its
+chain, then waits for slab ``s-1``'s and moves it into the round's output,
+so each exchange runs under the next slab's chain; the next round starts
+after the last slab's wait.  The backward mirrors it with the inverse
+relocations.
 Slab boundaries are row boundaries, so the slabbed schedule is bitwise
 equal to the serial one, forward and gradients: each factor gradient is one
 contraction over the concatenated slabs, never a sum of per-slab partials.
+
+Memory: the first round writes one new output stripe, and every later
+round whose output is as wide as its input writes each slab back over the
+rows its chain has read, so a rank holds ``x_loc``, one more stripe and
+the slabs in flight (``round_working_set_bytes``); a problem whose
+``x`` no rank holds is placed from each rank's own shard
+(``sharded_input_from_local``).
 
 The code names no backend: the mesh's process groups decide (NCCL with one
 rank per card, gloo with several ranks on one card or on the CPU).  The
 launch counters ``all_to_all_calls`` and ``all_to_all_elems`` (elements
 sent per device, ``numel * (G_K-1)/G_K``) grow by one call where a
-relocation is issued and nowhere else.
+relocation is issued and nowhere else; with telemetry on, so do the
+counters ``comm.a2a_calls`` and ``comm.a2a_bytes`` (bytes sent per
+device), each issue is a ``relocate`` span (the send copy and the
+collective's launch) and each wait a ``relocate_wait`` span.
 """
 from __future__ import annotations
 
@@ -328,35 +340,53 @@ def _relocate_start(
     y: torch.Tensor, q_prod: int, g_k: int, exchange: Exchange, *, inverse: bool = False
 ) -> _Pending:
     """Issue one relocation of ``y`` (2-D, or 3-D per-sample): lay the
-    chunks out along dim 0 (one copy) and start the exchange.  ``inverse``
-    issues the transpose (also the inverse: a relocation is a permutation)."""
+    chunks out along dim 0 (one copy) and start the exchange, inside one
+    ``relocate`` span.  ``inverse`` issues the transpose (also the inverse:
+    a relocation is a permutation).  ``y`` may come in a one-element list,
+    which is emptied once the send copy is made: the caller's last
+    reference, so that ``y`` is freed before the receive buffer is
+    allocated."""
     global all_to_all_calls, all_to_all_elems
-    squeeze = y.ndim == 2
-    y3 = y[None] if squeeze else y
-    b, m_loc, c = (int(d) for d in y3.shape)
-    u = c // q_prod
-    chunk = q_prod // g_k
-    if inverse:
-        send = y3.reshape(b, m_loc, chunk, g_k, u).permute(3, 0, 1, 2, 4).contiguous()
-    else:
-        send = y3.reshape(b, m_loc, g_k, chunk, u).movedim(2, 0).contiguous()
-    recv, wait = exchange(send)
+    with telemetry.span("relocate", inverse=inverse):
+        src = y.pop() if isinstance(y, list) else y
+        squeeze = src.ndim == 2
+        y3 = src[None] if squeeze else src
+        b, m_loc, c = (int(d) for d in y3.shape)
+        u = c // q_prod
+        chunk = q_prod // g_k
+        if inverse:
+            send = y3.reshape(b, m_loc, chunk, g_k, u).permute(3, 0, 1, 2, 4).contiguous()
+        else:
+            send = y3.reshape(b, m_loc, g_k, chunk, u).movedim(2, 0).contiguous()
+        del src, y3
+        recv, wait = exchange(send)
+    elems = send.numel() * (g_k - 1) // g_k
     all_to_all_calls += 1
-    all_to_all_elems += send.numel() * (g_k - 1) // g_k
+    all_to_all_elems += elems
+    telemetry.counter_inc("comm.a2a_calls")
+    telemetry.counter_inc("comm.a2a_bytes", elems * send.element_size())
     return _Pending(recv, wait, (b, m_loc, c), inverse, squeeze)
 
 
-def _relocate_finish(p: _Pending) -> torch.Tensor:
+def _wait(p: _Pending) -> None:
+    with telemetry.span("relocate_wait"):
+        p.wait()
+
+
+def _relocate_finish(p: _Pending, out: torch.Tensor | None = None) -> torch.Tensor:
     """Wait for a relocation and move the received rank axis into place:
     local column ``(q_lo * G_K + g_k) * U + s`` forward, ``(g_k, chunk, u)``
-    order for the inverse (one copy)."""
-    p.wait()
+    order for the inverse (one copy), into ``out`` (the relocated rows'
+    place in the round's output, shaped as ``y`` was) when given."""
+    _wait(p)
     b, m_loc, c = p.shape
-    if p.inverse:
-        y = p.recv.movedim(0, 2).reshape(b, m_loc, c)
-    else:
-        y = p.recv.permute(1, 2, 3, 0, 4).reshape(b, m_loc, c)
-    return y[0] if p.squeeze else y
+    moved = p.recv.movedim(0, 2) if p.inverse else p.recv.permute(1, 2, 3, 0, 4)
+    if out is None:
+        y = moved.reshape(b, m_loc, c)
+        return y[0] if p.squeeze else y
+    out3 = out[None] if p.squeeze else out
+    out3.view(moved.shape).copy_(moved)
+    return out
 
 
 def _relocate_batched(y: torch.Tensor, q_prod: int, g_k: int, exchange: Exchange) -> torch.Tensor:
@@ -388,45 +418,59 @@ def _drain(started: list[_Pending]) -> None:
     """Wait for every relocation already issued (a failure mid-round must
     not leave collectives in flight)."""
     for p in started:
-        p.wait()
+        _wait(p)
 
 
 def _slab_round(
-    slabs: list[torch.Tensor],
+    src: torch.Tensor,
     fs: tuple[torch.Tensor, ...],
     qprod: int,
     g_k: int,
     exchange: Exchange,
     backend: str,
     k: int,
+    n: int,
     *,
+    in_place: bool = False,
     record: bool = True,
-) -> list[torch.Tensor]:
-    """One slab-scheduled round: launch slab ``s``'s chain, and only then
-    issue slab ``s-1``'s all-to-all; wait for every relocation once the
-    round's chains are launched.  Rows are never communicated, so the
-    returned slabs stay independent chains for the next round."""
-    n = len(slabs)
+) -> torch.Tensor:
+    """One slab-scheduled round on the local rows ``src`` (``(M_loc, C)``,
+    or ``(B, M_loc, C)`` per-sample), split into ``n`` row slabs: launch
+    slab ``s``'s chain, issue its all-to-all, and only then wait for slab
+    ``s-1``'s and move it into the round's output rows.  Slab ``s``'s
+    exchange thus runs under slab ``s+1``'s chain, and at most two slabs'
+    send and receive buffers are alive.  Rows are never communicated, so
+    with ``in_place`` (``src`` is the previous round's output, owned by the
+    schedule) a round of as many output as input columns writes each slab
+    back over the rows its chain has read: no second stripe."""
+    slabs = emit.split_slabs(src, n, axis=-2)
     if g_k <= 1:
-        return [_local_multiply_round(s, fs, backend) for s in slabs]
+        outs = [_local_multiply_round(s, fs, backend) for s in slabs]
+        return outs[0] if n == 1 else torch.cat(outs, dim=-2)
+    rows = int(src.shape[-2]) // n
+    out = None
     shapes: list[tuple] = []
-    started: list[_Pending] = []
-    pending = None
+    inflight: list[_Pending] = []
     try:
         for s in range(n):
-            y_s = _local_multiply_round(slabs[s], fs, backend)
-            shapes.append(tuple(int(d) for d in y_s.shape))
-            if pending is not None:
-                started.append(_relocate_slab(pending, qprod, g_k, exchange, n))
-            pending = y_s
-        started.append(_relocate_slab(pending, qprod, g_k, exchange, n))
+            y_s = [_local_multiply_round(slabs[s], fs, backend)]  # _relocate_start frees it
+            shapes.append(tuple(int(d) for d in y_s[0].shape))
+            if out is None:
+                full = (*y_s[0].shape[:-2], rows * n, y_s[0].shape[-1])
+                out = (src if in_place and tuple(src.shape) == full
+                       else y_s[0].new_empty(full))
+            inflight.append(_relocate_slab(y_s, qprod, g_k, exchange, n))
+            if len(inflight) > 1:
+                _relocate_finish(inflight[0], out.narrow(-2, (s - 1) * rows, rows))
+                inflight.pop(0)
+        _relocate_finish(inflight[0], out.narrow(-2, (n - 1) * rows, rows))
+        inflight.clear()
     except BaseException:
-        _drain(started)
+        _drain(inflight)
         raise
-    outs = [_relocate_finish(p) for p in started]
     if record:
         _record_round_comm(shapes, g_k, k)
-    return outs
+    return out
 
 
 def _signature(factors_rev) -> tuple[list[int], list[int]]:
@@ -445,22 +489,64 @@ def _dist_body(
     record: bool = True,
 ) -> torch.Tensor:
     """The one round loop behind both mesh runners: 2-D ``x_loc`` with
-    shared 2-D factors, or per-sample 3-D ``x_loc`` and factors.  The row
-    axis is split into ``n_slabs`` slabs once, every round runs the slab
-    pipeline, and the slabs are concatenated once at the end."""
+    shared 2-D factors, or per-sample 3-D ``x_loc`` and factors.  Every
+    round runs the slab pipeline over ``n_slabs`` row slabs; the first
+    writes a new stripe, each later one writes over its input where the
+    widths agree, so a rank holds ``x_loc``, one stripe of the output and
+    the slabs in flight (``round_working_set_bytes``)."""
     ps, qs = _signature(factors_rev)
     rounds = plan_rounds(int(x_loc.shape[-1]), ps, qs, g_k, minimal=per_iteration)
     n = emit.effective_slabs(int(x_loc.shape[-2]), n_slabs)
-    slabs = emit.split_slabs(x_loc, n, axis=-2)
     batched = factors_rev[0].ndim == 3
+    y = x_loc
     i = 0
     for k, r in enumerate(rounds):
         fs = tuple(factors_rev[i : i + r])
         qprod = math.prod(qs[i : i + r])
         with telemetry.span("round", k=k, n_factors=r, n_slabs=n, batched=batched):
-            slabs = _slab_round(slabs, fs, qprod, g_k, exchange, backend, k, record=record)
+            y = _slab_round(y, fs, qprod, g_k, exchange, backend, k, n, in_place=k > 0,
+                            record=record)
         i += r
-    return slabs[0] if n == 1 else torch.cat(slabs, dim=-2)
+    return y
+
+
+def round_working_set_bytes(
+    m_loc: int, k_loc: int, ps: Sequence[int], qs: Sequence[int], g_k: int, *,
+    n_slabs: int = 1, batch: int = 1, dtype_bytes: int = 4, per_iteration: bool = False,
+) -> int:
+    """Bytes one rank holds at the peak of the forward rounds (``_dist_body``)
+    on its ``(batch, m_loc, k_loc)`` shard, factors in application order:
+    ``x_loc``, the round's input and output stripes (one where a later
+    round writes over its input), and the slabs in flight: a slab's chain
+    input and output at the widest intermediate, and, pipelined, the
+    previous slab's send and receive buffers.  An upper bound of what the
+    caching allocator hands out (the factors and the kernels' scratch are
+    left out).  Raises ``PlanError`` when no round schedule exists."""
+    ps, qs = list(ps), list(qs)
+    rounds = plan_rounds(k_loc, ps, qs, g_k, minimal=per_iteration)
+    n = emit.effective_slabs(m_loc, n_slabs)
+    row = batch * m_loc  # elements per column of a stripe
+    slab = batch * (m_loc // n)
+    peak = 0
+    c = k_loc
+    i = 0
+    for k, r in enumerate(rounds):
+        c_in = c
+        widest = c
+        for j in range(i, i + r):
+            c = c // ps[j] * qs[j]
+            widest = max(widest, c)
+        stripes = k_loc + (0 if k == 0 else c_in) + (0 if k > 0 and c == c_in else c)
+        if g_k <= 1:
+            stripes = k_loc + c_in * (k > 0) + c * (2 if n > 1 else 1)
+            inflight = 2 * slab * widest
+        else:
+            inflight = 2 * slab * widest + (2 * slab * c if n > 1 else 0)
+        if batch > 1 and n > 1:
+            inflight += slab * c_in  # a per-sample slab's input made contiguous
+        peak = max(peak, row * stripes + inflight)
+        i += r
+    return peak * dtype_bytes
 
 
 class _Rows:
@@ -511,16 +597,16 @@ def _dist_body_bwd(
     rounds = plan_rounds(int(x_loc.shape[-1]), ps, qs, g_k, minimal=per_iteration)
     n = emit.effective_slabs(int(x_loc.shape[-2]), n_slabs)
     meta: list[tuple[int, tuple, int]] = []
-    per_round_in: list[list[torch.Tensor] | None] = []
-    slabs = emit.split_slabs(x_loc, n, axis=-2) if factors else None
+    per_round_in: list[torch.Tensor | None] = []
+    cur = x_loc if factors else None
     i = 0
     for k, r in enumerate(rounds):
         fs = tuple(factors_rev[i : i + r])
         qprod = math.prod(qs[i : i + r])
         meta.append((i, fs, qprod))
-        per_round_in.append(slabs)
+        per_round_in.append(cur)
         if factors and k + 1 < len(rounds):
-            slabs = _slab_round(slabs, fs, qprod, g_k, exchange, backend, k, record=False)
+            cur = _slab_round(cur, fs, qprod, g_k, exchange, backend, k, n, record=False)
         i += r
 
     dfs: list[torch.Tensor | None] = [None] * len(factors_rev)
@@ -529,6 +615,7 @@ def _dist_body_bwd(
     for k in reversed(range(len(rounds))):
         i0, fs, qprod = meta[k]
         with telemetry.span("round_bwd", k=k, n_factors=len(fs), n_slabs=n, batched=batched):
+            in_slabs = emit.split_slabs(per_round_in[k], n, axis=-2) if factors else None
             inp = [_Rows(n) for _ in fs]
             cot = [_Rows(n) for _ in fs]
             new_g: list[torch.Tensor | None] = [None] * n
@@ -545,7 +632,7 @@ def _dist_body_bwd(
                                                       n, inverse=True))
                     gg = _relocate_finish(started[s]) if g_k > 1 else g_slabs[s]
                     if factors:
-                        ins = [per_round_in[k][s]]
+                        ins = [in_slabs[s]]
                         for f in fs[:-1]:
                             ins.append(_sliced_batched(ins[-1], f, backend))
                     for idx in reversed(range(len(fs))):
@@ -562,7 +649,7 @@ def _dist_body_bwd(
                     dfs[i0 + idx] = _sliced_vjp_factor(
                         inp[idx].full, cot[idx].full, int(f.shape[-2]), int(f.shape[-1]))
                     inp[idx] = cot[idx] = None
-            per_round_in[k] = None
+            per_round_in[k] = in_slabs = None
             g_slabs = new_g
     dx = g_slabs[0] if n == 1 else torch.cat(g_slabs, dim=-2)
     return dx.to(x_loc.dtype), (tuple(dfs) if factors else None)
@@ -922,6 +1009,22 @@ def sharded_input(x, mesh, data_axis="data", model_axis="model", *, src_data_ran
                              src_data_rank=src_data_rank)
 
 
+def sharded_input_from_local(x_loc: torch.Tensor, mesh, data_axis="data", model_axis="model"):
+    """Place this rank's own shard as the distributed rounds' input, for a
+    problem no rank holds whole: ``x_loc`` is ``(M/G_M, K/G_K)`` (``(B,
+    M/G_M, K/G_K)`` for a batched op), the block at this rank's mesh
+    coordinates (rows over ``data_axis``, columns over ``model_axis``),
+    and every rank's has the same shape.  No communication and no copy:
+    the DTensor wraps ``x_loc``, and its global shape is the shard's scaled
+    by the mesh."""
+    if x_loc.ndim not in (2, 3):
+        raise ValueError(f"x_loc must be (M, K) or (B, M, K), got shape {tuple(x_loc.shape)}")
+    placements = mesh_placements(mesh, data_axis, model_axis, ndim=x_loc.ndim)
+    shape = (*x_loc.shape[:-2], int(x_loc.shape[-2]) * _mesh_size(mesh, data_axis),
+             int(x_loc.shape[-1]) * _mesh_size(mesh, model_axis))
+    return _from_local(x_loc, mesh, placements, shape)
+
+
 def sharded_input_batched(x, mesh, data_axis="data", model_axis="model", *,
                           src_data_rank=None):
     """Place ``(B, M, K)``: batch replicated, rows over ``data_axis``,
@@ -940,7 +1043,9 @@ __all__ = [
     "comm_elems_per_device",
     "comm_hidden_elems",
     "sharded_input",
+    "sharded_input_from_local",
     "sharded_input_batched",
+    "round_working_set_bytes",
     "mesh_placements",
     "group_exchange",
     "gather",

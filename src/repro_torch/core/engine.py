@@ -683,6 +683,13 @@ class KronOp:
         ``KronPlan.n_slabs``; otherwise ``autotune.choose_n_slabs``), an int
         forces it, clamped to a divisor of the local rows.  Ignored
         off-mesh.
+
+    On a mesh a call is held to ``autotune.device_memory_budget`` of its
+    tensors' device (the card's memory less ``MEMORY_RESERVE_BYTES``; no
+    bound off the card): ``"auto"`` slab counts are chosen among those whose
+    working set fits (``autotune.choose_n_slabs``), and a rung of the mesh
+    ladder that cannot fit raises ``PlanError`` naming the sizes instead of
+    running.
     """
 
     def __init__(
@@ -745,6 +752,7 @@ class KronOp:
         self.model_axis = model_axis
         self.per_iteration = bool(per_iteration)
         self._n_slabs_arg = n_slabs if n_slabs == "auto" else int(n_slabs)
+        self._slabs: dict = {}  # (m_loc, dtype_bytes, budget) -> the "auto" slab count
         self._local = None  # the mesh ladder's last rung (``_local_op``)
         if mesh is not None:
             from .distributed import _mesh_size, plan_rounds
@@ -844,24 +852,51 @@ class KronOp:
 
         return self._remember(("mesh-batched", b, m_loc, dtype_bytes, device), resolve)
 
+    def _rounds_bytes(self, m_loc: int, n: int, dtype_bytes: int) -> int:
+        """One rank's working set of the forward rounds at ``n`` slabs."""
+        from .distributed import round_working_set_bytes
+
+        return round_working_set_bytes(
+            m_loc, self.k // self.g_k, self.ps[::-1], self.qs[::-1], self.g_k, n_slabs=n,
+            batch=self.batch if self._per_sample else 1, dtype_bytes=dtype_bytes,
+            per_iteration=self.per_iteration)
+
+    def _require_fit(self, what: str, need: int, device) -> None:
+        budget = autotune.device_memory_budget(device)
+        if budget is not None and need > budget:
+            raise guard.PlanError(
+                f"{what} of {self.ps}x{self.qs} on a {self.g_m}x{self.g_k} mesh needs "
+                f"{need} bytes of one card, over its budget of {budget}")
+
     def _resolve_n_slabs(self, m_loc: int, dtype_bytes: int,
-                         plan: KronPlan | None = None) -> int:
+                         plan: KronPlan | None = None, device=None) -> int:
         """The round schedule's slab count for ``m_loc`` rows per rank: an
         explicit int, clamped to a divisor of the rows as the executor
         clamps it; under ``"auto"`` the per-sample plan's ``n_slabs``, else
-        the analytic model (``autotune.choose_n_slabs``).  Always 1 without
-        a model axis to overlap."""
+        the analytic model (``autotune.choose_n_slabs``), in either case
+        among the counts whose working set fits ``device``'s budget
+        (``PlanError`` where none does).  Always 1 without a model axis to
+        overlap."""
         if self.mesh is None or self.g_k <= 1 or m_loc <= 1:
             return 1
         if self._n_slabs_arg != "auto":
             return emit.effective_slabs(m_loc, int(self._n_slabs_arg))
+        budget = autotune.device_memory_budget(device)
         if plan is not None:
-            return emit.effective_slabs(m_loc, int(plan.n_slabs))
-        b = self.batch if self._per_sample else 1
-        n = autotune.choose_n_slabs(
-            KronProblem(m_loc, self.ps, self.qs), self.g_k, batch=b, dtype_bytes=dtype_bytes,
-        )
-        return emit.effective_slabs(m_loc, n)
+            n = emit.effective_slabs(m_loc, int(plan.n_slabs))
+            if budget is None or self._rounds_bytes(m_loc, n, dtype_bytes) <= budget:
+                return n
+        key = (m_loc, dtype_bytes, budget)
+        if key not in self._slabs:
+            b = self.batch if self._per_sample else 1
+            while len(self._slabs) >= _OP_STATE_SIZE:
+                self._slabs.pop(next(iter(self._slabs)))
+            self._slabs[key] = emit.effective_slabs(m_loc, autotune.choose_n_slabs(
+                KronProblem(m_loc, self.ps, self.qs), self.g_k, batch=b,
+                dtype_bytes=dtype_bytes, memory_budget=budget,
+                per_iteration=self.per_iteration,
+            ))
+        return self._slabs[key]
 
     def _default_rows(self) -> int:
         # The paper's M=16 CG-block row count when no row hint exists.
@@ -1256,7 +1291,10 @@ class KronOp:
         gathers x (``distributed.gather``, an all-gather, not the
         relocation that failed), runs the local op on each rank's device
         and hands back the caller's placements.  Only ``CollectiveError``
-        degrades."""
+        degrades; a rung whose working set does not fit the card's
+        budget (``autotune.device_memory_budget``) raises ``PlanError``
+        before it allocates.  With telemetry on, the gauge ``mesh.n_slabs`` holds
+        the slab count of the call."""
         from torch.distributed.tensor import DTensor
 
         from . import distributed as D
@@ -1278,19 +1316,28 @@ class KronOp:
         m = int(x.shape[-2])
         rows = m * (int(x.shape[0]) if x.ndim == 3 and not self._per_sample else 1)
         m_loc = max(1, rows // self.g_m)
+        dev = x.device
         if self._per_sample:
             plan = self._mesh_batched_plan(
-                self.batch, max(1, m // self.g_m), size,
-                x.device if self._measure else None)
-            n_slabs = self._resolve_n_slabs(max(1, m // self.g_m), size, plan)
+                self.batch, m_loc, size, dev if self._measure else None)
+            n_slabs = self._resolve_n_slabs(m_loc, size, plan, dev)
             run = D.run_batched_distributed_rounds
         else:
-            n_slabs = self._resolve_n_slabs(m_loc, size)
+            n_slabs = self._resolve_n_slabs(m_loc, size, device=dev)
             run = D.run_distributed_rounds
+        telemetry.gauge_set("mesh.n_slabs", n_slabs)
         kw = dict(data_axis=self.data_axis, model_axis=self.model_axis, backend=self.backend,
                   per_iteration=self.per_iteration)
 
+        def _serial():
+            self._require_fit("the serial rounds", self._rounds_bytes(m_loc, 1, size), dev)
+            return run(x, factors, self.mesh, **kw)
+
         def _local():
+            full = rows * self.g_m * (self.batch if self._per_sample else 1)
+            self._require_fit(
+                f"the local rung's gathered x ({full} x {self.k}) and output",
+                full * (self.k + self.k_out + max(self.k, self.k_out)) * size, dev)
             xf = D.gather(x) if isinstance(x, DTensor) else x
             fs = tuple(D._local_factor(f) for f in factors)
             if self._per_sample:
@@ -1300,7 +1347,7 @@ class KronOp:
                     *xf.shape[:-1], self.k_out)
             return D._as_placed(y, self.mesh, placements)
 
-        rungs = [("mesh-rounds", lambda: run(x, factors, self.mesh, **kw)), ("local", _local)]
+        rungs = [("mesh-rounds", _serial), ("local", _local)]
         if n_slabs > 1:
             rungs.insert(0, ("mesh-slabbed",
                              lambda: run(x, factors, self.mesh, n_slabs=n_slabs, **kw)))

@@ -10,6 +10,7 @@ already initialised, or one made from ``torchrun``'s environment.
 """
 from __future__ import annotations
 
+import datetime
 import math
 import os
 
@@ -45,13 +46,15 @@ def make_debug_mesh(data: int = 2, model: int = 4, *, device_type: str | None = 
     return _mesh((int(data), int(model)), ("data", "model"), device_type)
 
 
-def init_world(device: torch.device) -> int:
+def init_world(device: torch.device, *, timeout: datetime.timedelta | None = None) -> int:
     """The world size a launcher's mesh flag runs on.  An initialised world
     is taken as it is (its ranks share ``device``).  Otherwise one is made
     from ``torchrun``'s environment (``RANK``, ``WORLD_SIZE``,
     ``MASTER_ADDR``, ``MASTER_PORT``): NCCL with one card per rank
     (``LOCAL_RANK``) on the card, gloo on the CPU.  With neither, raises:
-    a mesh flag never quietly runs on one rank."""
+    a mesh flag never quietly runs on one rank.  ``timeout`` bounds every
+    collective of the new world (the process group's default otherwise):
+    a rank that waits longer for a lost peer fails instead of hanging."""
     if dist.is_initialized():
         return dist.get_world_size()
     if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
@@ -61,7 +64,8 @@ def init_world(device: torch.device) -> int:
             "before calling main()")
     if device.type == "cuda":
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
-    dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    kw = {} if timeout is None else {"timeout": timeout}
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo", **kw)
     return dist.get_world_size()
 
 
