@@ -34,7 +34,13 @@ went through the kernels.  Phases, one line each:
      each branch of its code (many tiles per block, walks crossing samples
      and Q-tile digits, tensor cores, odd slices, copies too short for 16
      bytes, misaligned bases); every sliced multiply, transposed chain and
-     stage backward runs twice and is asserted bitwise equal.
+     stage backward runs twice and is asserted bitwise equal.  The f32
+     forward chain on the tensor cores (``chain_tf32_kernel``, 3xTF32) at
+     the stages of the cells it serves (``CHAIN_TF32_CASES``) is held to
+     float64 beside the CUDA-core kernel on the same inputs (Q-tiles under
+     8) and a plain-TF32 control: its error at most ``TF32_ERR_RATIO``
+     times the CUDA cores', the control's above that, one ``chain_tf32``
+     launch counted for its run and none for the other.
   3. main: five full-size KronOp calls (fig9, gp16, ffn, compress,
      fig9-unfused) and five full-size backward passes (fig9-grad, fig9-dx,
      gp16-grad, ffn-grad, fig9-unfused-grad); the per-sample batched path
@@ -43,7 +49,9 @@ went through the kernels.  Phases, one line each:
      and ``torch.func.vmap`` (gp16-vmap over x and factors, bitwise equal
      to the per-sample call; fig9-vmap-x over x alone, B=2 folded into
      rows, bitwise equal to the flat call): launches per call (asserted;
-     every f32 stage backward on ``grad_tf32_kernel``, counted apart),
+     every f32 stage backward on ``grad_tf32_kernel`` and every f32
+     forward stage of factors at least 8 x 8 on ``chain_tf32_kernel``,
+     counted apart),
      error against the plain twins, the backward run twice and asserted
      bitwise equal, the peak device memory (``kernel_peak_mem_gib``: inputs,
      forward and first backward; ``peak_mem_gib``: with the checks against
@@ -53,7 +61,9 @@ went through the kernels.  Phases, one line each:
      2-4 also assert that ``guard.health_report()`` records no rung
      fallback and no ``bwd_per_factor`` event.
   4. alone: one launch of every kernel at its main cases' shapes, timed by
-     itself (chain_fwd: each stage of fig9, gp16 and ffn; chain_bwd:
+     itself (chain_fwd: each stage of fig9, gp16, ffn, one row at fig9's
+     factors and the mesh round's chains on a 4-row slab, with the kernel
+     launched and its ptxas registers; chain_bwd:
      fig9-dx; grad: fig9-grad and ffn-grad; sliced: one fig9-unfused launch
      and ffn's two stages through plan=None in bf16; sliced_t: one
      fig9-unfused-grad launch; cg_update: each CG pass on the SKI epoch's
@@ -258,6 +268,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import torch
@@ -341,7 +352,8 @@ def device_ms(fn) -> float:
 # The port's kernels, by the names torch.profiler gives their launches.
 CG_KERNEL_NAMES = ("cg_start_kernel", "cg_dot_kernel", "cg_step_kernel", "cg_direction_kernel",
                    "cg_norm_kernel")
-PORT_KERNEL_NAMES = ("chain_fwd_kernel", "chain_bwd_kernel", "grad_kernel", "grad_mma_kernel",
+PORT_KERNEL_NAMES = ("chain_fwd_kernel", "chain_tf32_kernel", "chain_bwd_kernel", "grad_kernel",
+                     "grad_mma_kernel",
                      "grad_tf32_kernel", "grad_reduce_kernel", "sliced_kernel", "sliced_t_kernel",
                      *CG_KERNEL_NAMES)
 # ptxas's report of each library's kernels ({name: [entry, ...]}), from phase 1.
@@ -411,10 +423,11 @@ def ptxas_entries(log: str) -> list[dict]:
 
 def ptxas_registers(library: str, kernel: str) -> int | None:
     """Registers ptxas gave ``kernel`` (``name`` or ``name<a, ...>``, each
-    template argument an int, ``float`` or ``double``; matched against the
-    mangled entries of ``library``'s report)."""
+    template argument an int, ``float``, ``double`` or ``__nv_bfloat16``;
+    matched against the mangled entries of ``library``'s report)."""
     name, _, args = kernel.partition("<")
-    codes = [{"float": "f", "double": "d"}.get(a.strip(), f"Li{a.strip()}E")
+    codes = [{"float": "f", "double": "d", "__nv_bfloat16": "13__nv_bfloat16"}.get(
+        a.strip(), f"Li{a.strip()}E")
              for a in args.rstrip(">").split(",")] if args else []
     tag = f"{len(name)}{name}" + ("I" + "".join(codes) if codes else "")  # the mangled identifier
     regs = [e["registers"] for e in PTXAS.get(library, []) if tag in e["entry"]]
@@ -539,6 +552,77 @@ GRAD_PATH_CASES = [
     ("f32 128->128 on the CUDA cores", (128,), (128,), 4, 16, torch.float32, 1, 1, None),
 ]
 
+# The f32 forward chain on the tensor cores (chain_tf32_kernel, 3xTF32) at
+# the stages of the cells it serves, (name, M, ps, qs, slices): fig9's stage
+# (K = 2^20; 64 of its 1,024 rows), gp16's (K = 16^6), the mesh round's two
+# stages at P = 32 on a 4-row slab (K = 2^22 of a stripe's 2^28), one row
+# at fig9's K, and odd P and Q (padded k-chunks, n-tiles and rows).  Each
+# against the float64 twin beside the CUDA-core kernel on the same inputs
+# and the plain-TF32 control (``tf32_chain_errors``).
+CHAIN_TF32_CASES = [
+    ("fig9 stage", 64, (32, 32), (32, 32), 1024),
+    ("gp16 stage", 16, (16, 16), (16, 16), 16 ** 4),
+    ("mesh slab (32,32) M=4", 4, (32, 32), (32, 32), 4096),
+    ("mesh slab (32,) M=4", 4, (32,), (32,), 2 ** 17),
+    ("one row (32,32) M=1", 1, (32, 32), (32, 32), 1024),
+    ("odd (65,)->(20,) M=3", 3, (65,), (20,), 4099),
+    ("odd (65,52)->(20,50) M=10", 10, (65, 52), (20, 50), 3),
+]
+# The tensor-core chain's error against float64 may be at most this many
+# times the CUDA-core kernel's on the same inputs: float32 grade.  The
+# plain-TF32 control (hi*hi alone) reads about a thousand times over it.
+TF32_ERR_RATIO = 4
+
+
+def cuda_core_t_qs(qs) -> tuple[int, ...]:
+    """Q-tiles under 8 (each the largest divisor of its q below 8): they
+    keep a forward stage on chain_fwd_kernel, the CUDA cores, and change no
+    sum's order there (each output sums its p products in k order)."""
+    return tuple(max(d for d in range(1, 8) if q % d == 0) for q in qs)
+
+
+def tf32_rounded(t: torch.Tensor) -> torch.Tensor:
+    """float32 values rounded to TF32 as cvt.rna.tf32.f32 rounds them (to
+    nearest, ties away from zero, on the bits), as float32."""
+    bits = t.contiguous().view(torch.int32).to(torch.int64)
+    return ((bits + 0x1000) & ~0x1FFF).to(torch.int32).view(torch.float32)
+
+
+def plain_tf32_chain(x: torch.Tensor, fs) -> torch.Tensor:
+    """The plain-TF32 control: each step's state and factor rounded to TF32
+    (hi alone, the products exact in float32), summed in float32."""
+    from repro_torch.kernels import emit
+
+    y = x
+    for f in fs:
+        y = emit.sliced_apply(tf32_rounded(y), tf32_rounded(f), torch.float32)
+    return y
+
+
+def tf32_chain_errors(gen, m: int, ps, qs, s: int) -> dict:
+    """One f32 forward stage (x (1, m, prod(ps) s)) through chain_cuda on
+    the tensor cores and again on the CUDA cores (Q-tiles under 8), and the
+    plain-TF32 control, each against the float64 twin (relative to
+    max|ref|); the ``chain_tf32`` launches of either run."""
+    from repro_torch.kernels import _launch, emit
+
+    k = math.prod(ps) * s
+    x = randn(gen, (1, m, k), torch.float32)
+    fs = [randn(gen, (1, p, q), torch.float32) for p, q in zip(ps, qs)]
+    ref = emit.chain_reference(x.double(), *(f.double() for f in fs))
+    out = {}
+    for path, t_qs in (("tensor_cores", tuple(qs)), ("cuda_cores", cuda_core_t_qs(qs))):
+        t_m, t_k = stage_tiles(m, k, ps, qs, t_qs, emit.SMEM_BUDGET_ELEMS)
+        before = _launch.launches["chain_tf32"]
+        y = emit.chain_cuda(x, *fs, t_m=t_m, t_k=t_k, t_qs=t_qs)
+        torch.cuda.synchronize()
+        out[path] = compare(y, ref)[1]
+        out[f"{path}_tf32_launches"] = _launch.launches["chain_tf32"] - before
+        out[f"{path}_kernel"] = emit.chain_kernel_name(ps, t_qs, 4)
+        del y
+    out["control"] = compare(plain_tf32_chain(x, fs), ref)[1]
+    return out
+
 
 def check_kernels(gen) -> dict:
     from repro_torch.core import KronOp, kron_matrix
@@ -617,6 +701,23 @@ def check_kernels(gen) -> dict:
         for i, (d, r) in enumerate(zip(dfs, rdfs)):
             record("grad", f"{name} dF{i} (vs f64)", d, r, GRAD_TOLERANCE[dtype])
         repeat("grad", name, (dx, *dfs), flat(emit.grad_cuda(x, dy, *fs, t_m=t_m, t_k=t_k)))
+
+    # The f32 forward chain on the tensor cores against float64, beside the
+    # CUDA-core kernel on the same inputs and the plain-TF32 control.
+    tf32_gen = torch.Generator(device="cuda")
+    tf32_gen.manual_seed(32)
+    for name, m, ps, qs, s in CHAIN_TF32_CASES:
+        e = tf32_chain_errors(tf32_gen, m, ps, qs, s)
+        limit = TF32_ERR_RATIO * e["cuda_cores"]
+        ok = (e["tensor_cores"] <= limit < e["control"] and e["tensor_cores_tf32_launches"] == 1
+              and e["cuda_cores_tf32_launches"] == 0)
+        print(f"check chain_fwd tf32 {name}: " + json.dumps({**e, "limit": limit})
+              + f" {'ok' if ok else 'FAIL'}", flush=True)
+        if ok:
+            passed["chain_fwd"] += 1
+        else:
+            failures.append(f"chain_fwd tf32 {name}")
+        torch.cuda.empty_cache()
 
     for name, m, p, q, s, dtype, offset in SLICED_CASES:
         # A contiguous view at `offset` elements into its buffer.
@@ -889,9 +990,31 @@ def einsum_call(x, fs):
     return torch.einsum(spec, xv, *fs).reshape(*x.shape[:-1], -1)
 
 
+def tf32_chain_stages(op, dtype, batched: bool = False) -> int:
+    """Stages of the op's plan whose forward chain runs on
+    chain_tf32_kernel: its launch's factors (a prekron stage's product) and
+    Q-tiles, as ``emit.run_stage`` passes them."""
+    from repro_torch.core.engine import _lowered
+    from repro_torch.kernels import emit
+
+    acc = emit.acc_dtype_for(dtype).itemsize
+    size = torch.tensor([], dtype=dtype).element_size()
+    n = 0
+    for ins in _lowered(op.plan, op.ps, op.qs, batched).instrs:
+        if ins.kind == emit.PREKRON:
+            ps, qs = (ins.pprod,), (ins.qprod,)
+            t_qs = ins.t_qs if ins.t_qs and len(ins.t_qs) == 1 else None
+        else:
+            ps, qs, t_qs = ins.ps, ins.qs, ins.t_qs
+        tq = tuple(min(t, q) for t, q in zip(t_qs or qs, qs))
+        n += emit.chain_uses_tf32(ps, tq, size, acc)
+    return n
+
+
 def run_main(gen, peaks) -> list[dict]:
     from repro_torch.core import KronOp, KronProblem, kron_matmul_shuffle
     from repro_torch.core.engine import _lowered
+    from repro_torch.kernels import _launch
 
     rows = []
     for name, m, ps, qs, dtype, plan in MAIN_CASES:
@@ -904,6 +1027,7 @@ def run_main(gen, peaks) -> list[dict]:
         y = op(x, fs)
         torch.cuda.synchronize()
         launches = read_counters()
+        tf32 = _launch.launches["chain_tf32"]
         plan_used = op.plan
         if plan_used is None:
             n_stages = len(ps)
@@ -913,6 +1037,10 @@ def run_main(gen, peaks) -> list[dict]:
             want = expect(chain_fwd=n_stages)
         if launches != want:
             raise AssertionError(f"{name}: launches {launches}, expected {want}")
+        want_tf32 = tf32_chain_stages(op, dtype) if plan_used is not None else 0
+        if tf32 != want_tf32:
+            raise AssertionError(f"{name}: {tf32} forward stages on chain_tf32_kernel, "
+                                 f"expected {want_tf32}")
         if tuple(y.shape) != op.out_shape(x.shape):
             raise AssertionError(f"{name}: output shape {tuple(y.shape)}")
         ref = plain_twin(op, x, fs)
@@ -932,7 +1060,8 @@ def run_main(gen, peaks) -> list[dict]:
         row = {
             "case": name, "describe": op.describe(), "dtype": str(dtype).replace("torch.", ""),
             "m": m, "ps": list(ps), "qs": list(qs), "stages": n_stages,
-            "launches": launches, "max_abs_err": err, "rel_err": rel, "tol": tol,
+            "launches": launches, "tf32_launches": tf32, "max_abs_err": err, "rel_err": rel,
+            "tol": tol,
             "ms": ms, "plain_ms": plain_ms, "shuffle_ms": shuffle_ms,
             "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1478,16 +1607,32 @@ def run_alone(gen, peaks) -> dict:
         out[kernel].append(row)
         torch.cuda.empty_cache()
 
-    # chain_fwd: each distinct stage of fig9, gp16 and ffn (bf16).
-    for case, m, ps, qs, dtype in (
-        ("fig9", 1024, (32,) * 4, (32,) * 4, torch.float32),
-        ("gp16", 16, (16,) * 6, (16,) * 6, torch.float32),
-        ("ffn", 4096, (64, 40), (128, 76), torch.bfloat16),
+    # chain_fwd: each distinct stage of fig9, gp16, ffn (bf16), one row at
+    # fig9's factors, and the mesh round's chains at P = 32 on a 4-row slab of
+    # one card's stripe (K = 2^28; round 0 chains (32, 32), (32, 32), (32,),
+    # round 1 (32,)).
+    from repro_torch.core import distributed
+
+    mesh_round = distributed._round_instrs(4, 2 ** 28, (32,) * 5, (32,) * 5, False, 4, 4)
+    mesh_slab = types.SimpleNamespace(instrs=tuple(ins for ins, _ in mesh_round))
+    # The last two cases draw from a generator of their own, so that every
+    # later case and phase draws what it drew before they were added.
+    own_gen = torch.Generator(device="cuda")
+    own_gen.manual_seed(32)
+    for case, m, ps, qs, dtype, prog in (
+        ("fig9", 1024, (32,) * 4, (32,) * 4, torch.float32, None),
+        ("gp16", 16, (16,) * 6, (16,) * 6, torch.float32, None),
+        ("ffn", 4096, (64, 40), (128, 76), torch.bfloat16, None),
+        ("m1", 1, (32,) * 4, (32,) * 4, torch.float32, None),
+        ("mesh-slab", 4, (32,) * 5, (32,) * 5, torch.float32, mesh_slab),
     ):
         acc = emit.acc_dtype_for(dtype)
-        for idx, ins, k, k_out in distinct_stages(main_program(m, ps, qs, dtype), math.prod(ps)):
-            x = randn(gen, (1, m, k), dtype)
-            fs = [randn(gen, (1, p, q), dtype) for p, q in zip(ins.ps, ins.qs)]
+        prog = prog or main_program(m, ps, qs, dtype)
+        k0 = 2 ** 28 if case == "mesh-slab" else math.prod(ps)
+        g = own_gen if case in ("m1", "mesh-slab") else gen
+        for idx, ins, k, k_out in distinct_stages(prog, k0):
+            x = randn(g, (1, m, k), dtype)
+            fs = [randn(g, (1, p, q), dtype) for p, q in zip(ins.ps, ins.qs)]
             tiles = dict(t_m=ins.t_m, t_k=ins.t_k, t_qs=ins.t_qs)
             geo = emit.chain_geometry(x.shape, [f.shape for f in fs], acc_bytes=acc.itemsize,
                                       in_bytes=x.element_size(), **tiles)
@@ -1500,8 +1645,10 @@ def run_alone(gen, peaks) -> dict:
             fsize = sum(p * q for p, q in zip(ins.ps, ins.qs))
             b_ms, b_by = bound((m * k + m * k_out + fsize) * x.element_size(),
                                stage_flops(m, k, ins.ps, ins.qs), peaks, dtype)
+            kernel = emit.chain_kernel_name(ins.ps, geo.t_qs, x.element_size(), acc.itemsize)
             report("chain_fwd", {
                 "case": case, "stage": idx, "ps": list(ins.ps), "qs": list(ins.qs),
+                "kernel": kernel, "registers": ptxas_registers("chain_fwd", kernel),
                 "block_tile": [geo.block_m, geo.block_k], "smem_bytes": smem,
                 "blocks_per_sm": per_sm, "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": library_ms,
@@ -4863,8 +5010,12 @@ def main() -> int:
         if name == "grad":
             # Each stage backward is two kernels: grad.cu's and its dF reduction.
             row["reduce_launches"] = row["launches"]
-            # Of phase 3's stage backwards, those on grad_tf32_kernel.
-            row["tf32_launches"] = sum(row.get("tf32_launches", 0) for row in rows.values())
+        if name in ("chain_fwd", "grad"):
+            # Of phase 3's forward chains (main) and stage backwards
+            # (backward), those on chain_tf32_kernel and grad_tf32_kernel.
+            fwd = {c[0] for c in MAIN_CASES}
+            row["tf32_launches"] = sum(r.get("tf32_launches", 0) for c, r in rows.items()
+                                       if (c in fwd) == (name == "chain_fwd"))
         if name in alone:
             row["alone"] = alone[name]
         return row

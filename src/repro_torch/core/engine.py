@@ -1026,8 +1026,10 @@ class KronOp:
         card and ``time.perf_counter`` on the CPU: the minimum over
         ``iters`` runs after ``warmup`` discarded ones.  A stage's
         prediction is ``flops / rate + bytes / HBM_BW``, the rate the CUDA
-        cores' for the dtype (``autotune.peak_flops``: the planned forward
-        runs ``chain_fwd``, which keeps every dtype off the tensor cores).
+        cores' for the dtype (``autotune.peak_flops``), though the planned
+        forward's f32 stages of factors at least 8 x 8 run ``chain_fwd`` on
+        the tensor cores in 3xTF32 (``emit.chain_uses_tf32``): there the
+        model overstates the FLOPs' time, and the bytes set the stage's.
         A stage whose measured share departs from its predicted share by
         more than ``drift_threshold`` (default
         ``telemetry.DRIFT_THRESHOLD``) either way is flagged

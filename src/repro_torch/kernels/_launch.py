@@ -45,10 +45,11 @@ _KERNEL_DTYPES = {  # (input dtype, acc dtype) -> code in csrc/kron_tile.cuh
 CODE_BYTES = {code: (i.itemsize, a.itemsize) for (i, a), code in _KERNEL_DTYPES.items()}
 
 # Launches of each library, +1 per launch here and nowhere else; of the
-# stage backwards, ``grad_tf32`` counts those on grad_tf32_kernel.  A stage
-# backward is two kernels, grad.cu's and its dF reduction, launched by one
-# ``kron_grad``: it counts once, under ``grad``.
-launches = dict.fromkeys((*_build.SOURCES, "grad_tf32"), 0)
+# stage backwards, ``grad_tf32`` counts those on grad_tf32_kernel, and of the
+# forward chains, ``chain_tf32`` those on chain_tf32_kernel (their launchers
+# count them beside).  A stage backward is two kernels, grad.cu's and its dF
+# reduction, launched by one ``kron_grad``: it counts once, under ``grad``.
+launches = dict.fromkeys((*_build.SOURCES, "grad_tf32", "chain_tf32"), 0)
 
 
 def kernel_dtype_code(

@@ -23,7 +23,9 @@
 //   read about 500x worse, so it is not used.
 // - The factor panels are split once per block, outside the tile loop, and
 //   kept in fragment order (one 16-byte load per lane per 8x8 fragment, hi
-//   and lo together); chain states are split as their fragments load.
+//   and lo together); chain states are split as their fragments load.  The
+//   split, the panels and the warp-tiled step live in kron_async.cuh, which
+//   chain_fwd.cu's f32 forward chain shares.
 // - Layouts whose fragment loads fall in distinct banks: the chain states
 //   u_i row-major (stride r16(p_i) + 4, so x lands in u_0 straight from the
 //   copies), the gradient states G_i feature-major (stride 8 mod 16, so dY
@@ -84,9 +86,13 @@ namespace {
 
 using kron::kMaxFactors;
 using kron::kRQ;
+using kron::kTcMinDim;
+using kron::tc_panel;
+using kron::tc_step;
+using kron::TcFwdSink;
+using kron::TcRow;
 constexpr int kMmaItems = 8;  // dF output tiles per warp held in registers
 constexpr int kTcItems = 4;   // f32 path: 16x16 dF regions per warp held in registers
-constexpr int kTcMinDim = 8;  // f32 path: the smallest p and q of a factor
 
 struct GradArgs {
   const void* f[kMaxFactors];  // factor i: (B, p_i, q_i), application order
@@ -741,68 +747,6 @@ __device__ void tc_fetch_dy(const GradArgs& a, const float* __restrict__ dy, lon
   }
 }
 
-// A factor as the B operand (K x N) of a chain step, split once: B[k][n] =
-// F[k][n] (forward: K = p, N = q) or F[n][k] (transposed: K = q, N = p),
-// zero outside.  Fragment order: for k-chunk kc and n-tile nt, lane l holds
-// {hi B[k][n], hi B[k+4][n], lo B[k][n], lo B[k+4][n]} (k = 8 kc + l % 4, n =
-// 8 nt + l / 4) at dst[(kc * r8(N) / 8 + nt) * 32 + l].
-__device__ void tc_panel(const float* __restrict__ f, int p, int q, bool transposed,
-                         float4* dst) {
-  const int kd = transposed ? q : p, nd = transposed ? p : q;
-  const int nts = r8(nd) / 8, total = r8(kd) / 8 * nts * 32;
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int lane = idx & 31, frag = idx >> 5;
-    const int kc = frag / nts, nt = frag - kc * nts;
-    const int k = kc * 8 + (lane & 3), nn = nt * 8 + (lane >> 2);
-    float v[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int kk = k + 4 * h;
-      if (nn < nd && kk < kd) v[h] = transposed ? f[nn * q + kk] : f[kk * q + nn];
-    }
-    unsigned hi[2], lo[2];
-    kron::split_tf32(v[0], hi[0], lo[0]);
-    kron::split_tf32(v[1], hi[1], lo[1]);
-    dst[idx] = make_float4(__uint_as_float(hi[0]), __uint_as_float(hi[1]),
-                           __uint_as_float(lo[0]), __uint_as_float(lo[1]));
-  }
-}
-
-// Sinks of a chain step's output (r = m * s + sl, column c).  row(r) works
-// out a row's target once; put(row, c, v0, v1, both) stores the pair (c, c +
-// 1), the second only when `both`.  Where the shapes allow (cs), a column's
-// address is the row's base plus a multiple of c.
-struct TcRow {
-  long long base;
-  int m, sl;
-};
-
-// The remat, out = u_i F_i into u_{i+1}: col = c * s + sl, (j, f) =
-// divmod(col, pn), at (m * sn + j) * ld + f (cs = s / pn where pn divides s).
-struct TcFwdSink {
-  float* u;
-  int s, pn, sn, ld, cs;
-  float rs, rpn;
-  __device__ __forceinline__ TcRow row(int r) const {
-    const int m = kron::div_fast(r, s, rs), sl = r - m * s;
-    if (!cs) return {0, m, sl};
-    const int h = kron::div_fast(sl, pn, rpn);
-    return {static_cast<long long>((m * sn + h) * ld + sl - h * pn), m, sl};
-  }
-  __device__ __forceinline__ void put1(const TcRow& w, int c, float v) const {
-    if (cs) {
-      u[w.base + c * cs * ld] = v;
-    } else {
-      const int col = c * s + w.sl, j = kron::div_fast(col, pn, rpn);
-      u[(w.m * sn + j) * ld + col - j * pn] = v;
-    }
-  }
-  __device__ __forceinline__ void put(const TcRow& w, int c, float v0, float v1, bool both) const {
-    put1(w, c, v0);
-    if (both) put1(w, c + 1, v1);
-  }
-};
-
 // The transposed step, out = G_{i+1} F_i^T into G_i: col = sl * p + c, (qq,
 // j) = divmod(col, sp), at qq * ld + m * sp + j (cs = sp / p where p
 // divides sp: then a row's columns are consecutive).
@@ -853,106 +797,6 @@ struct TcDxSink {
     }
   }
 };
-
-// One chain step on the tensor cores with warp tiles of WM x WN mma tiles:
-// out[r][c] = sum_{k < depth} A[r][k] B[k][c] for r < rows, c < cols.  A is
-// a state in shared memory (element (r, k) at A[r * ars + k * aks]), split
-// as its fragments load; B a split panel of r8(cols) columns.  A warp tile
-// at the ragged edge repeats the last mma tile instead of skipping it, so
-// that every mma runs under warp-uniform control; the products go out in
-// three passes over the warp tile (lo*hi, hi*lo, hi*hi: the small products
-// first; the lo*lo product, under 2^-22 of the whole, is left out).  The
-// step runs on nw warps; `warp` (< nw) is the warp's index among them,
-// uniform across its lanes.
-template <int WM, int WN, typename Sink>
-__device__ __forceinline__ void tc_step_wt(int warp, int nw, const float* A, int ars, int aks,
-                                           int rows, int depth, const float4* B, int cols,
-                                           const Sink& sink) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int mtiles = (rows + 15) >> 4, ntiles = (cols + 7) >> 3, kcs = (depth + 7) >> 3;
-  const int wn = (ntiles + WN - 1) / WN, work = (mtiles + WM - 1) / WM * wn;
-  for (int w = warp; w < work; w += nw) {
-    const int mi = w / wn, ni = w - mi * wn;
-    const float* pa[WM];
-    int nt[WN];
-#pragma unroll
-    for (int x = 0; x < WM; ++x) pa[x] = A + (min(mi * WM + x, mtiles - 1) * 16 + g) * ars + t * aks;
-#pragma unroll
-    for (int y = 0; y < WN; ++y) nt[y] = min(ni * WN + y, ntiles - 1);
-    float acc[WM][WN][4];
-#pragma unroll
-    for (int x = 0; x < WM; ++x)
-#pragma unroll
-      for (int y = 0; y < WN; ++y)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[x][y][e] = 0.f;
-    for (int kc = 0; kc < kcs; ++kc) {
-      const int ko = kc * 8 * aks;
-      unsigned ah[WM][4], al[WM][4], bh[WN][2], bl[WN][2];
-#pragma unroll
-      for (int x = 0; x < WM; ++x) {
-        const float* a = pa[x] + ko;
-        kron::split_tf32(a[0], ah[x][0], al[x][0]);
-        kron::split_tf32(a[8 * ars], ah[x][1], al[x][1]);
-        kron::split_tf32(a[4 * aks], ah[x][2], al[x][2]);
-        kron::split_tf32(a[8 * ars + 4 * aks], ah[x][3], al[x][3]);
-      }
-#pragma unroll
-      for (int y = 0; y < WN; ++y) {
-        const float4 v = B[(kc * ntiles + nt[y]) * 32 + lane];
-        bh[y][0] = __float_as_uint(v.x);
-        bh[y][1] = __float_as_uint(v.y);
-        bl[y][0] = __float_as_uint(v.z);
-        bl[y][1] = __float_as_uint(v.w);
-      }
-#pragma unroll
-      for (int x = 0; x < WM; ++x)
-#pragma unroll
-        for (int y = 0; y < WN; ++y) kron::mma_tf32_1688(acc[x][y], al[x], bh[y]);
-#pragma unroll
-      for (int x = 0; x < WM; ++x)
-#pragma unroll
-        for (int y = 0; y < WN; ++y) kron::mma_tf32_1688(acc[x][y], ah[x], bl[y]);
-#pragma unroll
-      for (int x = 0; x < WM; ++x)
-#pragma unroll
-        for (int y = 0; y < WN; ++y) kron::mma_tf32_1688(acc[x][y], ah[x], bh[y]);
-    }
-#pragma unroll
-    for (int x = 0; x < WM; ++x) {
-      if (mi * WM + x >= mtiles) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = (mi * WM + x) * 16 + g + 8 * h;
-        if (r >= rows) continue;
-        const TcRow row = sink.row(r);
-#pragma unroll
-        for (int y = 0; y < WN; ++y) {
-          const int c = (ni * WN + y) * 8 + 2 * t;
-          if (ni * WN + y < ntiles && c < cols)
-            sink.put(row, c, acc[x][y][2 * h], acc[x][y][2 * h + 1], c + 1 < cols);
-        }
-      }
-    }
-  }
-}
-
-// The largest warp tile, no larger than the step, that still gives each of
-// the nw warps work: 2x4, 2x2, 1x2, else 1x1.
-template <typename Sink>
-__device__ void tc_step(int warp, int nw, const float* A, int ars, int aks, int rows, int depth,
-                        const float4* B, int cols, const Sink& sink) {
-  const int mt = (rows + 15) >> 4, nt = (cols + 7) >> 3;
-  if (mt >= 2 && nt >= 4 && (mt + 1) / 2 * ((nt + 3) / 4) >= nw) {
-    tc_step_wt<2, 4>(warp, nw, A, ars, aks, rows, depth, B, cols, sink);
-  } else if (mt >= 2 && nt >= 2 && (mt + 1) / 2 * ((nt + 1) / 2) >= nw) {
-    tc_step_wt<2, 2>(warp, nw, A, ars, aks, rows, depth, B, cols, sink);
-  } else if (nt >= 2 && mt * ((nt + 1) / 2) >= nw) {
-    tc_step_wt<1, 2>(warp, nw, A, ars, aks, rows, depth, B, cols, sink);
-  } else {
-    tc_step_wt<1, 1>(warp, nw, A, ars, aks, rows, depth, B, cols, sink);
-  }
-}
 
 // One tile's dF_i += u_i^T G_{i+1} over its `rows` contraction rows, for the
 // warp's 16x16 regions (items first .. first + tc_items - 1 of dacc).  u_i
@@ -1051,8 +895,10 @@ __global__ void __launch_bounds__(kron::kAsyncThreads, 2)
     float4* z = panel(0);
     for (int e = threadIdx.x; e < a.zend / 16; e += blockDim.x) z[e] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  for (int i = 0; i + 1 < n; ++i) tc_panel(factor<float>(a, i, b), a.p[i], a.q[i], false, panel(a.fpan[i]));
-  for (int i = 0; i < n; ++i) tc_panel(factor<float>(a, i, b), a.p[i], a.q[i], true, panel(a.tpan[i]));
+  for (int i = 0; i + 1 < n; ++i)
+    tc_panel(factor<float>(a, i, b), a.p[i], a.q[i], 0, a.q[i], false, panel(a.fpan[i]));
+  for (int i = 0; i < n; ++i)
+    tc_panel(factor<float>(a, i, b), a.p[i], a.q[i], 0, a.q[i], true, panel(a.tpan[i]));
   __syncthreads();  // the zeros and panels are in place before any copy lands
   float dacc[kItems][2][4];
 #pragma unroll

@@ -1,8 +1,10 @@
 // Hopper pieces of the persistent kernels (chain_fwd.cu, chain_bwd.cu,
 // grad.cu, sliced.cu, sliced_t.cu): the asynchronous copies of the next tile, the
 // register-tiled contraction step, the chain kernels' launch arguments and
-// walk, the persistent per-thread dF accumulator, the bf16 tensor-core step
-// and the 3xTF32 split of float32 operands.
+// walk, the persistent per-thread dF accumulator, the bf16 tensor-core step,
+// and the 3xTF32 split of float32 operands with the chain step built on it
+// (split factor panels, warp-tiled mma.sync, the row-major forward sink),
+// which the f32 forward chain and the f32 stage backward share.
 //
 // Every piece of inline PTX sits behind one small device function below
 // (cp_async16/8/4, cp_async_commit, cp_async_wait, mma_bf16_16816,
@@ -142,6 +144,7 @@ inline int chunk_bytes(std::initializer_list<long long> bytes) {
 inline long long round16(long long bytes) { return (bytes + 15) / 16 * 16; }
 __host__ __device__ inline int pad4(int e) { return (e + 3) / 4 * 4; }
 __host__ __device__ inline int pad8(int e) { return (e + 7) / 8 * 8; }
+__host__ __device__ inline int pad16(int e) { return (e + 15) / 16 * 16; }
 
 // Four consecutive bfloat16 (8-byte aligned) as floats.
 __device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
@@ -343,7 +346,46 @@ struct ChainArgs {
   int table;                   // final-index offsets (forward) or dY run offsets
   int acc;                     // transposed, Q tiled: the (t_m, t_k) sum of dX
   long long smem;              // bytes
+  // The float32 forward on the tensor cores (3xTF32, chain_tf32_kernel):
+  // row-major states in the two buffers, split panels, no slot.
+  int tc;
+  int ldu[kMaxFactors];        // row stride of state i: pad16(p_i) + 4
+  int csf[kMaxFactors];        // s_i / p_{i+1} where p_{i+1} divides s_i, else 0
+  float rs[kMaxFactors];       // 1 / s_i
 };
+
+constexpr int kTcMinDim = 8;  // the smallest p and Q-tile of a factor on the tensor cores
+
+// The float32 forward chain's layout on the tensor cores at block tile
+// (t_m, t_k), every region rounded to 16 bytes: two buffers, each as large
+// as the largest row-major state i (pad16(t_m s_i) rows of pad16(p_i) + 4
+// floats: x lands in state 0 straight from the copies, and a warp's
+// fragment loads fall in distinct banks); the split panel of every factor's
+// Q-tile, hi and lo (2 pad8(p_i) pad8(tq_i) floats); the final-index table
+// (one int per slice of the last state).  Fills the offsets and strides of
+// `a` when given; returns bytes.
+inline long long tc_chain_layout(ChainArgs* a, const int* ps, const int* tqs, int n, int t_m,
+                                 int t_k) {
+  long long cols = t_k, state = 0, s = 0;
+  for (int i = 0; i < n; ++i) {
+    s = cols / ps[i];
+    const long long st = round16(4LL * pad16(static_cast<int>(t_m * s)) * (pad16(ps[i]) + 4));
+    if (st > state) state = st;
+    if (a) a->ldu[i] = pad16(ps[i]) + 4;
+    cols = s * tqs[i];
+  }
+  long long off = 2 * state;
+  if (a) {
+    a->buf[0] = 0;
+    a->buf[1] = static_cast<int>(state);
+  }
+  for (int i = 0; i < n; ++i) {
+    if (a) a->pan[i] = static_cast<int>(off);
+    off += round16(8LL * pad8(ps[i]) * pad8(tqs[i]));
+  }
+  if (a) a->table = static_cast<int>(off);
+  return off + round16(4 * s);
+}
 
 // Host side: fill the arguments of one launch of the given kind.  Returns
 // cudaSuccess or cudaErrorInvalidValue for a tile the kernel cannot take.
@@ -408,7 +450,29 @@ inline int chain_args(ChainArgs* a, int kind, int dtype, const void* io, const v
     off += round16(bytes);
     return at;
   };
-  if (kind == kChainFwd) {
+  // float32 forward chains whose factors and Q-tiles are at least 8 wide
+  // (below that the mma tiles' padding loses to the CUDA cores) and whose
+  // layout leaves room for a second block at the smallest tile run on the
+  // tensor cores (the split panels take twice the CUDA cores' room, so a
+  // stage of wide factors keeps its two blocks an SM there).
+  bool small = false;
+  for (int i = 0; i < n; ++i) small = small || ps[i] < kTcMinDim || tqs[i] < kTcMinDim;
+  a->tc = kind == kChainFwd && dtype == 0 && !small &&
+          tc_chain_layout(nullptr, ps, tqs, n, 1, static_cast<int>(pprod)) <=
+              static_cast<long long>(kTwoBlockSmemBytes);
+  if (a->tc) {
+    // The slab's rows of t_k at row * K + kt * t_k, in chunks that stay
+    // inside one slice (p_0): each lands in its own row of state 0.
+    a->vec = chunk_bytes({K * isz, static_cast<long long>(t_k) * isz,
+                          static_cast<long long>(ps[0]) * isz, reinterpret_cast<long long>(io)});
+    a->nch = t_k / (a->vec ? a->vec / isz : 1);
+    off = tc_chain_layout(a, ps, tqs, n, t_m, t_k);
+    for (int i = 0; i < n; ++i) {
+      a->csf[i] = i + 1 < n && a->s[i] % ps[i + 1] == 0 ? a->s[i] / ps[i + 1] : 0;
+      a->rs[i] = 1.0f / a->s[i];
+    }
+    a->acc = 0;
+  } else if (kind == kChainFwd) {
     // The slab's rows of t_k at row * K + kt * t_k.
     a->vec = chunk_bytes({K * isz, static_cast<long long>(t_k) * isz, reinterpret_cast<long long>(io)});
     a->nch = t_k / (a->vec ? a->vec / isz : 1);
@@ -622,6 +686,177 @@ __device__ __forceinline__ void mma_tile_t(float (&d)[4], const __nv_bfloat16* a
     frag_a_t(af, a + kc * 16 * lda, lda);
     frag_b(bf, b + kc * 16, ldb);
     mma_bf16_16816(d, af, bf);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The 3xTF32 tensor-core step (chain_fwd.cu's chain_tf32_kernel, grad.cu's
+// grad_tf32_kernel)
+// ---------------------------------------------------------------------------
+
+// Columns [q0, q0 + nq) of a factor F (p x q) as the B operand (K x N) of a
+// chain step, split once: B[k][n] = F[k][q0 + n] (forward: K = p, N = nq) or
+// F[n][q0 + k] (transposed: K = nq, N = p), zero outside.  Fragment order:
+// for k-chunk kc and n-tile nt, lane l holds {hi B[k][n], hi B[k+4][n], lo
+// B[k][n], lo B[k+4][n]} (k = 8 kc + l % 4, n = 8 nt + l / 4) at
+// dst[(kc * pad8(N) / 8 + nt) * 32 + l].
+__device__ inline void tc_panel(const float* __restrict__ f, int p, int q, int q0, int nq,
+                                bool transposed, float4* dst) {
+  const int kd = transposed ? nq : p, nd = transposed ? p : nq;
+  const int nts = pad8(nd) / 8, total = pad8(kd) / 8 * nts * 32;
+  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+    const int lane = idx & 31, frag = idx >> 5;
+    const int kc = frag / nts, nt = frag - kc * nts;
+    const int k = kc * 8 + (lane & 3), nn = nt * 8 + (lane >> 2);
+    float v[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kk = k + 4 * h;
+      if (nn < nd && kk < kd) v[h] = transposed ? f[nn * q + q0 + kk] : f[kk * q + q0 + nn];
+    }
+    unsigned hi[2], lo[2];
+    split_tf32(v[0], hi[0], lo[0]);
+    split_tf32(v[1], hi[1], lo[1]);
+    dst[idx] = make_float4(__uint_as_float(hi[0]), __uint_as_float(hi[1]),
+                           __uint_as_float(lo[0]), __uint_as_float(lo[1]));
+  }
+}
+
+// Sinks of a chain step's output (r = m * s + sl, column c).  row(r) works
+// out a row's target once; put(row, c, v0, v1, both) stores the pair (c, c +
+// 1), the second only when `both`.  Where the shapes allow (cs), a column's
+// address is the row's base plus a multiple of c.
+struct TcRow {
+  long long base;
+  int m, sl;
+};
+
+// The forward step, out = u_i F_i into the row-major u_{i+1} (the forward
+// chain's states, and grad.cu's remat): col = c * s + sl, (j, f) =
+// divmod(col, pn), at (m * sn + j) * ld + f (cs = s / pn where pn divides s:
+// then a column's address is the row's plus c * cs * ld).
+struct TcFwdSink {
+  float* u;
+  int s, pn, sn, ld, cs;
+  float rs, rpn;
+  __device__ __forceinline__ TcRow row(int r) const {
+    const int m = div_fast(r, s, rs), sl = r - m * s;
+    if (!cs) return {0, m, sl};
+    const int h = div_fast(sl, pn, rpn);
+    return {static_cast<long long>((m * sn + h) * ld + sl - h * pn), m, sl};
+  }
+  __device__ __forceinline__ void put1(const TcRow& w, int c, float v) const {
+    if (cs) {
+      u[static_cast<int>(w.base) + c * cs * ld] = v;
+    } else {
+      const int col = c * s + w.sl, j = div_fast(col, pn, rpn);
+      u[(w.m * sn + j) * ld + col - j * pn] = v;
+    }
+  }
+  __device__ __forceinline__ void put(const TcRow& w, int c, float v0, float v1, bool both) const {
+    put1(w, c, v0);
+    if (both) put1(w, c + 1, v1);
+  }
+};
+
+// One chain step on the tensor cores with warp tiles of WM x WN mma tiles:
+// out[r][c] = sum_{k < depth} A[r][k] B[k][c] for r < rows, c < cols.  A is
+// a state in shared memory (element (r, k) at A[r * ars + k * aks]), split
+// as its fragments load; B a split panel of pad8(cols) columns.  A warp tile
+// at the ragged edge repeats the last mma tile instead of skipping it, so
+// that every mma runs under warp-uniform control; the products go out in
+// three passes over the warp tile (lo*hi, hi*lo, hi*hi: the small products
+// first; the lo*lo product, under 2^-22 of the whole, is left out).  The
+// step runs on nw warps; `warp` (< nw) is the warp's index among them,
+// uniform across its lanes.
+template <int WM, int WN, typename Sink>
+__device__ __forceinline__ void tc_step_wt(int warp, int nw, const float* A, int ars, int aks,
+                                           int rows, int depth, const float4* B, int cols,
+                                           const Sink& sink) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int mtiles = (rows + 15) >> 4, ntiles = (cols + 7) >> 3, kcs = (depth + 7) >> 3;
+  const int wn = (ntiles + WN - 1) / WN, work = (mtiles + WM - 1) / WM * wn;
+  for (int w = warp; w < work; w += nw) {
+    const int mi = w / wn, ni = w - mi * wn;
+    const float* pa[WM];
+    int nt[WN];
+#pragma unroll
+    for (int x = 0; x < WM; ++x) pa[x] = A + (min(mi * WM + x, mtiles - 1) * 16 + g) * ars + t * aks;
+#pragma unroll
+    for (int y = 0; y < WN; ++y) nt[y] = min(ni * WN + y, ntiles - 1);
+    float acc[WM][WN][4];
+#pragma unroll
+    for (int x = 0; x < WM; ++x)
+#pragma unroll
+      for (int y = 0; y < WN; ++y)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[x][y][e] = 0.f;
+    for (int kc = 0; kc < kcs; ++kc) {
+      const int ko = kc * 8 * aks;
+      unsigned ah[WM][4], al[WM][4], bh[WN][2], bl[WN][2];
+#pragma unroll
+      for (int x = 0; x < WM; ++x) {
+        const float* a = pa[x] + ko;
+        split_tf32(a[0], ah[x][0], al[x][0]);
+        split_tf32(a[8 * ars], ah[x][1], al[x][1]);
+        split_tf32(a[4 * aks], ah[x][2], al[x][2]);
+        split_tf32(a[8 * ars + 4 * aks], ah[x][3], al[x][3]);
+      }
+#pragma unroll
+      for (int y = 0; y < WN; ++y) {
+        const float4 v = B[(kc * ntiles + nt[y]) * 32 + lane];
+        bh[y][0] = __float_as_uint(v.x);
+        bh[y][1] = __float_as_uint(v.y);
+        bl[y][0] = __float_as_uint(v.z);
+        bl[y][1] = __float_as_uint(v.w);
+      }
+#pragma unroll
+      for (int x = 0; x < WM; ++x)
+#pragma unroll
+        for (int y = 0; y < WN; ++y) mma_tf32_1688(acc[x][y], al[x], bh[y]);
+#pragma unroll
+      for (int x = 0; x < WM; ++x)
+#pragma unroll
+        for (int y = 0; y < WN; ++y) mma_tf32_1688(acc[x][y], ah[x], bl[y]);
+#pragma unroll
+      for (int x = 0; x < WM; ++x)
+#pragma unroll
+        for (int y = 0; y < WN; ++y) mma_tf32_1688(acc[x][y], ah[x], bh[y]);
+    }
+#pragma unroll
+    for (int x = 0; x < WM; ++x) {
+      if (mi * WM + x >= mtiles) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = (mi * WM + x) * 16 + g + 8 * h;
+        if (r >= rows) continue;
+        const TcRow row = sink.row(r);
+#pragma unroll
+        for (int y = 0; y < WN; ++y) {
+          const int c = (ni * WN + y) * 8 + 2 * t;
+          if (ni * WN + y < ntiles && c < cols)
+            sink.put(row, c, acc[x][y][2 * h], acc[x][y][2 * h + 1], c + 1 < cols);
+        }
+      }
+    }
+  }
+}
+
+// The largest warp tile, no larger than the step, that still gives each of
+// the nw warps work: 2x4, 2x2, 1x2, else 1x1.
+template <typename Sink>
+__device__ __forceinline__ void tc_step(int warp, int nw, const float* A, int ars, int aks,
+                                        int rows, int depth, const float4* B, int cols,
+                                        const Sink& sink) {
+  const int mt = (rows + 15) >> 4, nt = (cols + 7) >> 3;
+  if (mt >= 2 && nt >= 4 && (mt + 1) / 2 * ((nt + 3) / 4) >= nw) {
+    tc_step_wt<2, 4>(warp, nw, A, ars, aks, rows, depth, B, cols, sink);
+  } else if (mt >= 2 && nt >= 2 && (mt + 1) / 2 * ((nt + 1) / 2) >= nw) {
+    tc_step_wt<2, 2>(warp, nw, A, ars, aks, rows, depth, B, cols, sink);
+  } else if (nt >= 2 && mt * ((nt + 1) / 2) >= nw) {
+    tc_step_wt<1, 2>(warp, nw, A, ars, aks, rows, depth, B, cols, sink);
+  } else {
+    tc_step_wt<1, 1>(warp, nw, A, ars, aks, rows, depth, B, cols, sink);
   }
 }
 

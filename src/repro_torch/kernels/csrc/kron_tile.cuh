@@ -20,6 +20,9 @@ namespace kron {
 constexpr int kMaxFactors = 16;
 constexpr int kRQ = 4;  // factor-panel columns of one vector
 constexpr size_t kMaxSmemBytes = 232448;  // 227 KB: one Hopper block's limit
+// A block that leaves room for a second on its SM: half of the SM's 228 KB,
+// less the 1 KB the runtime holds for each resident block.
+constexpr size_t kTwoBlockSmemBytes = 233472 / 2 - 1024;
 
 __device__ __forceinline__ float to_acc(float v) { return v; }
 __device__ __forceinline__ float to_acc(__nv_bfloat16 v) { return __bfloat162float(v); }

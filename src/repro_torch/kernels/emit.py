@@ -408,6 +408,7 @@ class ChainGeometry:
     block_m: int  # t_m': rows per block, divides the instruction's t_m
     block_k: int  # t_k': input columns per block, divides t_k
     direction: str  # "fwd" (chain_fwd.cu) or "bwd" (chain_bwd.cu)
+    tf32: bool = False  # the forward runs chain_tf32_kernel (chain_uses_tf32)
 
     @property
     def out_cols(self) -> int:
@@ -490,7 +491,7 @@ def grad_uses_mma(ps: Sequence[int], qs: Sequence[int], in_bytes: int) -> bool:
 
 
 _TC_ITEMS = 4  # kTcItems in csrc/grad.cu: 16 x 16 dF regions per warp in registers
-_TC_MIN_DIM = 8  # kTcMinDim in csrc/grad.cu: the smallest p and q on the tensor cores
+_TC_MIN_DIM = 8  # kron::kTcMinDim (csrc/kron_async.cuh): the smallest p and q on the tensor cores
 
 
 def _tc_regions(p: int, q: int) -> int:
@@ -572,6 +573,58 @@ def grad_uses_tf32(
     )
 
 
+def _chain_tf32_smem_bytes(t_m: int, t_k: int, ps: Sequence[int], t_qs: Sequence[int]) -> int:
+    """chain_fwd.cu's shared memory on the f32 tensor-core path
+    (``kron::tc_chain_layout``), in bytes, every region rounded to 16 bytes:
+    two buffers of the states in turn, each as large as the largest
+    row-major state i (``r16(t_m s_i)`` rows at stride ``r16(p_i) + 4``,
+    where ``s_0 = t_k / p_0`` and ``s_{i+1} = s_i t_q_i / p_{i+1}``); the
+    TF32-split panel of every factor's Q-tile, hi and lo (``2 r8(p_i)
+    r8(t_q_i)`` floats); the final-index table, one int per slice of the
+    last state.  No slot: x lands in state 0."""
+    s, cols = [], t_k
+    for p, tq in zip(ps, t_qs):
+        s.append(cols // p)
+        cols = cols // p * tq
+    state = max(_r16(4 * _r16(t_m * si) * (_r16(p) + 4)) for p, si in zip(ps, s))
+    panels = sum(_r16(8 * _r8(p) * _r8(tq)) for p, tq in zip(ps, t_qs))
+    return 2 * state + panels + _r16(4 * s[-1])
+
+
+def chain_uses_tf32(
+    ps: Sequence[int], qs: Sequence[int], in_bytes: int, acc_bytes: int = 4
+) -> bool:
+    """chain_fwd.cu runs a forward stage on the tensor cores in 3xTF32
+    (chain_tf32_kernel) when it is float32 (input and accumulator), every
+    factor is at least 8 x 8 (``_TC_MIN_DIM``: smaller ones pad the mma
+    tiles more than the tensor cores gain) and its layout leaves room for a
+    second block at the smallest tile (``t_m'=1, t_k'=prod(ps)``,
+    ``_chain_tf32_smem_bytes`` within ``TWO_BLOCK_SMEM_BYTES``: the split
+    panels take twice the CUDA cores' room, and a stage of wide factors,
+    such as (64, 40) -> (128, 76), keeps two blocks an SM on the CUDA
+    cores).  Other stages run on the CUDA cores (chain_fwd_kernel): bf16,
+    f64, and those f32 ones.  ``qs`` are the widths the kernel multiplies
+    by: a Q-tiled stage passes its Q-tiles, and one whose Q-tile is under 8
+    stays on the CUDA cores."""
+    return (
+        in_bytes == 4 and acc_bytes == 4
+        and min(*ps, *qs) >= _TC_MIN_DIM
+        and _chain_tf32_smem_bytes(1, math.prod(ps), ps, qs) <= TWO_BLOCK_SMEM_BYTES
+    )
+
+
+def chain_kernel_name(
+    ps: Sequence[int], qs: Sequence[int], in_bytes: int, acc_bytes: int = 4
+) -> str:
+    """The kernel chain_fwd.cu launches for a forward stage (``qs``: its
+    Q-tiles where Q is tiled): ``chain_tf32_kernel`` (``chain_uses_tf32``)
+    or ``chain_fwd_kernel<T, Acc>`` on the CUDA cores."""
+    if chain_uses_tf32(ps, qs, in_bytes, acc_bytes):
+        return "chain_tf32_kernel"
+    t = {2: "__nv_bfloat16", 4: "float", 8: "double"}[in_bytes]
+    return f"chain_fwd_kernel<{t}, {'double' if acc_bytes == 8 else 'float'}>"
+
+
 def grad_kernel_name(
     ps: Sequence[int], qs: Sequence[int], in_bytes: int, acc_bytes: int = 4
 ) -> str:
@@ -627,7 +680,10 @@ def _grad_smem_bytes(t_m, t_k, ps, qs, acc_bytes, in_bytes) -> int:
 
 def _chain_smem_bytes(kind, t_m, t_k, ps, t_qs, acc_bytes, in_bytes, q_tiled) -> int:
     """chain_fwd.cu's / chain_bwd.cu's shared memory (``kron::chain_args``),
-    in bytes, every region rounded to 16 bytes."""
+    in bytes, every region rounded to 16 bytes; the f32 forward on the
+    tensor cores (``chain_uses_tf32``) is ``_chain_tf32_smem_bytes``."""
+    if kind == "chain_fwd" and chain_uses_tf32(ps, t_qs, in_bytes, acc_bytes):
+        return _chain_tf32_smem_bytes(t_m, t_k, ps, t_qs)
     n = len(ps)
     s, c = [], [t_k]
     for p, tq in zip(ps, t_qs):
@@ -669,7 +725,9 @@ def block_smem_bytes(
     x slab in the input dtype; the two buffers of the chain states ``0 ..
     n-1`` in turn, each ``(t_m, p_i, s_i | 1)`` in the accumulator type;
     every factor's ``(p_i, t_q_i)`` panel, columns padded to 8; the
-    final-index table, one int per slice of the last state.
+    final-index table, one int per slice of the last state.  f32 stages on
+    the tensor cores (``chain_uses_tf32``) lay out row-major states and
+    split panels instead: ``_chain_tf32_smem_bytes``.
 
     ``kind="chain_bwd"`` (chain_bwd.cu): two slots of the flat dY block
     ``(t_m, c_n)`` in the input dtype (``c_0 = t_k``, ``c_{i+1} = t_q_i *
@@ -829,7 +887,8 @@ def _chain_geometry(
         t_m, t_k, ps, t_qs, acc_bytes, kind=f"chain_{direction}",
         q_tiled=direction == "bwd" and t_qs != qs, in_bytes=in_bytes,
     )
-    return ChainGeometry(b, m, k, ps, qs, t_qs, block_m, block_k, direction)
+    tf32 = direction == "fwd" and chain_uses_tf32(ps, t_qs, in_bytes, acc_bytes)
+    return ChainGeometry(b, m, k, ps, qs, t_qs, block_m, block_k, direction, tf32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -962,6 +1021,8 @@ def _chain(wrapper, inp, factors, geo: ChainGeometry, acc, out_cols: int) -> tor
         (code, geo.ps, geo.qs, geo.t_qs, len(geo.ps), geo.m, geo.k, geo.block_m, geo.block_k),
         geo.tiles,
     )
+    if geo.tf32:
+        _launch.launches["chain_tf32"] += 1
     return out
 
 
@@ -1335,6 +1396,8 @@ __all__ = [
     "grad_geometry",
     "grad_live_elems",
     "grad_uses_tf32",
+    "chain_uses_tf32",
+    "chain_kernel_name",
     "grad_kernel_name",
     "block_tile",
     "block_smem_bytes",

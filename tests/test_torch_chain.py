@@ -154,11 +154,18 @@ def test_chain_kinds_raise_when_no_block_tile_fits(kind):
 
 
 def test_chain_smem_models_count_every_region():
-    # The Figure 9 stage at t_m'=1, t_k'=8192 in f32, by hand.  Forward: the
-    # raw x slot (8192), states 0 and 1 (32 rows of 256 slices at stride
-    # 257), both 32 x 32 panels, the table of 256 final offsets (ints).
+    # The Figure 9 stage at t_m'=1, t_k'=8192, by hand.  Forward in bf16 on
+    # the CUDA cores: the raw x slot (8192), states 0 and 1 (32 rows of 256
+    # slices at stride 257), both 32 x 32 panels, the table of 256 final
+    # offsets (ints).
+    assert TE.block_smem_bytes(1, 8192, (32, 32), (32, 32), 4, kind="chain_fwd",
+                               in_bytes=2) == (
+        8192 * 2 + 2 * 32 * 257 * 4 + 2 * 32 * 32 * 4 + 256 * 4)
+    # Forward in f32 on the tensor cores: no slot; two buffers of a
+    # row-major state (256 rows of 32 + 4), both panels split (hi and lo),
+    # the table.
     assert TE.block_smem_bytes(1, 8192, (32, 32), (32, 32), 4, kind="chain_fwd") == (
-        8192 * 4 + 2 * 32 * 257 * 4 + 2 * 32 * 32 * 4 + 256 * 4)
+        2 * 256 * 36 * 4 + 2 * 2 * 32 * 32 * 4 + 256 * 4)
     # Transposed: two dY slots (8192), the flat G_1 (8192), both transposed
     # panels, the table of 1024 runs of 8 elements.
     assert TE.block_smem_bytes(1, 8192, (32, 32), (32, 32), 4, kind="chain_bwd") == (
@@ -184,3 +191,164 @@ def test_chain_geometry_reports_the_walk():
     assert bwd.k == 256 and bwd.tiles == 3 * 4 * 8
     assert TE.chain_tile_coords(geo, 4 * 8 + 5) == (0, 1, 0, 5)
     assert TE.chain_tile_coords(bwd, 4 * 8 * 2 + 9) == (2, 0, 1, 1)
+
+
+# ---------------------------------------------------------------------------
+# The f32 forward chain on the tensor cores (chain_tf32_kernel, 3xTF32)
+# ---------------------------------------------------------------------------
+
+
+def _mesh_round_stages():
+    """The launches of the mesh cell's two rounds at P = 32 on a 4-row slab
+    of one card's stripe (K = 2^28): round 0 chains five factors, round 1
+    one."""
+    from repro_torch.core import distributed
+
+    ps = (32,) * 5
+    out = [ins for ins, _ in distributed._round_instrs(4, 2 ** 28, ps, ps, False, 4, 4)]
+    out += [ins for ins, _ in distributed._round_instrs(4, 2 ** 28, (32,), (32,), False, 4, 4)]
+    return out
+
+
+def test_mesh_rounds_chain_two_stages_of_two_and_two_of_one():
+    assert [ins.ps for ins in _mesh_round_stages()] == [(32, 32), (32, 32), (32,), (32,)]
+
+
+@pytest.mark.parametrize(
+    "ps,qs,in_bytes,acc_bytes,want",
+    [
+        ((32, 32), (32, 32), 4, 4, "chain_tf32_kernel"),  # fig9's stage
+        ((16, 16), (16, 16), 4, 4, "chain_tf32_kernel"),  # gp16's stage
+        ((32,), (32,), 4, 4, "chain_tf32_kernel"),  # the mesh rounds' single factor
+        ((65,), (20,), 4, 4, "chain_tf32_kernel"),  # odd P and Q, padded
+        ((65, 52), (20, 50), 4, 4, "chain_tf32_kernel"),
+        ((8, 8, 8), (8, 8, 8), 4, 4, "chain_tf32_kernel"),  # the smallest factors it takes
+        ((16, 16), (16, 8), 4, 4, "chain_tf32_kernel"),  # a Q-tile of 8
+        ((16, 16), (16, 4), 4, 4, "chain_fwd_kernel<float, float>"),  # a Q-tile under 8
+        ((4, 4), (4, 4), 4, 4, "chain_fwd_kernel<float, float>"),  # under 8 x 8
+        ((8, 4), (8, 8), 4, 4, "chain_fwd_kernel<float, float>"),
+        # The split panels leave no room for a second block even at the
+        # smallest tile: the CUDA cores keep two.
+        ((40, 64), (76, 128), 4, 4, "chain_fwd_kernel<float, float>"),
+        ((32, 32), (32, 32), 2, 4, "chain_fwd_kernel<__nv_bfloat16, float>"),  # bf16 input
+        ((32, 32), (32, 32), 4, 8, "chain_fwd_kernel<float, double>"),  # an f64 accumulator
+        ((32, 32), (32, 32), 8, 8, "chain_fwd_kernel<double, double>"),  # float64
+    ],
+)
+def test_forward_chain_kernel_follows_dtype_and_factor_shapes(ps, qs, in_bytes, acc_bytes, want):
+    # chain_fwd.cu picks its kernel from what the stage shows: f32 stages
+    # whose factors and Q-tiles are at least 8 wide, and whose layout keeps
+    # two blocks an SM, run on the tensor cores in 3xTF32; the rest on the
+    # CUDA cores.
+    assert TE.chain_kernel_name(ps, qs, in_bytes, acc_bytes) == want
+    assert TE.chain_uses_tf32(ps, qs, in_bytes, acc_bytes) == (want == "chain_tf32_kernel")
+
+
+def test_the_cells_f32_stages_take_the_tensor_cores():
+    # kron32x4-m1024-train and kron32x4-m1-fwd (fig9's factors at M = 1024
+    # and 1), ski16x6-epoch (gp16), ski32x6-mesh4 (the rounds' stages).
+    for m, ps in ((1024, (32,) * 4), (1, (32,) * 4), (16, (16,) * 6)):
+        op = KronOp(ps, ps, m=m, dtype_bytes=4)
+        instrs = _lowered(op.plan, op.ps, op.qs).instrs
+        assert instrs and all(TE.chain_uses_tf32(ins.ps, ins.t_qs or ins.qs, 4) for ins in instrs)
+    assert all(TE.chain_uses_tf32(ins.ps, ins.t_qs or ins.qs, 4) for ins in _mesh_round_stages())
+    # kronffn-decode's stages are bf16: the CUDA cores.
+    assert not TE.chain_uses_tf32((64, 40), (128, 76), 2)
+
+
+@pytest.mark.parametrize(
+    "t_m,t_k,ps,t_qs,want",
+    [
+        # fig9's stage at t_m'=1, t_k'=8192: two buffers of 256 rows of 32 + 4
+        # floats, both panels split (hi and lo, 32 x 32 each), 256 ints.
+        (1, 8192, (32, 32), (32, 32), 2 * 256 * 36 * 4 + 2 * 2 * 32 * 32 * 4 + 256 * 4),
+        # gp16's: 512 rows of 16 + 4, two 16 x 16 panels, 512 ints.
+        (1, 8192, (16, 16), (16, 16), 2 * 512 * 20 * 4 + 2 * 2 * 16 * 16 * 4 + 512 * 4),
+        # The mesh round's single factor: one panel, 256 slices.
+        (1, 8192, (32,), (32,), 2 * 256 * 36 * 4 + 2 * 32 * 32 * 4 + 256 * 4),
+        # Odd sizes: 3 rows of 5 slices padded to 16 rows of 80 + 4; the
+        # panel padded to 72 x 24; 5 ints (20 -> 32 bytes).
+        (3, 325, (65,), (20,), 2 * 16 * 84 * 4 + 2 * 72 * 24 * 4 + 32),
+        # Two odd factors: state 0 (104 rows of 65) is the larger; 20 ints.
+        (2, 3380, (65, 52), (20, 50), 2 * 112 * 84 * 4 + 2 * (72 * 24 + 56 * 56) * 4 + 80),
+        # Q-tiles (16, 8) shrink the later states and panels; the buffers
+        # take the largest state (512 rows of 16 + 4).
+        (2, 4096, (16, 16), (16, 8), 2 * 512 * 20 * 4 + 2 * (16 * 16 + 16 * 8) * 4 + 256 * 4),
+    ],
+)
+def test_chain_tf32_smem_model_counts_every_region(t_m, t_k, ps, t_qs, want):
+    assert TE._chain_tf32_smem_bytes(t_m, t_k, ps, t_qs) == want
+    assert TE.block_smem_bytes(t_m, t_k, ps, t_qs, 4, kind="chain_fwd",
+                               q_tiled=t_qs != ps) == want
+
+
+@pytest.mark.parametrize(
+    "m,k,ps,t_m,t_k",
+    [
+        (1024, 2 ** 20, (32, 32), 1, 8192),  # fig9's stage
+        (16, 16 ** 6, (16, 16), 1, 8192),  # gp16's
+        (4, 2 ** 28, (32, 32), 4, 8192),  # the mesh round's, a 4-row slab
+        (4, 2 ** 28, (32,), 4, 8192),
+        (1, 2 ** 20, (32, 32), 1, 8192),  # one row
+    ],
+)
+def test_tf32_block_tiles_keep_two_blocks_an_sm(m, k, ps, t_m, t_k):
+    geo = TE.chain_geometry((1, m, k), [(1, p, p) for p in ps], t_m=t_m, t_k=t_k, in_bytes=4)
+    assert TE.chain_uses_tf32(ps, ps, 4)
+    assert (geo.block_m, geo.block_k) == (1, 8192)
+    assert _smem(geo, 4) <= TE.TWO_BLOCK_SMEM_BYTES
+
+
+def test_plain_tf32_control_rounds_as_the_split_and_reads_worse():
+    # The chip check's control (hi*hi alone): each step's operands rounded
+    # to TF32 as cvt.rna rounds them.  On the CPU it reads about a thousand
+    # times worse than the float32 chain, against float64.
+    g = torch.Generator().manual_seed(32)
+    v = torch.randn(4096, generator=g) * torch.logspace(-3, 3, 4096)
+    r = SMOKE.tf32_rounded(v)
+    bits = r.view(torch.int32)
+    assert bool(((bits & 0x1FFF) == 0).all())  # 10 explicit mantissa bits left
+    assert float(((r - v).abs() / v.abs()).max()) <= 2.0 ** -11  # to nearest
+    halfway = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11)])
+    assert SMOKE.tf32_rounded(halfway).tolist() == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10)]
+    x = torch.randn(1, 4, 32 * 32 * 8, generator=g)
+    fs = [torch.randn(1, 32, 32, generator=g) for _ in range(2)]
+    ref = TE.chain_reference(x.double(), *(f.double() for f in fs))
+    f32 = SMOKE.compare(TE.chain_reference(x, *fs), ref)[1]
+    control = SMOKE.compare(SMOKE.plain_tf32_chain(x, fs), ref)[1]
+    assert f32 < 1e-6 and control > 1e-4 and control > 100 * SMOKE.TF32_ERR_RATIO * f32
+
+
+def test_cuda_core_q_tiles_keep_the_stage_off_the_tensor_cores():
+    for _, m, ps, qs, s in SMOKE.CHAIN_TF32_CASES:
+        t_qs = SMOKE.cuda_core_t_qs(qs)
+        assert all(q % t == 0 and t < TE._TC_MIN_DIM for q, t in zip(qs, t_qs))
+        assert TE.chain_uses_tf32(ps, qs, 4) and not TE.chain_uses_tf32(ps, t_qs, 4)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: csrc/chain_fwd.cu runs only there")
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # the twins in full float32
+    yield torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,m,ps,qs,s", SMOKE.CHAIN_TF32_CASES,
+                         ids=[c[0] for c in SMOKE.CHAIN_TF32_CASES])
+def test_f32_chain_on_the_tensor_cores_reads_as_float32(card, name, m, ps, qs, s):
+    # Against the float64 twin, the 3xTF32 chain is within TF32_ERR_RATIO of
+    # the CUDA-core kernel on the same inputs, and the plain-TF32 control
+    # (hi*hi alone) is not; each tensor-core launch counts once under
+    # chain_tf32, the CUDA-core one not at all.
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(32)
+    e = SMOKE.tf32_chain_errors(gen, m, ps, qs, s)
+    assert e["tensor_cores_kernel"] == "chain_tf32_kernel"
+    assert e["cuda_cores_kernel"] == "chain_fwd_kernel<float, float>"
+    assert e["tensor_cores_tf32_launches"] == 1 and e["cuda_cores_tf32_launches"] == 0
+    assert e["tensor_cores"] <= SMOKE.TF32_ERR_RATIO * e["cuda_cores"], e
+    assert e["control"] > SMOKE.TF32_ERR_RATIO * e["cuda_cores"], e
