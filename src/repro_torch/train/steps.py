@@ -21,6 +21,12 @@ each rank adds its rows' part, and the vocabulary-split cross-entropy sums
 its softmax over the model axis.  ``microbatches`` split each rank's own
 rows, so a MoE model's aux loss is taken over a rank's microbatch rather
 than over the global one.
+
+Tracing (``runtime/telemetry.py``): the loss's log-softmax and gather run
+in a ``loss`` span, the optimizer's update in an ``optim`` span, and each
+train step adds its tokens to the counter ``train.tokens`` and the
+parameter elements it updates to ``optim.elements`` (this rank's, on a
+mesh).
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ from ..optim import shampoo as _shampoo
 from ..optim.adamw import OptConfig, opt_init
 from ..optim.shampoo import ShampooConfig, opt_for
 from ..runtime import sharding as S
+from ..runtime import telemetry
 
 
 class TrainState(NamedTuple):
@@ -206,7 +213,8 @@ def loss_fn(
     n_fe = cfg.n_frontend_tokens if embeds is not None else 0
     logits = logits[:, n_fe:, :]
     n_tok = labels.numel() * S.batch_shards()
-    nll = _nll_sum(logits, labels, M.logits_split(cfg, S.ambient_mesh())) / n_tok
+    with telemetry.span("loss"):
+        nll = _nll_sum(logits, labels, M.logits_split(cfg, S.ambient_mesh())) / n_tok
     return nll + aux_weight * aux, {"nll": nll, "aux": aux}
 
 
@@ -286,7 +294,11 @@ def make_train_step(
             parts = {"nll": loss, "aux": torch.zeros((), dtype=torch.float32,
                                                      device=loss.device)}
 
-        new_params, new_opt, opt_metrics = update_fn(grads, state.opt, params, opt_cfg)
+        with telemetry.span("optim"):
+            new_params, new_opt, opt_metrics = update_fn(grads, state.opt, params, opt_cfg)
+        if telemetry.active():
+            telemetry.counter_inc("train.tokens", tokens.numel())
+            telemetry.counter_inc("optim.elements", sum(p.numel() for p in tree.leaves(params)))
         metrics = {"loss": loss, **parts, **opt_metrics}
         return TrainState(new_params, new_opt, state.step + 1), metrics
 
